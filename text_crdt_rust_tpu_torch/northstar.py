@@ -1,0 +1,139 @@
+"""The north-star replay on the port: a whole editing trace replayed into
+a batch of identical documents by the run-block replay.
+
+The pipeline of the JAX package's ``bench.py`` ``cfg_northstar`` (its C++
+native baseline left out): load the trace, RLE-merge its patches, compile
+them into op tensors, fuse steps (W-row bursts, replace pairs), replay on
+``batch`` lanes x ``groups`` doc groups, expand doc 0 to a ``FlatDoc`` and
+check its text against the trace's ``endContent``.
+
+    python -m text_crdt_rust_tpu_torch.northstar [--batch 512] [--device cpu]
+
+prints one JSON line with the step counts and whether every group's
+doc 0 reproduced the trace (``chip_smoke.py`` times the replay).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import List, Optional
+
+import torch
+
+from . import resolve_device
+from .ops import batch as B
+from .ops import span_arrays as SA
+from .ops.rle import RleResult, make_replayer_rle, rle_to_flat
+from .utils.testdata import flatten_patches, load_testing_data, trace_path
+
+
+@dataclasses.dataclass
+class NorthstarStream:
+    """A compiled trace: the op stream and what it must reproduce."""
+
+    ops: B.OpTensors
+    want: str             # text the replay must end with
+    n_patches: int        # original patches (the ops/s numerator)
+    steps_merged: int     # steps after merge_patches + compile
+    fuse: Optional[B.FuseStats]
+
+    @property
+    def steps(self) -> int:
+        return self.ops.num_steps
+
+
+@dataclasses.dataclass
+class NorthstarRun:
+    """One replay of a compiled trace."""
+
+    stream: NorthstarStream
+    results: List[RleResult]   # one per doc group
+    doc: SA.FlatDoc            # doc 0 of group 0, expanded
+    ok: bool                   # every group's doc 0 reproduced ``want``
+
+
+def apply_patches(patches) -> str:
+    """The text a patch list produces, by plain string splicing (the
+    oracle for trace prefixes, which have no shipped ``endContent``)."""
+    s = ""
+    for p in patches:
+        s = s[:p.pos] + p.ins_content + s[p.pos + p.del_len:]
+    return s
+
+
+def compile_northstar(trace: str = "automerge-paper",
+                      patches: Optional[int] = None,
+                      fuse_w: int = 8) -> NorthstarStream:
+    """Load and compile a trace (or its first ``patches`` patches):
+    ``merge_patches`` -> ``compile_local_patches(lmax=longest insert)`` ->
+    ``fuse_steps(fuse_w)``."""
+    data = load_testing_data(trace_path(trace))
+    plist = flatten_patches(data)
+    if patches:
+        plist = plist[:patches]
+    want = data.end_content if not patches else apply_patches(plist)
+    merged = B.merge_patches(plist)
+    lmax = max([len(p.ins_content) for p in merged] + [1])
+    ops, _ = B.compile_local_patches(merged, lmax=lmax, dmax=None)
+    steps_merged = ops.num_steps
+    fstats = None
+    if fuse_w > 1:
+        ops, fstats = B.fuse_steps(ops, fuse_w=fuse_w)
+    return NorthstarStream(ops=ops, want=want, n_patches=len(plist),
+                           steps_merged=steps_merged, fuse=fstats)
+
+
+def make_northstar_replayer(stream: NorthstarStream, batch: int = 512,
+                            capacity: int = 20992, block_k: int = 128,
+                            groups: int = 1, device=None):
+    """The replayer of a compiled trace (``capacity`` rounded up to whole
+    blocks); every group replays the same stream."""
+    capacity = ((capacity + block_k - 1) // block_k) * block_k
+    return make_replayer_rle([stream.ops] * groups, capacity=capacity,
+                             batch=batch, block_k=block_k, device=device)
+
+
+def run_northstar(trace: str = "automerge-paper", batch: int = 512,
+                  capacity: int = 20992, block_k: int = 128, fuse_w: int = 8,
+                  groups: int = 1, patches: Optional[int] = None,
+                  device=None) -> NorthstarRun:
+    """Compile and replay a trace into ``batch`` x ``groups`` identical
+    documents, and check every group's doc 0 against the trace."""
+    dev = resolve_device(device)
+    stream = compile_northstar(trace, patches, fuse_w)
+    results = make_northstar_replayer(stream, batch, capacity, block_k,
+                                      groups, dev)()
+    docs = [rle_to_flat(stream.ops, r) for r in results]
+    ok = all(SA.to_string(d) == stream.want for d in docs)
+    return NorthstarRun(stream=stream, results=results, doc=docs[0], ok=ok)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trace", default="automerge-paper")
+    ap.add_argument("--batch", type=int, default=512)
+    ap.add_argument("--capacity", type=int, default=20992)
+    ap.add_argument("--block-k", type=int, default=128)
+    ap.add_argument("--fuse-w", type=int, default=8)
+    ap.add_argument("--groups", type=int, default=1)
+    ap.add_argument("--patches", type=int, default=0,
+                    help="replay only the first N patches (0 = all)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    run = run_northstar(args.trace, args.batch, args.capacity, args.block_k,
+                        args.fuse_w, args.groups, args.patches or None, dev)
+    print(json.dumps({
+        "trace": args.trace, "patches": run.stream.n_patches,
+        "steps": run.stream.steps, "steps_merged": run.stream.steps_merged,
+        "batch": args.batch, "groups": args.groups,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "ok": run.ok}))
+    return 0 if run.ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
