@@ -18,7 +18,23 @@
 5. At the main path's shapes: kernel against plain version once more,
    the plain version's time, and the kernel's median time over 3 runs
    after 1 warm-up (CUDA events), with ops/s and device steps.
-6. Prints ``{"kernels": [...]}`` and, as its last line,
+6. The mixed run replay (``rle_mixed_replay``) against its plain version
+   on the card, bit for bit on all eight outputs: a small delete storm
+   (K = 8), a mid storm (16 peers x 20 rounds, K = 32) with the fast
+   YATA scan and with the serial walk alone, a two-peer merge with
+   splits and mid-run cursors, a local-only stream, and a capacity
+   overflow that must raise ``err[0]``.
+7. Drives the storm path through its entry point, ``storm.run_storm()``:
+   the config-4 insert storm and its delete-heavy variant (16 peers x
+   200 rounds, 128 documents, K = 128), launch counts set to 0 just
+   before and read just after. It fails unless ``rle_mixed_replay``
+   launched at least twice, both texts equal the oracle receiver's and
+   every lane equals lane 0.
+8. At the storm shapes, per variant: host set-up (generation and
+   compile), kernel against plain version once more, the plain
+   version's time, the kernel's median over 3 runs after 1 warm-up
+   (CUDA events), char-ops/s, device steps and the bound.
+9. Prints ``{"kernels": [...]}`` (both kernels) and, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line; so does a host without
@@ -125,6 +141,67 @@ def compare_cases(B, northstar, randedit, TestPatch, np):
     return cases
 
 
+def mixed_compare_cases(B, storm, randedit, TestPatch, np):
+    """(label, ops, replayer kwargs, expected text or None, expected err
+    row or None) of the mixed replay's kernel-vs-plain phase."""
+    cases = []
+    txns, recv = randedit.make_storm(3, 4, 2, seed=7, del_prob=0.3)
+    cases.append(("small delete storm 3x4, B=16, K=8",
+                  storm.compile_storm_txns(txns, 2, 0.3),
+                  dict(capacity=256, batch=16, block_k=8, chunk=32),
+                  recv.to_string(), None))
+    txns, recv = randedit.make_storm(16, 20, 4, seed=7, del_prob=0.35)
+    mid = storm.compile_storm_txns(txns, 4, 0.35)
+    mid_cap = storm.storm_capacity(mid, 32)
+    for fast in (True, False):
+        cases.append((f"mid storm 16x20, {'fast' if fast else 'serial'} "
+                      f"scan, B=32, K=32", mid,
+                      dict(capacity=mid_cap, batch=32, block_k=32,
+                           chunk=128, fast_integrate=fast),
+                      recv.to_string(), None))
+    txns, recv = randedit.make_two_peer_merge(400)
+    two_peer, _ = B.compile_remote_txns(
+        txns, B.AgentTable(sorted({t.id.agent for t in txns})), lmax=4)
+    cases.append(("two-peer merge (serial fallback), B=16, K=8", two_peer,
+                  dict(capacity=1024, batch=16, block_k=8, chunk=32),
+                  recv.to_string(), None))
+    lp, lc = randedit.random_patches(np.random.default_rng(5), 120)
+    local, _ = B.compile_local_patches(B.merge_patches(lp), lmax=8)
+    cases.append(("local-only stream, B=16, K=8", local,
+                  dict(capacity=512, batch=16, block_k=8, chunk=128),
+                  lc, None))
+    full, _ = B.compile_local_patches([TestPatch(0, 0, "ab")] * 40, lmax=2)
+    cases.append(("block table full -> err[0]", full,
+                  dict(capacity=16, batch=8, block_k=8, chunk=64), None, 0))
+    return cases
+
+
+def all_lanes_equal(res) -> bool:
+    """Every lane of a replay result equals lane 0."""
+    return all(bool((t == t[:, :1]).all())
+               for t in (res.ordp, res.lenp, res.blkord, res.rows, res.meta,
+                         res.ol, res.orr, res.err))
+
+
+def mixed_bound(staged, shape):
+    """(bytes, operations) that one mixed replay must at least move and do:
+    each input read once and each output written once, and per lane one
+    K-row block plus the NBL slot prefixes for every step with work. The
+    kernel's passes over all CAP run rows (the fast scan's classification,
+    the delete's flip) are its own choice, not needed by the function, and
+    are not counted."""
+    S, Bn, CAP, K = (shape["steps"], shape["batch"], shape["capacity"],
+                     shape["block_k"])
+    NBL = max(8, CAP // K)
+    OTL = shape["order_rows"] * 128
+    nbytes = 4 * (9 * S + 3 * OTL + 2 * S * Bn + 2 * CAP * Bn
+                  + 2 * NBL * Bn + 16 * Bn)
+    kind, dlen, ilen = staged[0], staged[2], staged[7]
+    active = int(((dlen > 0) | (ilen > 0) | (kind == 2)).sum())
+    nops = Bn * active * (K + NBL)
+    return nbytes, nops
+
+
 def main() -> int:
     import torch
 
@@ -134,10 +211,11 @@ def main() -> int:
     try:
         import numpy as np
 
-        from text_crdt_rust_tpu_torch import northstar
+        from text_crdt_rust_tpu_torch import northstar, storm
         from text_crdt_rust_tpu_torch.ops import _kernels
         from text_crdt_rust_tpu_torch.ops import batch as B
         from text_crdt_rust_tpu_torch.ops import rle as R
+        from text_crdt_rust_tpu_torch.ops import rle_mixed as RM
         from text_crdt_rust_tpu_torch.ops import span_arrays as SA
         from text_crdt_rust_tpu_torch.utils import randedit
         from text_crdt_rust_tpu_torch.utils.testdata import TestPatch
@@ -241,7 +319,7 @@ def main() -> int:
         f"{Bn} docs); {active} device steps; plain version {plain_ms:.1f} "
         f"ms; bound {max(bytes_ms, ops_ms):.4f} ms; on {card}")
 
-    log(json.dumps({"kernels": [{
+    rle_line = {
         "name": "rle_replay",
         "route": "cuda",
         "source": "text_crdt_rust_tpu_torch/ops/csrc/rle_replay.cu",
@@ -258,7 +336,122 @@ def main() -> int:
         "bytes": nbytes,
         "ops_lower_bound": nops,
         "serial_steps": active,
-    }]}))
+    }
+
+    # -- the mixed replay against its plain version, small shapes ----------
+    mworst = 0
+    for label, ops, kw, want, expect_err in mixed_compare_cases(
+            B, storm, randedit, TestPatch, np):
+        rep = RM.make_replayer_rle_mixed(ops, device=dev, **kw)
+        plain = RM.rle_mixed_replay_plain(*rep.staged, **rep.shape)
+        kern = RM.rle_mixed_replay_cuda(*rep.staged, **rep.shape)
+        torch.cuda.synchronize()
+        err = max_abs_err(kern, plain)
+        mworst = max(mworst, err)
+        flags = kern[7][:3].amax(dim=1).tolist()
+        if expect_err is None:
+            text_ok = flags == [0, 0, 0] and SA.to_string(
+                R.rle_to_flat(ops, rep())) == want
+        else:
+            text_ok = flags[expect_err] == 1
+        log(f"compare mixed {label}: {ops.num_steps} steps, max_abs_err "
+            f"{err}, err flags {flags}, "
+            f"{'ok' if err == 0 and text_ok else 'FAILED'}")
+        if err != 0 or not text_ok:
+            raise AssertionError(f"mixed kernel disagrees on: {label}")
+
+    # -- the storm path, counted ------------------------------------------
+    variants = (("insert storm", 0.0), ("delete-heavy storm", 0.35))
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    runs = [storm.run_storm(del_prob=dp, device=dev) for _, dp in variants]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mlaunches = _kernels.launches.get("rle_mixed_replay", 0)
+    equal = [all_lanes_equal(r.result) for r in runs]
+    for (name, _), r, eq in zip(variants, runs, equal):
+        res = r.result
+        log(f"storm path: run_storm({name}) {len(r.stream.txns)} txns -> "
+            f"{r.stream.steps} device steps, B={res.batch}, capacity "
+            f"{res.ordp.shape[0]}, K={res.block_k}: text ok {r.ok}, all "
+            f"lanes equal {eq}")
+    log(f"storm path: launches {dict(_kernels.launches)}, host wall "
+        f"{wall:.2f} s for both (generation, compile, replay, readback)")
+    if mlaunches < 2 or not all(r.ok for r in runs) or not all(equal):
+        raise AssertionError(
+            f"storm path failed: rle_mixed_replay launches {mlaunches}, "
+            f"text ok {[r.ok for r in runs]}, lanes equal {equal}")
+
+    # -- the storm shapes: set-up, agreement and times ----------------------
+    per_variant = []
+    for (name, dp), r in zip(variants, runs):
+        t0 = time.perf_counter()
+        stream = storm.make_storm_stream(del_prob=dp)
+        setup_s = time.perf_counter() - t0
+        if stream.steps != r.stream.steps or stream.want != r.stream.want:
+            raise AssertionError(f"{name}: regenerated storm differs")
+        log(f"host set-up {name}: {setup_s:.2f} s (generation with the "
+            f"oracle + compile, {len(stream.txns)} txns -> "
+            f"{stream.steps} steps)")
+        rep = storm.make_storm_replayer(stream, device=dev)
+        staged, shape = rep.staged, rep.shape
+        t0 = time.perf_counter()
+        plain = RM.rle_mixed_replay_plain(*staged, **shape)
+        torch.cuda.synchronize()
+        mplain_ms = (time.perf_counter() - t0) * 1e3
+        kern = RM.rle_mixed_replay_cuda(*staged, **shape)
+        torch.cuda.synchronize()
+        err = max_abs_err(kern, plain)
+        mworst = max(mworst, err)
+        del plain, kern
+        log(f"compare {name} shape: max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"mixed kernel disagrees at the {name} "
+                                 f"shape")
+        mms = cuda_ms(torch,
+                      lambda: RM.rle_mixed_replay_cuda(*staged, **shape),
+                      reps=3)
+        mbytes, mops = mixed_bound(staged, shape)
+        b_ms = mbytes / PEAK_BYTES_PER_S * 1e3
+        o_ms = mops / PEAK_OPS_PER_S * 1e3
+        rate = stream.char_ops * shape["batch"] / (mms / 1e3)
+        log(f"replay {name}: median {mms:.3f} ms over 3 reps after 1 "
+            f"warm-up (CUDA events); {rate:.4g} char-ops/s "
+            f"({stream.char_ops} x {shape['batch']} docs); "
+            f"{stream.steps} device steps "
+            f"({mms * 1e3 / stream.steps:.2f} us each); plain version "
+            f"{mplain_ms:.1f} ms; bound {max(b_ms, o_ms):.4f} ms "
+            f"({mbytes} B, {mops} ops); on {card}")
+        per_variant.append(dict(
+            variant=name, steps=stream.steps, char_ops=stream.char_ops,
+            batch=shape["batch"], capacity=shape["capacity"], ms=mms,
+            plain_ms=mplain_ms, bound_ms=max(b_ms, o_ms),
+            bound_by="bytes" if b_ms >= o_ms else "operations",
+            bytes=mbytes, ops_lower_bound=mops, char_ops_per_s=rate,
+            setup_s=setup_s))
+
+    m_bytes_ms = sum(v["bytes"] for v in per_variant) / PEAK_BYTES_PER_S * 1e3
+    m_ops_ms = (sum(v["ops_lower_bound"] for v in per_variant)
+                / PEAK_OPS_PER_S * 1e3)
+    mixed_line = {
+        "name": "rle_mixed_replay",
+        "route": "cuda",
+        "source": "text_crdt_rust_tpu_torch/ops/csrc/rle_mixed_replay.cu",
+        "replaces": "text_crdt_rust_tpu/ops/rle_mixed.py:144",
+        "jax_counterpart":
+            "text_crdt_rust_tpu/ops/rle_mixed.py::_mixed_rle_kernel",
+        "launches": mlaunches,
+        "matches_plain": mworst == 0,
+        "max_abs_err": mworst,
+        # The storm path launches once per variant: its times add up.
+        "ms": sum(v["ms"] for v in per_variant),
+        "plain_ms": sum(v["plain_ms"] for v in per_variant),
+        "bound_ms": max(m_bytes_ms, m_ops_ms),
+        "bound_by": "bytes" if m_bytes_ms >= m_ops_ms else "operations",
+        "library_ms": None,
+        "variants": per_variant,
+    }
+    log(json.dumps({"kernels": [rle_line, mixed_line]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

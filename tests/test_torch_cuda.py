@@ -11,7 +11,9 @@ import torch
 
 from text_crdt_rust_tpu_torch.ops import _kernels
 from text_crdt_rust_tpu_torch.ops import batch as TB
+from text_crdt_rust_tpu_torch import storm
 from text_crdt_rust_tpu_torch.ops import rle as TR
+from text_crdt_rust_tpu_torch.ops import rle_mixed as TRM
 from text_crdt_rust_tpu_torch.utils import randedit
 from text_crdt_rust_tpu_torch.utils.testdata import TestPatch
 
@@ -66,6 +68,50 @@ def test_kernel_matches_plain(card, name):
     kern = TR.rle_replay_cuda(*rep.staged, **rep.shape)
     torch.cuda.synchronize()
     assert _kernels.launches["rle_replay"] == before + 1
+    for k, p in zip(kern, plain):
+        assert k.dtype == p.dtype and k.shape == p.shape
+        assert torch.equal(k, p)
+
+
+def _storm(n_peers, rounds, run_len, del_prob):
+    txns, _ = randedit.make_storm(n_peers, rounds, run_len, seed=7,
+                                  del_prob=del_prob)
+    return storm.compile_storm_txns(txns, run_len, del_prob)
+
+
+def _two_peer():
+    txns, _ = randedit.make_two_peer_merge(400)
+    table = TB.AgentTable(sorted({t.id.agent for t in txns}))
+    return TB.compile_remote_txns(txns, table, lmax=4)[0]
+
+
+MIXED_CASES = {
+    "small-delete-storm-k8": lambda: (_storm(3, 4, 2, 0.3),
+                                      dict(capacity=256, block_k=8)),
+    "mid-storm-k32": lambda: (_storm(16, 20, 4, 0.35),
+                              dict(capacity=1184, block_k=32)),
+    "mid-storm-k32-serial": lambda: (
+        _storm(16, 20, 4, 0.35),
+        dict(capacity=1184, block_k=32, fast_integrate=False)),
+    "two-peer-merge-k8": lambda: (_two_peer(),
+                                  dict(capacity=1024, block_k=8)),
+    "local-only-k8": lambda: (_random(7, 120),
+                              dict(capacity=512, block_k=8)),
+    "capacity-overflow": lambda: (
+        _compile([TestPatch(0, 0, "ab")] * 40), dict(capacity=16, block_k=8)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MIXED_CASES))
+def test_mixed_kernel_matches_plain(card, name):
+    ops, shape = MIXED_CASES[name]()
+    rep = TRM.make_replayer_rle_mixed(ops, batch=16, chunk=128, device=card,
+                                      **shape)
+    plain = TRM.rle_mixed_replay_plain(*rep.staged, **rep.shape)
+    before = _kernels.launches.get("rle_mixed_replay", 0)
+    kern = TRM.rle_mixed_replay_cuda(*rep.staged, **rep.shape)
+    torch.cuda.synchronize()
+    assert _kernels.launches["rle_mixed_replay"] == before + 1
     for k, p in zip(kern, plain):
         assert k.dtype == p.dtype and k.shape == p.shape
         assert torch.equal(k, p)

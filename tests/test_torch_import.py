@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from text_crdt_rust_tpu_torch import northstar, resolve_device
+from text_crdt_rust_tpu_torch import northstar, resolve_device, storm
 from text_crdt_rust_tpu_torch.ops import batch as TB
 from text_crdt_rust_tpu_torch.ops import rle as TR
+from text_crdt_rust_tpu_torch.ops import rle_mixed as TRM
 from text_crdt_rust_tpu_torch.ops import span_arrays as TSA
 from text_crdt_rust_tpu_torch.utils.testdata import TestPatch
 
@@ -43,13 +44,14 @@ def test_port_imports_with_jax_blocked():
         "    P.__path__, 'text_crdt_rust_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert 'text_crdt_rust_tpu_torch.ops.rle' in names\n"
-        "assert 'text_crdt_rust_tpu_torch.northstar' in names\n"
+        "for m in ('ops.rle', 'ops.rle_mixed', 'northstar', 'storm',\n"
+        "          'models.oracle', 'models.sync'):\n"
+        "    assert 'text_crdt_rust_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 10
+    assert int(out.stdout.split()[-1]) >= 15
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
@@ -70,6 +72,9 @@ def _ops():
     "make_replayer_rle",
     "replay_local_rle",
     "run_northstar",
+    "make_replayer_rle_mixed",
+    "replay_mixed_rle",
+    "run_storm",
 ])
 def test_entry_point_without_device_raises_on_cpu_host(entry):
     if torch.cuda.is_available():
@@ -83,6 +88,12 @@ def test_entry_point_without_device_raises_on_cpu_host(entry):
             _ops(), capacity=64, batch=2, block_k=8),
         "run_northstar": lambda: northstar.run_northstar(
             patches=10, batch=2, capacity=64, block_k=8),
+        "make_replayer_rle_mixed": lambda: TRM.make_replayer_rle_mixed(
+            _ops(), capacity=64, batch=2, block_k=8),
+        "replay_mixed_rle": lambda: TRM.replay_mixed_rle(
+            _ops(), capacity=64, batch=2, block_k=8),
+        "run_storm": lambda: storm.run_storm(
+            n_peers=2, rounds=2, batch=2, block_k=8),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -94,6 +105,17 @@ def test_cpu_is_used_only_when_asked():
                               device="cpu")
     assert res.ordp.device.type == "cpu"
     assert np.asarray(res.lenp[0]).tolist() == [2, 2]
+    res = TRM.replay_mixed_rle(_ops(), capacity=64, batch=2, block_k=8,
+                               device="cpu")
+    assert res.ordp.device.type == "cpu"
+    assert np.asarray(res.lenp[0]).tolist() == [2, 2]
+
+
+@pytest.mark.parametrize("replay", [TR.rle_replay, TRM.rle_mixed_replay])
+def test_replay_refuses_other_devices(replay):
+    col = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no replay for device"):
+        replay(*[col] * 5)
 
 
 def _smoke(cwd):

@@ -6,16 +6,25 @@ JAX package it is held against. Plain tensor code is PyTorch; every
 Pallas kernel of the JAX package becomes a CUDA C++ kernel for Hopper
 (``ops/csrc/``), built at first use by ``ops/_kernels.py``.
 
-Layout (this slice — the north-star local-edit replay):
+Layout (the north-star local-edit replay and the config-4 storm):
 
-- ``common``            sentinels shared by every module;
+- ``common``            sentinels and the remote-txn dataclasses;
 - ``utils/testdata``    the editing-trace loader;
-- ``ops/batch``         the numpy op compiler (local edits, step fusion);
+- ``utils/rle``         flat RLE vectors (the oracle's logs);
+- ``utils/randedit``    seeded edit streams and the storm generator;
+- ``models/oracle``     the host oracle document (``ListCRDT``);
+- ``models/sync``       txn export from an oracle document;
+- ``ops/batch``         the numpy op compiler (local edits, step fusion,
+                        remote txns);
 - ``ops/span_arrays``   ``FlatDoc``, the per-char document on tensors;
 - ``ops/rle``           the RLE run-block replay, its plain PyTorch
                         version and its CUDA kernel wrapper;
+- ``ops/rle_mixed``     the mixed local/remote run replay (YATA
+                        integrate, interval deletes), plain version and
+                        CUDA kernel wrapper;
 - ``convert``           numpy bridges to and from the JAX package's state;
-- ``northstar``         the slice's entry point (full trace × batch).
+- ``northstar``         entry point: a full trace × batch;
+- ``storm``             entry point: the config-4 storm × batch.
 
 Every entry point takes ``device=None``, which means CUDA. Without a card
 it raises unless the caller asked for ``device="cpu"``: the port never

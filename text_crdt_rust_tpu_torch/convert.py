@@ -4,17 +4,19 @@ The JAX package's ``OpTensors`` and ``FlatDoc`` are pytrees of arrays;
 their fields, each ``np.asarray``'d into a dict, carry them across to the
 port without importing anything of JAX here. The replay starts from an
 empty document, so the compiled op stream is what crosses: tests feed the
-same stream to both packages and compare results through numpy.
+same stream to both packages and compare results through numpy. Remote
+transactions cross as ``dataclasses.asdict`` dicts (``txns_from_dicts``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 
 from . import resolve_device
+from .common import RemoteDel, RemoteId, RemoteIns, RemoteTxn
 from .ops.batch import OpTensors
 from .ops.rle import RleResult
 from .ops.span_arrays import FlatDoc
@@ -32,6 +34,31 @@ def ops_from_numpy(fields: Dict[str, np.ndarray]) -> OpTensors:
         raise ValueError(f"missing OpTensors fields: {sorted(missing)}")
     return OpTensors(**{n: np.asarray(fields[n], dtype=np.uint32)
                         for n in names})
+
+
+def _remote_id(d) -> RemoteId:
+    return RemoteId(agent=d["agent"], seq=int(d["seq"]))
+
+
+def txns_from_dicts(dicts) -> List[RemoteTxn]:
+    """The port's ``RemoteTxn``s from ``dataclasses.asdict`` of the JAX
+    package's (an insert op carries ``ins_content``, a delete ``len``)."""
+    out = []
+    for d in dicts:
+        ops = []
+        for op in d["ops"]:
+            if "ins_content" in op:
+                ops.append(RemoteIns(
+                    origin_left=_remote_id(op["origin_left"]),
+                    origin_right=_remote_id(op["origin_right"]),
+                    ins_content=op["ins_content"]))
+            else:
+                ops.append(RemoteDel(id=_remote_id(op["id"]),
+                                     len=int(op["len"])))
+        out.append(RemoteTxn(id=_remote_id(d["id"]),
+                             parents=[_remote_id(p) for p in d["parents"]],
+                             ops=ops))
+    return out
 
 
 def flat_doc_from_numpy(fields: Dict[str, np.ndarray],
@@ -65,3 +92,8 @@ def rle_result_to_numpy(res: RleResult) -> Dict[str, np.ndarray]:
         a = getattr(res, name).cpu().numpy()
         out[name] = a.view(np.uint32) if name in _U32_RESULT_FIELDS else a
     return out
+
+
+#: An ``RleMixedResult`` has the same eight arrays (its ``err`` row 2 is
+#: the order-index miss flag).
+rle_mixed_result_to_numpy = rle_result_to_numpy

@@ -2,7 +2,8 @@
 
 Each ``ops/csrc/<name>.cu`` exposes a plain C interface and is compiled
 by ``nvcc`` into its own shared library under the package's ``_build/``
-directory, named by a hash of the source so an edited kernel is rebuilt.
+directory, named by a hash of the source and of the shared headers
+(``ops/csrc/*.cuh``) so an edited kernel is rebuilt.
 The libraries are loaded with ``ctypes``; pointers and the CUDA stream
 pass as ``c_void_p``. Nothing is built when this module is imported: a
 kernel is built at its first launch, or by ``build()`` (all sources at
@@ -51,8 +52,12 @@ def nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD / f"lib{src.stem}-{digest}.so"
+    """The library of ``src``, named by a hash of the source and of the
+    shared headers (``csrc/*.cuh``) it may include."""
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    return BUILD / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
@@ -103,12 +108,21 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
-    """Launch function ``symbol`` of kernel ``name``, typed."""
+def function(name: str, symbol: str, argtypes):
+    """Launch function ``symbol`` of kernel ``name``, typed. The returned
+    callable refuses a wrong argument count: ctypes would pass surplus
+    arguments untyped and shift every pointer after them."""
     fn = getattr(library(name), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    return fn
+
+    def call(*args):
+        if len(args) != len(argtypes):
+            raise TypeError(f"{symbol} takes {len(argtypes)} arguments, "
+                            f"got {len(args)}")
+        return fn(*args)
+
+    return call
 
 
 def check(name: str, code: int) -> None:

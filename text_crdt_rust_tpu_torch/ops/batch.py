@@ -4,25 +4,37 @@
 
 The replay kernels consume pre-compiled, fixed-shape op tensors: one row
 per device step, everything an op needs resolved to dense integers on the
-host. This slice carries the local-edit path of the north-star replay:
+host. This module carries the local-edit path of the north-star replay:
 ``merge_patches`` (RLE-coalescing of the patch stream),
 ``compile_local_patches`` (order allocation, insert chunking at ``lmax``,
 W-row backwards-burst fusion), the generalized step fuser
-``fuse_steps`` and the by-order log prefill. Every function returns the
-same arrays, field for field, as its JAX-package counterpart.
+``fuse_steps`` and the by-order log prefill; and the remote path of the
+storm: ``AgentTable`` (name ranks for the YATA tiebreak),
+``OrderAssigner`` (per-agent seq -> order maps) and
+``compile_remote_txns``. Every function returns the same arrays, field
+for field, as its JAX-package counterpart.
 
-The remote-txn compiler, ``prefill_delta``/``concat_deltas``,
-``rank_remap`` and the pad/stack family come with later slices.
+``prefill_delta``/``concat_deltas``, ``rank_remap``,
+``OrderAssigner.from_oracle`` and the pad/stack family come with later
+slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..common import ROOT_ORDER
+from ..common import (
+    CLIENT_INVALID,
+    ROOT_ORDER,
+    RemoteId,
+    RemoteIns,
+    RemoteTxn,
+    txn_len,
+)
+from ..utils.rle import KOrderSpan, Rle
 from ..utils.testdata import TestPatch
 
 # Op kinds (shared with the JAX package's device dispatch).
@@ -63,6 +75,112 @@ class OpTensors:
     @property
     def lmax(self) -> int:
         return self.chars.shape[-1]
+
+
+class AgentTable:
+    """Agent name <-> dense id + *name rank* table.
+
+    The device tiebreak compares ranks; ranks are the index of each name in
+    the sorted name list, so rank order == name order (`doc.rs:206-209`).
+    Within ONE compiled stream the table must not change (the steps bake
+    ranks in); agent ids are append-only.
+    """
+
+    def __init__(self, names: Iterable[str] = ()):
+        self.names: List[str] = []
+        self._ids: Dict[str, int] = {}
+        for n in names:
+            self.add(n)
+
+    def add(self, name: str) -> int:
+        if name == "ROOT":
+            return CLIENT_INVALID
+        if name not in self._ids:
+            self._ids[name] = len(self.names)
+            self.names.append(name)
+        return self._ids[name]
+
+    def id_of(self, name: str) -> int:
+        if name == "ROOT":
+            return CLIENT_INVALID
+        return self._ids[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._ids
+
+    def rank_of_agent(self) -> np.ndarray:
+        """rank_of_agent[dense agent id] -> name rank (u32)."""
+        order = sorted(range(len(self.names)), key=lambda i: self.names[i])
+        ranks = np.zeros(len(self.names), dtype=np.uint32)
+        for r, i in enumerate(order):
+            ranks[i] = r
+        return ranks
+
+    def rank_of(self, name: str) -> int:
+        return int(self.rank_of_agent()[self.id_of(name)])
+
+
+class OrderAssigner:
+    """Host twin of the order-allocation metadata (`doc.rs:155-165`):
+    per-agent seq->order RLE maps (`list/mod.rs:33-43`) + the dense
+    ``next_order`` counter. (``from_oracle``, the resume-from-a-document
+    constructor, comes with the serve slice.)"""
+
+    def __init__(self, table: AgentTable):
+        self.table = table
+        self.item_orders: List[Rle[KOrderSpan]] = [
+            Rle() for _ in table.names
+        ]
+        self.next_order = 0
+
+    def _orders_of(self, agent_id: int) -> Rle:
+        while agent_id >= len(self.item_orders):
+            self.item_orders.append(Rle())
+        return self.item_orders[agent_id]
+
+    def next_seq(self, agent_id: int) -> int:
+        io = self._orders_of(agent_id)
+        last = io.last()
+        return last.seq + last.length if last is not None else 0
+
+    def assign(self, agent_id: int, seq: int, length: int) -> int:
+        """Allocate ``length`` dense orders to (agent, seq..) and return the
+        first (`doc.rs:155-165`)."""
+        first = self.next_order
+        self._orders_of(agent_id).append(KOrderSpan(seq, first, length))
+        self.next_order += length
+        return first
+
+    def seq_to_order(self, agent_id: int, seq: int) -> int:
+        found = self._orders_of(agent_id).find(seq)
+        if found is None:
+            raise ValueError(f"unknown seq {seq} for agent {agent_id}")
+        entry, off = found
+        return entry.order + off
+
+    def resolve(self, rid: RemoteId) -> int:
+        if rid.agent == "ROOT":
+            return ROOT_ORDER
+        return self.seq_to_order(self.table.id_of(rid.agent), rid.seq)
+
+    def target_runs(self, agent_id: int, seq: int,
+                    length: int) -> List[Tuple[int, int]]:
+        """Split a (agent, seq, len) delete target into order-contiguous
+        (first_order, len) runs (the `doc.rs:311-334` fragmentation walk,
+        done in seq space like the oracle)."""
+        runs: List[Tuple[int, int]] = []
+        io = self._orders_of(agent_id)
+        remaining = length
+        while remaining > 0:
+            found = io.find(seq)
+            if found is None:
+                raise ValueError(f"delete target seq {seq} unknown")
+            entry, off = found
+            take = min(entry.length - off, remaining)
+            runs.append((entry.order + off, take))
+            seq += take
+            remaining -= take
+        return runs
 
 
 class _Rows:
@@ -540,6 +658,80 @@ def merge_fused_origins(ol_log, or_log, ops: OpTensors,
                 ol_log[st + k * L] = left
                 or_log[st + k * L: st + (k + 1) * L] = (
                     right if k == 0 else st + (k - 1) * L)
+
+
+def compile_remote_txns(
+    txns: Sequence[RemoteTxn],
+    table: AgentTable,
+    assigner: Optional[OrderAssigner] = None,
+    lmax: int = 16,
+    dmax: Optional[int] = None,
+) -> Tuple[OpTensors, OrderAssigner]:
+    """Causally-ordered RemoteTxn stream -> op tensors (`doc.rs:242-348`).
+
+    The ``assigner`` carries the peer-local order metadata between calls
+    (streaming apply); txns must arrive causally ready (buffering
+    out-of-order arrivals is the caller's job). ``dmax`` chunks remote
+    delete target runs into steps of at most ``dmax`` orders; ``None``
+    keeps each order-contiguous run whole (the one-pass interval delete
+    of ``ops.rle_mixed`` takes any length).
+    """
+    if dmax is not None and dmax < 1:
+        raise ValueError(f"dmax must be >= 1, got {dmax}")
+    if assigner is None:
+        assigner = OrderAssigner(table)
+    ranks = table.rank_of_agent()
+    rows = _Rows(lmax)
+    for txn in txns:
+        agent = table.id_of(txn.id.agent)
+        if assigner.next_seq(agent) != txn.id.seq:
+            raise ValueError(
+                f"remote txn out of order: expected seq "
+                f"{assigner.next_seq(agent)}, got {txn.id.seq} "
+                f"(buffer out-of-order txns before compiling)")
+        length = txn_len(txn)
+        if length <= 0:
+            raise ValueError("empty remote txn")
+        # Orders for the whole txn are allocated up front (`doc.rs:265-269`)
+        # so intra-txn origin references resolve.
+        cursor = assigner.assign(agent, txn.id.seq, length)
+        for op in txn.ops:
+            if isinstance(op, RemoteIns):
+                ins = op.ins_content
+                if not ins:
+                    continue
+                origin_left = assigner.resolve(op.origin_left)
+                origin_right = assigner.resolve(op.origin_right)
+                off = 0
+                while off < len(ins):
+                    chunk = ins[off:off + lmax]
+                    rows.emit(
+                        kind=KIND_REMOTE_INS,
+                        origin_left=origin_left,
+                        origin_right=origin_right,
+                        ins_len=len(chunk), ins_order_start=cursor,
+                        order_advance=len(chunk),
+                        rank=int(ranks[agent]), content=chunk,
+                    )
+                    origin_left = cursor + len(chunk) - 1
+                    cursor += len(chunk)
+                    off += len(chunk)
+            else:
+                target_agent = table.id_of(op.id.agent)
+                for first, run_len in assigner.target_runs(
+                        target_agent, op.id.seq, op.len):
+                    off = 0
+                    while off < run_len:
+                        take = (run_len - off if dmax is None
+                                else min(run_len - off, dmax))
+                        rows.emit(
+                            kind=KIND_REMOTE_DEL, del_target=first + off,
+                            del_len=take, order_advance=take,
+                            rank=int(ranks[agent]),
+                        )
+                        off += take
+                    cursor += run_len
+    return rows.to_tensors(), assigner
 
 
 # -- log prefill ----------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Host utilities of the port: the editing-trace loader."""
+"""Host utilities of the port: the editing-trace loader (``testdata``),
+flat RLE vectors (``rle``) and seeded edit streams (``randedit``)."""
 from .testdata import (
     TestData,
     TestPatch,
