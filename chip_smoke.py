@@ -34,8 +34,34 @@
    compile), kernel against plain version once more, the plain
    version's time, the kernel's median over 3 runs after 1 warm-up
    (CUDA events), char-ops/s, device steps and the bound.
-9. Prints ``{"kernels": [...]}`` (both kernels) and, as its last line,
-   ``{"ok": true, "device": {...}}``.
+9. The per-lane mixed replays, un-blocked (``rle_lanes_mixed``) and
+   blocked (``rle_lanes_mixed_blocked``), against their plain versions on
+   the card, bit for bit on all 8 and 14 outputs: divergent tiebreaks,
+   two-peer merges, fragmented and double deletes, local and remote ops in
+   one step, K = 8 storms (splits, stale hints, forward hops, the plane
+   fallback), a warm-start chain growing its capacity, the error rows.
+10. Drives the config-5r path through its entry point,
+   ``stream.run_stream()``: 2,048 documents x 8 chunks x 100 patches,
+   K = 64, a checkpoint every 4 chunks, launch counts set to 0 just before
+   and read just after. It fails unless the blocked kernel launched once
+   per chunk, every chunk's flags were clear and every sampled document
+   equals the oracle. Host set-up (generation, compile) is timed apart.
+11. At the 5r shapes: the chain of 8 blocked launches against the plain
+   chain, bit for bit after every chunk; the plain chain's time; the
+   kernel chain's median over 3 runs after 1 warm-up (CUDA events);
+   char-ops/s; per-chunk blocking time per real step (p50, p99); the
+   checkpoint time; peak device memory; device steps and the bound. The
+   blocked plain chain runs on every 16th document (128 of 2,048, at the
+   same per-document shapes): documents are independent (the CPU tests
+   hold a B-lane replay against B one-lane replays), and the plain chain
+   of all 2,048 takes about 20 minutes.
+12. The un-blocked kernel on the same stream: against its plain version
+   on every 8th document (256) and against the blocked kernel on all
+   2,048 (expanded lanes, origins, tables).
+13. ``examples/sync_stream`` through the un-blocked kernel (128 documents
+   x 3 chunks x 15 patches per peer, every chunk oracle-checked).
+14. Prints ``{"kernels": [...]}`` (all four kernels) and, as its last
+   line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line; so does a host without
 CUDA, and a directory without the rest of the repository.
@@ -50,6 +76,8 @@ import time
 
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
+PLAIN_STRIDE_A7 = 16           # 5r blocked plain chain: every 16th doc
+PLAIN_STRIDE_A6 = 8            # 5r un-blocked plain chain: every 8th doc
 
 
 def log(msg: str) -> None:
@@ -202,6 +230,190 @@ def mixed_bound(staged, shape):
     return nbytes, nops
 
 
+# -- the per-lane mixed replays ------------------------------------------------
+
+A6_OUTPUTS = ("ol", "orr", "ordp", "lenp", "rows", "oll", "orl", "err")
+A7_OUTPUTS = ("ol", "orr", "ordp", "lenp", "nlog", "blkord", "rws", "liv",
+              "raw", "oll", "orl", "ordblk", "fwd", "err")
+
+
+def worst_err(got, want, names) -> int:
+    """Largest absolute difference over a replay's outputs (0 =
+    bit-identical; origins compare as their int32 bit patterns)."""
+    worst = 0
+    for name, g, w in zip(names, got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"{name}: shape {tuple(g.shape)} != "
+                                 f"{tuple(w.shape)}")
+        if g.numel():
+            worst = max(worst, int((g.long() - w.long()).abs().max()))
+    return worst
+
+
+def lanes_cases(B, randedit, common, Patch, ListCRDT, export):
+    """(label, stacked per-lane ops, un-blocked capacity, blocked shape,
+    expected error row or None) of the per-lane kernels' small phase,
+    built by the port alone."""
+    import random
+
+    RemoteId, RemoteIns, RemoteDel, RemoteTxn = (
+        common.RemoteId, common.RemoteIns, common.RemoteDel,
+        common.RemoteTxn)
+    root = RemoteId("ROOT", 0xFFFFFFFF)
+
+    def txn(agent, seq, op, parents=()):
+        return RemoteTxn(id=RemoteId(agent, seq), parents=list(parents),
+                         ops=[op])
+
+    def lanes(lane_txns, lmax=4):
+        opses = []
+        for txns in lane_txns:
+            table = B.AgentTable()
+            for t in txns:
+                table.add(t.id.agent)
+                for op in t.ops:
+                    if hasattr(op, "id"):
+                        table.add(op.id.agent)
+            opses.append(B.compile_remote_txns(txns, table, lmax=lmax)[0])
+        return B.stack_ops(opses)
+
+    def peer(patches, agent):
+        doc = ListCRDT()
+        a = doc.get_or_create_agent_id(agent)
+        for p in patches:
+            if p.del_len:
+                doc.local_delete(a, p.pos, p.del_len)
+            if p.ins_content:
+                doc.local_insert(a, p.pos, p.ins_content)
+        return export(doc, 0)
+
+    def two_peer(seed, n=3, patches=20):
+        rng = random.Random(seed)
+        return [peer(randedit.random_patches(rng, patches)[0], "peer-a")
+                + peer(randedit.random_patches(rng, patches)[0], "peer-b")
+                for _ in range(n)]
+
+    tiebreaks = [
+        [txn(n, 0, RemoteIns(root, root, t))
+         for n, t in [("zed", "zz"), ("amy", "aa"), ("mia", "mm")]],
+        [txn(n, 0, RemoteIns(root, root, t))
+         for n, t in [("bob", "b"), ("eve", "ee"), ("cat", "c")]]]
+    fragmented = [
+        [txn("amy", 0, RemoteIns(root, root, "abcdef")),
+         txn("bob", 0, RemoteDel(RemoteId("amy", 1), 3), [RemoteId("amy", 5)]),
+         txn("cat", 0, RemoteDel(RemoteId("amy", 2), 3), [RemoteId("amy", 5)])],
+        [txn("amy", 0, RemoteIns(root, root, "x" * 50)),
+         txn("bob", 0, RemoteDel(RemoteId("amy", 5), 40),
+             [RemoteId("amy", 49)])],
+        [txn("amy", 0, RemoteIns(root, root, "abcdefgh")),
+         txn("amy", 8, RemoteDel(RemoteId("amy", 2), 4), [RemoteId("amy", 7)]),
+         txn("bob", 0, RemoteIns(RemoteId("amy", 3), RemoteId("amy", 4),
+                                 "XY"), [RemoteId("amy", 7)])]]
+    rng = random.Random(11)
+    lp, _ = randedit.random_patches(rng, 25)
+    local = B.compile_local_patches(B.merge_patches(lp), lmax=8)[0]
+    remote_txns = peer(randedit.random_patches(rng, 18)[0], "peer-a")
+    table = B.AgentTable(sorted({t.id.agent for t in remote_txns}))
+    mixed = B.stack_ops([local, B.compile_remote_txns(
+        remote_txns, table, lmax=8, dmax=16)[0]])
+    storms = lanes([randedit.make_storm(3, 5, 2, seed=50 + k,
+                                        del_prob=0.35)[0] for k in range(3)])
+    overflow = [[txn("amy", 0, RemoteIns(root, root, "aaaaaaaa"))]
+                + [txn("bob", k, RemoteDel(RemoteId("amy", s), 1))
+                   for k, s in enumerate((1, 3, 5, 6))]]
+    busy = []
+    for k in range(24):
+        busy.append(Patch(0, 0, "ab"))
+        if k % 2:
+            busy.append(Patch(1, 1, ""))
+    busy_ops = B.stack_ops([
+        B.compile_local_patches([Patch(0, 0, "ab")], lmax=2)[0],
+        B.compile_local_patches(busy, lmax=2)[0]])
+    bad = B.stack_ops([B.compile_local_patches(
+        [Patch(0, 0, "abc"), Patch(0, 10, "")], lmax=4)[0]])
+
+    def corrupt(stacked, **cells):
+        out = B.OpTensors(**{k: v.copy() for k, v in vars(stacked).items()})
+        for field, (step, lane, value) in cells.items():
+            getattr(out, field)[step, lane] = value
+        return out
+
+    one = lanes([[txn("a", 0, RemoteIns(root, root, "ab"))]])
+    missing_target = corrupt(one, kind=(0, 0, B.KIND_REMOTE_DEL),
+                             del_target=(0, 0, 90), del_len=(0, 0, 1),
+                             ins_len=(0, 0, 0))
+    missing_origin = corrupt(
+        lanes([[txn("a", 0, RemoteIns(root, root, "ab")),
+                txn("a", 2, RemoteIns(RemoteId("a", 1), root, "cd"))]]),
+        origin_left=(1, 0, 90))
+    k8, k16, tiny = (dict(capacity=128, block_k=8),
+                     dict(capacity=256, block_k=16),
+                     dict(capacity=8, block_k=8))
+    return [
+        ("divergent tiebreaks", lanes(tiebreaks), 64, k8, None),
+        ("two-peer merges", lanes(two_peer(3)), 512, k16, None),
+        ("fragmented and double deletes", lanes(fragmented, lmax=16), 128,
+         k8, None),
+        ("local and remote in one step", mixed, 256, k16, None),
+        ("storms with deletes, K = 8", storms, 512, k8, None),
+        ("delete out of capacity -> err[0]", lanes(overflow, lmax=8), 8,
+         tiny, 0),
+        ("local out of capacity -> err[0]", busy_ops, 8, tiny, 0),
+        ("bad local delete -> err[1]", bad, 16, tiny, 1),
+        ("missing delete target -> err[1]", missing_target, 16, tiny, 1),
+        ("missing origin -> err[2]", missing_origin, 16, tiny, 2),
+    ], two_peer
+
+
+def lanes_bound(staged, shape_rows, blocked, K, NBT):
+    """(bytes, operations) one per-lane replay must at least move and do:
+    each input read once, each output written once (all int32), and per
+    document one K-row block plus the NBT slot prefixes for every step
+    with work. Whole-plane passes are a design's cost, not the
+    function's, and are not counted."""
+    kind, dlen, ilen = staged[0], staged[2], staged[7]
+    S, Bn = kind.shape
+    CAP, OCAP = shape_rows
+    words = 10 * S * Bn                  # op columns
+    words += 2 * 2 * CAP * Bn            # planes in and out
+    words += 2 * 2 * OCAP * Bn           # oll/orl in and out
+    words += 3 * OCAP * Bn               # prefill delta and ranks
+    words += 2 * S * Bn + 8 * Bn         # origins, err
+    if blocked:
+        words += 2 * (5 * NBT + 1) * Bn  # slot tables and nlog, in and out
+        words += 2 * OCAP * Bn           # ordblk in and out
+    else:
+        words += 2 * Bn                  # rows in and out
+    active = int(((kind == 0) & ((dlen > 0) | (ilen > 0))).sum()
+                 + ((kind == 1) & (ilen > 0)).sum()
+                 + ((kind == 2) & (dlen > 0)).sum())
+    return 4 * words, active * (K + NBT), active
+
+
+def doc_subset(stream, B, s5, stride: int):
+    """The 5r stream cut to every ``stride``-th document, at the same
+    per-document shapes and steps: what a plain chain runs on."""
+    return stream.Stream5r(**{
+        **vars(s5), "n_docs": len(range(0, s5.n_docs, stride)),
+        "stacked": [B.OpTensors(**{k: v[:, ::stride]
+                                   for k, v in vars(st).items()})
+                    for st in s5.stacked]})
+
+
+def chain(fn, runners, states_out=None):
+    """Run the chunk replayers' staged inputs through ``fn`` (a kernel or
+    plain version), the state carried on the device and grown between
+    chunks. Returns the outputs of every chunk."""
+    outs = []
+    state = None
+    for run in runners:
+        ini = run.initial() if state is None else run.grow(state)
+        out = fn(*run.staged, *ini, *run.deltas, **run.shape)
+        outs.append(out)
+        state = states_out(out)
+    return outs
+
+
 def main() -> int:
     import torch
 
@@ -211,10 +423,15 @@ def main() -> int:
     try:
         import numpy as np
 
-        from text_crdt_rust_tpu_torch import northstar, storm
+        from text_crdt_rust_tpu_torch import common, northstar, storm, stream
+        from text_crdt_rust_tpu_torch.examples import sync_stream
+        from text_crdt_rust_tpu_torch.models.oracle import ListCRDT
+        from text_crdt_rust_tpu_torch.models.sync import export_txns_since
         from text_crdt_rust_tpu_torch.ops import _kernels
         from text_crdt_rust_tpu_torch.ops import batch as B
         from text_crdt_rust_tpu_torch.ops import rle as R
+        from text_crdt_rust_tpu_torch.ops import rle_lanes as RL
+        from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as RLM
         from text_crdt_rust_tpu_torch.ops import rle_mixed as RM
         from text_crdt_rust_tpu_torch.ops import span_arrays as SA
         from text_crdt_rust_tpu_torch.utils import randedit
@@ -386,14 +603,14 @@ def main() -> int:
     per_variant = []
     for (name, dp), r in zip(variants, runs):
         t0 = time.perf_counter()
-        stream = storm.make_storm_stream(del_prob=dp)
+        sst = storm.make_storm_stream(del_prob=dp)
         setup_s = time.perf_counter() - t0
-        if stream.steps != r.stream.steps or stream.want != r.stream.want:
+        if sst.steps != r.stream.steps or sst.want != r.stream.want:
             raise AssertionError(f"{name}: regenerated storm differs")
         log(f"host set-up {name}: {setup_s:.2f} s (generation with the "
-            f"oracle + compile, {len(stream.txns)} txns -> "
-            f"{stream.steps} steps)")
-        rep = storm.make_storm_replayer(stream, device=dev)
+            f"oracle + compile, {len(sst.txns)} txns -> "
+            f"{sst.steps} steps)")
+        rep = storm.make_storm_replayer(sst, device=dev)
         staged, shape = rep.staged, rep.shape
         t0 = time.perf_counter()
         plain = RM.rle_mixed_replay_plain(*staged, **shape)
@@ -414,16 +631,16 @@ def main() -> int:
         mbytes, mops = mixed_bound(staged, shape)
         b_ms = mbytes / PEAK_BYTES_PER_S * 1e3
         o_ms = mops / PEAK_OPS_PER_S * 1e3
-        rate = stream.char_ops * shape["batch"] / (mms / 1e3)
+        rate = sst.char_ops * shape["batch"] / (mms / 1e3)
         log(f"replay {name}: median {mms:.3f} ms over 3 reps after 1 "
             f"warm-up (CUDA events); {rate:.4g} char-ops/s "
-            f"({stream.char_ops} x {shape['batch']} docs); "
-            f"{stream.steps} device steps "
-            f"({mms * 1e3 / stream.steps:.2f} us each); plain version "
+            f"({sst.char_ops} x {shape['batch']} docs); "
+            f"{sst.steps} device steps "
+            f"({mms * 1e3 / sst.steps:.2f} us each); plain version "
             f"{mplain_ms:.1f} ms; bound {max(b_ms, o_ms):.4f} ms "
             f"({mbytes} B, {mops} ops); on {card}")
         per_variant.append(dict(
-            variant=name, steps=stream.steps, char_ops=stream.char_ops,
+            variant=name, steps=sst.steps, char_ops=sst.char_ops,
             batch=shape["batch"], capacity=shape["capacity"], ms=mms,
             plain_ms=mplain_ms, bound_ms=max(b_ms, o_ms),
             bound_by="bytes" if b_ms >= o_ms else "operations",
@@ -451,7 +668,284 @@ def main() -> int:
         "library_ms": None,
         "variants": per_variant,
     }
-    log(json.dumps({"kernels": [rle_line, mixed_line]}))
+    # -- the per-lane mixed replays against their plain versions, small --
+    a6_worst = a7_worst = 0
+    cases, two_peer = lanes_cases(B, randedit, common, TestPatch, ListCRDT,
+                                  export_txns_since)
+    for label, ops, cap6, shape7, expect in cases:
+        r6 = RLM.make_replayer_lanes_mixed(ops, capacity=cap6, chunk=16,
+                                           order_capacity=256, device=dev)
+        r7 = RLM.make_replayer_lanes_mixed_blocked(
+            ops, order_capacity=256, chunk=16, device=dev, **shape7)
+        k6 = RLM.lanes_mixed_replay_cuda(*r6.staged, *r6.initial(),
+                                         *r6.deltas, **r6.shape)
+        k7 = RLM.lanes_mixed_blocked_replay_cuda(*r7.staged, *r7.initial(),
+                                                 *r7.deltas, **r7.shape)
+        torch.cuda.synchronize()
+        e6 = worst_err(k6, RLM.lanes_mixed_replay_plain(
+            *r6.staged, *r6.initial(), *r6.deltas, **r6.shape), A6_OUTPUTS)
+        e7 = worst_err(k7, RLM.lanes_mixed_blocked_replay_plain(
+            *r7.staged, *r7.initial(), *r7.deltas, **r7.shape), A7_OUTPUTS)
+        a6_worst, a7_worst = max(a6_worst, e6), max(a7_worst, e7)
+        f6 = k6[-1][:3].amax(dim=1).tolist()
+        f7 = k7[-1][:3].amax(dim=1).tolist()
+        flags_ok = (f6 == f7 == [0, 0, 0] if expect is None
+                    else f6[expect] == f7[expect] == 1)
+        ok = e6 == 0 and e7 == 0 and flags_ok
+        log(f"compare lanes {label}: {ops.num_steps} steps x "
+            f"{ops.kind.shape[1]} docs, max_abs_err un-blocked {e6} "
+            f"blocked {e7}, err flags {f6} {f7}, "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"per-lane kernel disagrees on: {label}")
+
+    # A warm-start chain whose capacity grows between chunks (K = 8).
+    lane_txns = two_peer(42, 3, 30)
+    tables = [B.AgentTable() for _ in lane_txns]
+    assigners = [None] * len(lane_txns)
+    chunks = []
+    for which in (0, 1):
+        opses = []
+        for d, txns in enumerate(lane_txns):
+            half = (txns[:len(txns) // 2], txns[len(txns) // 2:])[which]
+            for t in half:
+                tables[d].add(t.id.agent)
+            ops, assigners[d] = B.compile_remote_txns(
+                half, tables[d], assigner=assigners[d], lmax=4)
+            opses.append(ops)
+        chunks.append(B.stack_ops(opses))
+    rkls = [RLM.lane_tables(c, 256)[2] for c in chunks]
+    rkl = np.where(rkls[1] != 0, rkls[1], rkls[0])
+    for name, make, kern, plain, names, kw in (
+            ("un-blocked", RLM.make_replayer_lanes_mixed,
+             RLM.lanes_mixed_replay_cuda, RLM.lanes_mixed_replay_plain,
+             A6_OUTPUTS, {}),
+            ("blocked", RLM.make_replayer_lanes_mixed_blocked,
+             RLM.lanes_mixed_blocked_replay_cuda,
+             RLM.lanes_mixed_blocked_replay_plain, A7_OUTPUTS,
+             dict(block_k=8))):
+        runners = [make(c, capacity=cap, order_capacity=256, chunk=16,
+                        rkl=r, device=dev, **kw)
+                   for c, cap, r in zip(chunks, (128, 256), (None, rkl))]
+        kouts = chain(kern, runners, lambda o: o[2:-1])
+        pouts = chain(plain, runners, lambda o: o[2:-1])
+        torch.cuda.synchronize()
+        e = max(worst_err(k, q, names) for k, q in zip(kouts, pouts))
+        flags = kouts[-1][-1][:3].amax(dim=1).tolist()
+        if name == "blocked":
+            a7_worst = max(a7_worst, e)
+        else:
+            a6_worst = max(a6_worst, e)
+        log(f"compare lanes warm-start chain (capacity 128 -> 256), {name}: "
+            f"max_abs_err {e}, err flags {flags}, "
+            f"{'ok' if e == 0 and flags == [0, 0, 0] else 'FAILED'}")
+        if e != 0 or flags != [0, 0, 0]:
+            raise AssertionError(f"{name} kernel disagrees on the chain")
+
+    # -- the 5r path, counted ------------------------------------------------
+    t0 = time.perf_counter()
+    chunk_txns, contents = stream.generate_5r()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s5 = stream.compile_5r(chunk_txns, contents)
+    compile_s = time.perf_counter() - t0
+    setup_s = gen_s + compile_s
+    log(f"host set-up 5r: {setup_s:.2f} s = generation {gen_s:.2f} s "
+        f"(continue_patches + PeerSynth) + compile {compile_s:.2f} s "
+        f"(compile_remote_txns, stack_ops, pad_ops): {s5.n_docs} docs x "
+        f"{s5.chunks} chunks x {s5.steps_per_chunk} patches -> "
+        f"{sum(s5.real_steps)} real steps, {s5.steps} device steps, "
+        f"{s5.char_ops} char-ops")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    run5 = stream.run_stream(stream=s5, device=dev, clock=time.perf_counter)
+    torch.cuda.synchronize()
+    wall5 = time.perf_counter() - t0
+    l7 = _kernels.launches.get("rle_lanes_mixed_blocked", 0)
+    launches5 = dict(_kernels.launches)
+    peak_mem = torch.cuda.max_memory_allocated()
+    res5 = run5.result
+    log(f"5r path: run_stream() {s5.n_docs} docs x {s5.chunks} chunks, "
+        f"K=64, capacity {res5.ordp.shape[0]}, order rows "
+        f"{res5.oll.shape[0]}: launches {launches5}, chunks checked "
+        f"{run5.stats.checked}, resyncs {run5.stats.resyncs}, sampled docs "
+        f"== oracle {run5.ok}; host wall {wall5:.2f} s (replayer set-up, "
+        f"apply {run5.stats.wall_s:.3f} s, checkpoints "
+        f"{run5.stats.ckpt_ms:.1f} ms, oracle check); peak device memory "
+        f"{peak_mem / 2**20:.1f} MiB")
+    if l7 < s5.chunks or run5.stats.checked != s5.chunks or not run5.ok:
+        raise AssertionError(
+            f"5r path failed: blocked launches {l7}, checked "
+            f"{run5.stats.checked}, oracle {run5.ok}")
+
+    # -- the 5r shapes: agreement, times, bound ------------------------------
+    sub7 = doc_subset(stream, B, s5, PLAIN_STRIDE_A7)
+    runners7 = stream.make_stream_replayers(s5, device=dev)
+    t0 = time.perf_counter()
+    p7 = chain(RLM.lanes_mixed_blocked_replay_plain,
+               stream.make_stream_replayers(sub7, device=dev),
+               lambda o: o[2:-1])
+    torch.cuda.synchronize()
+    plain7_ms = (time.perf_counter() - t0) * 1e3
+    k7 = chain(RLM.lanes_mixed_blocked_replay_cuda, runners7,
+               lambda o: o[2:-1])
+    torch.cuda.synchronize()
+    e7 = max(worst_err([t[:, ::PLAIN_STRIDE_A7] for t in k], q, A7_OUTPUTS)
+             for k, q in zip(k7, p7))
+    a7_worst = max(a7_worst, e7)
+    del p7
+    log(f"compare 5r blocked chain: max_abs_err {e7} over {s5.chunks} "
+        f"chunks against its plain version on {sub7.n_docs} docs (one in "
+        f"{PLAIN_STRIDE_A7}); plain chain {plain7_ms:.1f} ms")
+    if e7 != 0:
+        raise AssertionError("blocked kernel disagrees at the 5r shapes")
+    ms7 = cuda_ms(torch, lambda: chain(RLM.lanes_mixed_blocked_replay_cuda,
+                                       runners7, lambda o: o[2:-1]), reps=3)
+    samples = []
+    state = None
+    for run, real in zip(runners7, s5.real_steps):
+        ini = run.initial() if state is None else run.grow(state)
+        t0 = time.perf_counter()
+        out = RLM.lanes_mixed_blocked_replay_cuda(*run.staged, *ini,
+                                                  *run.deltas, **run.shape)
+        out[-1].cpu()
+        samples.append((time.perf_counter() - t0) / real * 1e6)
+        state = out[2:-1]
+    ss = sorted(samples)
+    p50 = ss[len(ss) // 2]
+    p99 = ss[min(len(ss) - 1, int(round((len(ss) - 1) * 0.99)))]
+    b7 = [lanes_bound(r.staged, (r.capacity, r.order_capacity), True, 64,
+                      r.nbt) for r in runners7]
+    bytes7, ops7 = sum(b[0] for b in b7), sum(b[1] for b in b7)
+    steps7 = sum(b[2] for b in b7)
+    bb7, bo7 = bytes7 / PEAK_BYTES_PER_S * 1e3, ops7 / PEAK_OPS_PER_S * 1e3
+    rate7 = s5.char_ops / (ms7 / 1e3)
+    log(f"5r blocked chain: median {ms7:.3f} ms over 3 reps after 1 warm-up "
+        f"(CUDA events, {s5.chunks} launches with the state grown between "
+        f"them); {rate7:.4g} char-ops/s ({s5.char_ops} char-ops); "
+        f"per-chunk blocking time per real step p50 {p50:.2f} us, p99 "
+        f"{p99:.2f} us (samples {[round(x, 2) for x in samples]}); "
+        f"checkpoints {run5.stats.ckpt_ms:.1f} ms ({run5.stats.resyncs}); "
+        f"{s5.steps} device steps ({steps7} doc-steps with work); plain "
+        f"chain {plain7_ms:.1f} ms; bound {max(bb7, bo7):.4f} ms ({bytes7} "
+        f"B, {ops7} ops); on {card}")
+
+    # -- the un-blocked kernel on the same stream ----------------------------
+    runners6 = stream.make_stream_replayers(s5, engine="unblocked",
+                                            device=dev)
+    k6 = chain(RLM.lanes_mixed_replay_cuda, runners6, lambda o: o[2:-1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sub6 = doc_subset(stream, B, s5, PLAIN_STRIDE_A6)
+    p6 = chain(RLM.lanes_mixed_replay_plain, stream.make_stream_replayers(
+        sub6, engine="unblocked", device=dev), lambda o: o[2:-1])
+    torch.cuda.synchronize()
+    plain6_ms = (time.perf_counter() - t0) * 1e3
+    e6 = max(worst_err([t[:, ::PLAIN_STRIDE_A6] for t in k], q, A6_OUTPUTS)
+             for k, q in zip(k6, p6))
+    a6_worst = max(a6_worst, e6)
+    del p6
+    # The two engines: same origins every chunk, same tables and documents.
+    same = all(torch.equal(a[i], b[i]) for a, b in zip(k6, k7)
+               for i in (0, 1))
+    same = same and all(torch.equal(k6[-1][i], k7[-1][j])
+                        for i, j in ((5, 9), (6, 10)))
+    last6 = RLM.LanesMixedResult(
+        ordp=k6[-1][2].cpu(), lenp=k6[-1][3].cpu(), rows=k6[-1][4].cpu(),
+        ol=None, orr=None, err=k6[-1][7].cpu(), batch=s5.n_docs)
+    last7 = RLM.BlockedLanesMixedResult(
+        *[t.cpu() for t in k7[-1][2:13]], ol=None, orr=None,
+        err=k7[-1][13].cpu(), batch=s5.n_docs, block_k=64)
+    same_docs = all(RL.expand_lane(last6, d).tolist()
+                    == RL.expand_lane(last7, d).tolist()
+                    for d in range(s5.n_docs))
+    log(f"compare 5r un-blocked chain: max_abs_err {e6} against its plain "
+        f"version on {sub6.n_docs} docs (one in {PLAIN_STRIDE_A6}; plain "
+        f"chain {plain6_ms:.1f} ms); "
+        f"against "
+        f"the blocked kernel: origins and tables equal {same}, all "
+        f"{s5.n_docs} documents equal {same_docs}")
+    if e6 != 0 or not same or not same_docs:
+        raise AssertionError("un-blocked kernel disagrees at the 5r shapes")
+    ms6 = cuda_ms(torch, lambda: chain(RLM.lanes_mixed_replay_cuda,
+                                       runners6, lambda o: o[2:-1]), reps=3)
+    b6 = [lanes_bound(r.staged, (r.capacity, r.order_capacity), False, 64,
+                      max(8, r.capacity // 64)) for r in runners6]
+    bytes6, ops6 = sum(b[0] for b in b6), sum(b[1] for b in b6)
+    bb6, bo6 = bytes6 / PEAK_BYTES_PER_S * 1e3, ops6 / PEAK_OPS_PER_S * 1e3
+    log(f"5r un-blocked chain: median {ms6:.3f} ms over 3 reps after 1 "
+        f"warm-up (CUDA events); {s5.char_ops / (ms6 / 1e3):.4g} "
+        f"char-ops/s; bound {max(bb6, bo6):.4f} ms; on {card}")
+    del k6, k7
+
+    # -- the sync_stream example through the un-blocked kernel ---------------
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    counts = sync_stream.run(docs=128, chunks=3, ops_per_chunk=15,
+                             device=dev, log=lambda m: log("  " + m))
+    torch.cuda.synchronize()
+    sync_wall = time.perf_counter() - t0
+    l6 = _kernels.launches.get("rle_lanes_mixed", 0)
+    log(f"sync_stream: {counts}, launches {dict(_kernels.launches)}, host "
+        f"wall {sync_wall:.2f} s")
+    if l6 < counts["chunks"]:
+        raise AssertionError(f"sync_stream ran the un-blocked kernel {l6} "
+                             f"times for {counts['chunks']} chunks")
+
+    a6_line = {
+        "name": "rle_lanes_mixed",
+        "route": "cuda",
+        "source": "text_crdt_rust_tpu_torch/ops/csrc/rle_lanes_mixed.cu",
+        "replaces": "text_crdt_rust_tpu/ops/rle_lanes_mixed.py:105",
+        "jax_counterpart":
+            "text_crdt_rust_tpu/ops/rle_lanes_mixed.py::_mixed_lanes_kernel",
+        "launches": l6,
+        "launches_path": "examples/sync_stream (128 docs x 3 chunks)",
+        "matches_plain": a6_worst == 0,
+        "max_abs_err": a6_worst,
+        # Timed at the 5r shapes: the chain of 8 chunk launches.
+        "ms": ms6,
+        "plain_ms": plain6_ms,
+        "plain_docs": sub6.n_docs,
+        "bound_ms": max(bb6, bo6),
+        "bound_by": "bytes" if bb6 >= bo6 else "operations",
+        "library_ms": None,
+        "bytes": bytes6,
+        "ops_lower_bound": ops6,
+    }
+    a7_line = {
+        "name": "rle_lanes_mixed_blocked",
+        "route": "cuda",
+        "source":
+            "text_crdt_rust_tpu_torch/ops/csrc/rle_lanes_mixed_blocked.cu",
+        "replaces": "text_crdt_rust_tpu/ops/rle_lanes_mixed.py:774",
+        "jax_counterpart": "text_crdt_rust_tpu/ops/rle_lanes_mixed.py::"
+                           "_mixed_lanes_blocked_kernel",
+        "launches": l7,
+        "launches_path": "stream.run_stream (config 5r)",
+        "matches_plain": a7_worst == 0,
+        "max_abs_err": a7_worst,
+        "ms": ms7,
+        "plain_ms": plain7_ms,
+        "plain_docs": sub7.n_docs,
+        "bound_ms": max(bb7, bo7),
+        "bound_by": "bytes" if bb7 >= bo7 else "operations",
+        "library_ms": None,
+        "bytes": bytes7,
+        "ops_lower_bound": ops7,
+        "char_ops_per_s": rate7,
+        "p50_step_us": p50,
+        "p99_step_us": p99,
+        "checkpoint_ms": run5.stats.ckpt_ms,
+        "setup_s": setup_s,
+        "generation_s": gen_s,
+        "compile_s": compile_s,
+        "peak_device_bytes": peak_mem,
+        "device_steps": s5.steps,
+    }
+    log(json.dumps({"kernels": [rle_line, mixed_line, a6_line, a7_line]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

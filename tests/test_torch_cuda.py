@@ -115,3 +115,74 @@ def test_mixed_kernel_matches_plain(card, name):
     for k, p in zip(kern, plain):
         assert k.dtype == p.dtype and k.shape == p.shape
         assert torch.equal(k, p)
+
+
+def _lanes(lane_txns, lmax=4):
+    opses = []
+    for txns in lane_txns:
+        table = TB.AgentTable(sorted({t.id.agent for t in txns}))
+        opses.append(TB.compile_remote_txns(txns, table, lmax=lmax)[0])
+    return TB.stack_ops(opses)
+
+
+def _local_lanes():
+    """Three lanes of local edits, compiled at one shared insert width."""
+    merged = [TB.merge_patches(randedit.random_patches(
+        np.random.default_rng(s), 60)[0]) for s in (8, 9, 10)]
+    lmax = max(len(p.ins_content) for m in merged for p in m)
+    return TB.stack_ops([TB.compile_local_patches(m, lmax=lmax)[0]
+                         for m in merged])
+
+
+def _out_of_blocks():
+    """Lane 1 outgrows 8 rows (inserts between deletes cannot merge)."""
+    busy = []
+    for k in range(24):
+        busy.append(TestPatch(0, 0, "ab"))
+        if k % 2:
+            busy.append(TestPatch(1, 1, ""))
+    return TB.stack_ops([
+        TB.compile_local_patches([TestPatch(0, 0, "ab")], lmax=2)[0],
+        TB.compile_local_patches(busy, lmax=2)[0]])
+
+
+LANES_CASES = {
+    "storms-k8": lambda: (_lanes([randedit.make_storm(
+        3, 5, 2, seed=50 + k, del_prob=0.35)[0] for k in range(3)]),
+        dict(capacity=128, block_k=8)),
+    "two-peer-k16": lambda: (_lanes([randedit.make_two_peer_merge(s)[0]
+                                     for s in (400, 401)]),
+                             dict(capacity=512, block_k=16)),
+    "local-k8": lambda: (_local_lanes(), dict(capacity=512, block_k=8)),
+    "out-of-blocks": lambda: (_out_of_blocks(),
+                              dict(capacity=8, block_k=8)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LANES_CASES))
+@pytest.mark.parametrize("blocked", [False, True])
+def test_lanes_kernel_matches_plain(card, name, blocked):
+    from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as RLM
+
+    ops, shape = LANES_CASES[name]()
+    if blocked:
+        rep = RLM.make_replayer_lanes_mixed_blocked(
+            ops, chunk=16, device=card, **shape)
+        kern_fn, plain_fn = (RLM.lanes_mixed_blocked_replay_cuda,
+                             RLM.lanes_mixed_blocked_replay_plain)
+        kname = "rle_lanes_mixed_blocked"
+    else:
+        rep = RLM.make_replayer_lanes_mixed(
+            ops, capacity=shape["capacity"], chunk=16, device=card)
+        kern_fn, plain_fn = (RLM.lanes_mixed_replay_cuda,
+                             RLM.lanes_mixed_replay_plain)
+        kname = "rle_lanes_mixed"
+    args = (*rep.staged, *rep.initial(), *rep.deltas)
+    plain = plain_fn(*args, **rep.shape)
+    before = _kernels.launches.get(kname, 0)
+    kern = kern_fn(*args, **rep.shape)
+    torch.cuda.synchronize()
+    assert _kernels.launches[kname] == before + 1
+    for k, p in zip(kern, plain):
+        assert k.dtype == p.dtype and k.shape == p.shape
+        assert torch.equal(k, p)

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from text_crdt_rust_tpu_torch import northstar, resolve_device, storm
+from text_crdt_rust_tpu_torch import northstar, resolve_device, storm, stream
+from text_crdt_rust_tpu_torch.examples import sync_stream
 from text_crdt_rust_tpu_torch.ops import batch as TB
 from text_crdt_rust_tpu_torch.ops import rle as TR
+from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as TLM
 from text_crdt_rust_tpu_torch.ops import rle_mixed as TRM
 from text_crdt_rust_tpu_torch.ops import span_arrays as TSA
 from text_crdt_rust_tpu_torch.utils.testdata import TestPatch
@@ -45,13 +47,15 @@ def test_port_imports_with_jax_blocked():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "for m in ('ops.rle', 'ops.rle_mixed', 'northstar', 'storm',\n"
-        "          'models.oracle', 'models.sync'):\n"
+        "          'models.oracle', 'models.sync', 'config', 'stream',\n"
+        "          'ops.rle_lanes_mixed', 'parallel.causal',\n"
+        "          'examples.sync_stream'):\n"
         "    assert 'text_crdt_rust_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 22
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
@@ -75,6 +79,10 @@ def _ops():
     "make_replayer_rle_mixed",
     "replay_mixed_rle",
     "run_storm",
+    "make_replayer_lanes_mixed",
+    "make_replayer_lanes_mixed_blocked",
+    "run_stream",
+    "sync_stream",
 ])
 def test_entry_point_without_device_raises_on_cpu_host(entry):
     if torch.cuda.is_available():
@@ -94,6 +102,15 @@ def test_entry_point_without_device_raises_on_cpu_host(entry):
             _ops(), capacity=64, batch=2, block_k=8),
         "run_storm": lambda: storm.run_storm(
             n_peers=2, rounds=2, batch=2, block_k=8),
+        "make_replayer_lanes_mixed": lambda: TLM.make_replayer_lanes_mixed(
+            TB.stack_ops([_ops()]), capacity=64),
+        "make_replayer_lanes_mixed_blocked":
+            lambda: TLM.make_replayer_lanes_mixed_blocked(
+                TB.stack_ops([_ops()]), capacity=64, block_k=8),
+        "run_stream": lambda: stream.run_stream(
+            n_docs=2, chunks=1, steps_per_chunk=4),
+        "sync_stream": lambda: sync_stream.run(docs=1, chunks=1,
+                                               ops_per_chunk=2),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

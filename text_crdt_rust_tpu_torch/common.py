@@ -1,5 +1,5 @@
 """Core scalar types, sentinels and plain-data op structs (counterpart of
-``text_crdt_rust_tpu/common.py:20-100``).
+``text_crdt_rust_tpu/common.py:20-100`` and its ``split_txn_suffix``).
 
 - Agent ids are dense u16 ints, peer-local (`common.rs:5-13`).
 - ``CRDTLocation`` = (agent, seq) names one item globally (`common.rs:16-28`).
@@ -92,4 +92,46 @@ def txn_len(txn: RemoteTxn) -> int:
     return sum(
         len(op.ins_content) if isinstance(op, RemoteIns) else op.len
         for op in txn.ops
+    )
+
+
+def split_txn_suffix(txn: RemoteTxn, at: int) -> RemoteTxn:
+    """The suffix of ``txn`` starting ``at`` ops in (0 < at < txn_len).
+
+    Valid because within one txn, seqs and op offsets advance together
+    (`doc.rs:252-269`). ``parallel.causal.CausalBuffer`` uses it to trim
+    a delivery whose prefix is already known.
+    """
+    agent = txn.id.agent
+    consumed = 0
+    suffix_ops: List[RemoteOp] = []
+    for op in txn.ops:
+        ln = len(op.ins_content) if isinstance(op, RemoteIns) else op.len
+        if consumed + ln <= at:
+            consumed += ln
+            continue
+        if consumed >= at:
+            suffix_ops.append(op)
+            consumed += ln
+            continue
+        # Split this op.
+        off = at - consumed
+        if isinstance(op, RemoteIns):
+            suffix_ops.append(RemoteIns(
+                # Implicit chain: predecessor is (agent, seq+at-1)
+                # (`span.rs:24-28`).
+                origin_left=RemoteId(agent, txn.id.seq + at - 1),
+                origin_right=op.origin_right,
+                ins_content=op.ins_content[off:],
+            ))
+        else:
+            suffix_ops.append(RemoteDel(
+                id=RemoteId(op.id.agent, op.id.seq + off),
+                len=op.len - off,
+            ))
+        consumed += ln
+    return RemoteTxn(
+        id=RemoteId(agent, txn.id.seq + at),
+        parents=[RemoteId(agent, txn.id.seq + at - 1)],
+        ops=suffix_ops,
     )

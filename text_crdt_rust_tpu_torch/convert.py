@@ -6,6 +6,13 @@ port without importing anything of JAX here. The replay starts from an
 empty document, so the compiled op stream is what crosses: tests feed the
 same stream to both packages and compare results through numpy. Remote
 transactions cross as ``dataclasses.asdict`` dicts (``txns_from_dicts``).
+
+The per-lane mixed engines carry device state across chunks: the
+un-blocked engine's 5-tuple ``(ordp, lenp, rows, oll, orl)`` and the
+blocked engine's 11-tuple (``BlockedLanesMixedResult.STATE_KEYS``).
+``lanes_state_to_numpy`` / ``lanes_state_from_numpy`` carry either across
+as a dict of int32 arrays, so a state the JAX package left can
+warm-start the port's next chunk, and back.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from . import resolve_device
 from .common import RemoteDel, RemoteId, RemoteIns, RemoteTxn
 from .ops.batch import OpTensors
 from .ops.rle import RleResult
+from .ops.rle_lanes_mixed import BlockedLanesMixedResult
 from .ops.span_arrays import FlatDoc
 
 #: Result fields holding u32 bits (origins), compared as ``np.uint32``.
@@ -97,3 +105,33 @@ def rle_result_to_numpy(res: RleResult) -> Dict[str, np.ndarray]:
 #: An ``RleMixedResult`` has the same eight arrays (its ``err`` row 2 is
 #: the order-index miss flag).
 rle_mixed_result_to_numpy = rle_result_to_numpy
+
+
+#: ``state()`` keys of the per-lane mixed engines, by tuple length.
+LANES_STATE_KEYS = {
+    5: ("ordp", "lenp", "rows", "oll", "orl"),
+    11: BlockedLanesMixedResult.STATE_KEYS,
+}
+
+
+def lanes_state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """A per-lane mixed engine's ``state()`` tuple (the port's tensors or
+    the JAX package's arrays) as a dict of int32 numpy arrays."""
+    keys = LANES_STATE_KEYS[len(state)]
+    out = {}
+    for k, a in zip(keys, state):
+        if isinstance(a, torch.Tensor):
+            a = a.cpu().numpy()
+        out[k] = np.array(a, dtype=np.int32)
+    return out
+
+
+def lanes_state_from_numpy(fields: Dict[str, np.ndarray],
+                           device=None) -> tuple:
+    """The port's ``state()`` tuple from such a dict (5 or 11 arrays), as
+    int32 tensors on ``device``: the ``init`` of the next chunk."""
+    dev = resolve_device(device)
+    keys = next(ks for ks in LANES_STATE_KEYS.values()
+                if set(ks) == set(fields))
+    return tuple(torch.from_numpy(np.array(fields[k], dtype=np.int32))
+                 .to(dev) for k in keys)

@@ -11,12 +11,13 @@ W-row backwards-burst fusion), the generalized step fuser
 ``fuse_steps`` and the by-order log prefill; and the remote path of the
 storm: ``AgentTable`` (name ranks for the YATA tiebreak),
 ``OrderAssigner`` (per-agent seq -> order maps) and
-``compile_remote_txns``. Every function returns the same arrays, field
-for field, as its JAX-package counterpart.
+``compile_remote_txns``; and for the per-document streams,
+``row_growth_bound``, ``pad_ops`` and ``stack_ops``. Every function
+returns the same arrays, field for field, as its JAX-package counterpart.
 
 ``prefill_delta``/``concat_deltas``, ``rank_remap``,
-``OrderAssigner.from_oracle`` and the pad/stack family come with later
-slices.
+``OrderAssigner.from_oracle`` and the rest of the batching family come
+with later slices.
 """
 from __future__ import annotations
 
@@ -811,3 +812,45 @@ def prefill_logs(doc, ops: OpTensors):
     return dataclasses.replace(
         doc, ol_log=dev_t(ol), or_log=dev_t(orr),
         rank_log=dev_t(rank), chars_log=dev_t(chars))
+
+
+# -- row bounds and batching --------------------------------------------------
+
+
+def row_growth_bound(num_steps: int) -> int:
+    """Sound per-lane run-row bound after ``num_steps`` compiled device
+    steps: every step splices at most 2 new rows (insert splice, delete
+    boundary splits, remote-delete endpoint retires), so a stream of S
+    steps never needs more than ``1 + 2*S`` rows. The growing per-chunk
+    capacities of the streaming configs derive from it."""
+    return 1 + 2 * num_steps
+
+
+def _map_fields(fn, *streams: OpTensors) -> OpTensors:
+    """``OpTensors`` whose every field is ``fn`` of the streams' fields."""
+    return OpTensors(**{
+        f.name: fn(*(getattr(s, f.name) for s in streams))
+        for f in dataclasses.fields(OpTensors)})
+
+
+def pad_ops(ops: OpTensors, num_steps: int) -> OpTensors:
+    """Pad a step stream with no-ops (KIND_LOCAL with all-zero lengths is
+    an exact no-op in every engine)."""
+    s = ops.num_steps
+    assert s <= num_steps
+    if s == num_steps:
+        return ops
+
+    def pad(a):
+        a = np.asarray(a)
+        return np.pad(a, [(0, num_steps - s)] + [(0, 0)] * (a.ndim - 1))
+
+    return _map_fields(pad, ops)
+
+
+def stack_ops(streams: Sequence[OpTensors]) -> OpTensors:
+    """Ragged per-doc streams -> one time-major ``[S, B, ...]`` batch
+    (shorter docs run no-op tail steps)."""
+    s_max = max(o.num_steps for o in streams)
+    padded = [pad_ops(o, s_max) for o in streams]
+    return _map_fields(lambda *xs: np.stack(xs, axis=1), *padded)

@@ -1,12 +1,19 @@
 """Seeded synthetic edit streams for tests and the chip smoke run (the
-port's counterpart of ``text_crdt_rust_tpu/utils/randedit.py``, drawn
-from numpy generators so one seed gives both packages the same input).
+port's counterpart of ``text_crdt_rust_tpu/utils/randedit.py``).
 
 ``random_patches`` is the `make_random_change` analog (`doc.rs:544-569`):
 each step inserts 1..max_ins chars at a random position or deletes
-1..max_del chars, tracked against a plain string. ``prepend_bursts``
-adds the backwards-contiguous insert bursts (the kevin prepend shape)
-that W-row step fusion compiles into fused steps.
+1..max_del chars, tracked against a plain string. Given a
+``random.Random`` it draws exactly as the JAX package's does, so one
+seed gives both packages the same patches; given a numpy ``Generator``
+it draws the port's own stream (the earlier slices' test inputs).
+``prepend_bursts`` adds the backwards-contiguous insert bursts (the
+kevin prepend shape) that W-row step fusion compiles into fused steps.
+
+``continue_patches`` and ``PeerSynth`` generate the config-5r streams:
+per-document random edits continued chunk after chunk, turned into one
+peer's remote txns (counterparts of ``bench.py``'s ``_continue_patches``
+and ``_PeerSynth``, drawing from ``random.Random`` exactly as they do).
 
 ``make_storm`` builds the config-4 concurrent-insert storm (counterpart
 of ``text_crdt_rust_tpu/utils/randedit.py:50-118``). It draws from
@@ -20,6 +27,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from ..common import RemoteDel, RemoteId, RemoteIns, RemoteTxn
 from ..models.oracle import ListCRDT
 from ..models.sync import export_txns_since
 from .testdata import TestPatch
@@ -32,24 +40,38 @@ def _text(rng: np.random.Generator, n: int) -> str:
 
 
 def random_patches(
-    rng: np.random.Generator,
+    rng,
     steps: int,
     ins_prob: float = 0.6,
     max_ins: int = 5,
     max_del: int = 4,
 ) -> Tuple[List[TestPatch], str]:
-    """Seeded random edit stream, tracked against a plain string."""
+    """Seeded random edit stream, tracked against a plain string. ``rng``
+    is a ``random.Random`` (the JAX package's draw) or a numpy
+    ``Generator`` (the port's own draw)."""
+    if isinstance(rng, random.Random):
+        def below(n):       # uniform in [0, n)
+            return rng.randint(0, n - 1)
+
+        def text(n):
+            return "".join(rng.choice(ALPHABET) for _ in range(n))
+    else:
+        def below(n):
+            return int(rng.integers(0, n))
+
+        def text(n):
+            return _text(rng, n)
     content = ""
     patches = []
     for _ in range(steps):
         if not content or rng.random() < ins_prob:
-            pos = int(rng.integers(0, len(content) + 1))
-            ins = _text(rng, int(rng.integers(1, max_ins + 1)))
+            pos = below(len(content) + 1)
+            ins = text(below(max_ins) + 1)
             patches.append(TestPatch(pos, 0, ins))
             content = content[:pos] + ins + content[pos:]
         else:
-            pos = int(rng.integers(0, len(content)))
-            span = min(int(rng.integers(1, max_del + 1)), len(content) - pos)
+            pos = below(len(content))
+            span = min(below(max_del) + 1, len(content) - pos)
             patches.append(TestPatch(pos, span, ""))
             content = content[:pos] + content[pos + span:]
     return patches, content
@@ -192,3 +214,73 @@ def make_two_peer_merge(seed: int, rounds: int = 6):
     for t in flat:
         receiver.apply_remote_txn(t)
     return flat, receiver
+
+
+def continue_patches(rng: random.Random, content: str, steps: int,
+                     ins_prob: float) -> Tuple[List[TestPatch], str]:
+    """``steps`` random edits continued from ``content`` (inserts of 1..4
+    chars of "abcdefgh ", deletes of 1..4 chars); returns the patches and
+    the text after them."""
+    patches = []
+    for _ in range(steps):
+        if not content or rng.random() < ins_prob:
+            pos = rng.randint(0, len(content))
+            ins = "".join(rng.choice("abcdefgh ")
+                          for _ in range(rng.randint(1, 4)))
+            patches.append(TestPatch(pos, 0, ins))
+            content = content[:pos] + ins + content[pos:]
+        else:
+            pos = rng.randint(0, len(content) - 1)
+            span = min(rng.randint(1, 4), len(content) - pos)
+            patches.append(TestPatch(pos, span, ""))
+            content = content[:pos] + content[pos + span:]
+    return patches, content
+
+
+class PeerSynth:
+    """A single-author peer that turns local patches into a valid remote
+    txn stream (ids exist, seqs dense, delete targets split per
+    seq-contiguous run) without replaying an oracle document. For one
+    author, order == seq, and origins are the neighbouring LIVE ids: the
+    tombstones between them only move the receiver's integrate cursor
+    across invisible chars, so the receiver's text equals the string
+    simulation."""
+
+    def __init__(self, agent: str):
+        self.agent = agent
+        self.ids: list = []   # live char ids (seqs) in doc order
+        self.seq = 0
+
+    def _rid(self, seq):
+        if seq is None:
+            return RemoteId("ROOT", 0xFFFFFFFF)
+        return RemoteId(self.agent, seq)
+
+    def apply(self, patches) -> List[RemoteTxn]:
+        """The txns of one patch chunk (one txn per patch)."""
+        out = []
+        for p in patches:
+            ops = []
+            seq0 = self.seq
+            if p.del_len:
+                victims = self.ids[p.pos: p.pos + p.del_len]
+                del self.ids[p.pos: p.pos + p.del_len]
+                run_start, run_len = victims[0], 1
+                for v in victims[1:]:
+                    if v == run_start + run_len:
+                        run_len += 1
+                    else:
+                        ops.append(RemoteDel(self._rid(run_start), run_len))
+                        run_start, run_len = v, 1
+                ops.append(RemoteDel(self._rid(run_start), run_len))
+                self.seq += p.del_len
+            if p.ins_content:
+                il = len(p.ins_content)
+                left = self.ids[p.pos - 1] if p.pos > 0 else None
+                right = self.ids[p.pos] if p.pos < len(self.ids) else None
+                ops.append(RemoteIns(self._rid(left), self._rid(right),
+                                     p.ins_content))
+                self.ids[p.pos:p.pos] = range(self.seq, self.seq + il)
+                self.seq += il
+            out.append(RemoteTxn(id=self._rid(seq0), parents=[], ops=ops))
+        return out
