@@ -60,7 +60,32 @@
    2,048 (expanded lanes, origins, tables).
 13. ``examples/sync_stream`` through the un-blocked kernel (128 documents
    x 3 chunks x 15 patches per peer, every chunk oracle-checked).
-14. Prints ``{"kernels": [...]}`` (all four kernels) and, as its last
+14. The per-lane local replays, un-blocked (``rle_lanes``) and blocked
+   (``rle_lanes_blocked``), against their plain versions on the card, bit
+   for bit on all 6 and 9 outputs: divergent documents (the CPU tests'
+   seeds 7 and 42, K = 16 and 8, splits), pure inserts and deletes with
+   the SHARED_CUM hoist, fused W-row bursts, both error rows with their
+   post-error state, and a warm-start chain growing its capacity 64 ->
+   128 -> 192 at K = 8.
+15. Drives the config-5 path through its entry point,
+   ``stream.run_stream_5()``: 2,048 documents x 8 chunks x 100 local
+   patches, K = 64, capacity growing to 1,664 run rows, a checkpoint every
+   4 chunks, launch counts set to 0 just before and read just after. It
+   fails unless ``rle_lanes_blocked`` launched once per chunk, every
+   chunk's flags were clear and every sampled document's text equals the
+   string simulation. Host set-up (generation, compile) is timed apart.
+16. At the config-5 shapes: the chain of 8 blocked launches against the
+   plain chain on all 2,048 documents, bit for bit after every chunk; the
+   plain chain's time; the kernel chain's median over 3 runs after 1
+   warm-up (CUDA events); patches/s; per-chunk blocking time per real step
+   (p50, p99); the checkpoint time; peak device memory; device steps and
+   the bound.
+17. The un-blocked kernel on the same stream: through
+   ``run_stream_5(engine="unblocked")`` with the launch counts set to 0
+   just before and read just after, against its plain version on all
+   2,048 documents, and against the blocked kernel (origins every chunk,
+   every document); its chain's median time and bound.
+18. Prints ``{"kernels": [...]}`` (all six kernels) and, as its last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line; so does a host without
@@ -408,10 +433,344 @@ def chain(fn, runners, states_out=None):
     state = None
     for run in runners:
         ini = run.initial() if state is None else run.grow(state)
-        out = fn(*run.staged, *ini, *run.deltas, **run.shape)
+        out = fn(*run.staged, *ini, *getattr(run, "deltas", ()), **run.shape)
         outs.append(out)
         state = states_out(out)
     return outs
+
+
+# -- the per-lane local replays (config 5) ----------------------------------------
+
+A4_OUTPUTS = ("ol", "orr", "ordp", "lenp", "rows", "err")
+A5_OUTPUTS = ("ol", "orr", "ordp", "lenp", "nlog", "blkord", "rws", "liv",
+              "err")
+
+
+def local_lanes_cases(B, randedit, Patch, np):
+    """(label, stacked local streams, un-blocked capacity, blocked shape,
+    expected error row or None) of the local per-lane kernels' small
+    phase: the CPU tests' cases, built by the port alone."""
+    import random
+
+    def stack(streams, lmax=None, fuse_w=1):
+        if lmax is None:
+            lmax = max(len(p.ins_content) for ps in streams for p in ps)
+        return B.stack_ops([B.compile_local_patches(
+            ps, lmax=lmax, dmax=None, fuse_w=fuse_w)[0] for ps in streams])
+
+    def divergent(seed, docs=16):
+        rng = random.Random(seed)
+        return stack([randedit.random_patches(rng, 30 + rng.randint(0, 30))[0]
+                      for _ in range(docs)])
+
+    pure = stack([randedit.continue_patches(random.Random(1000 + d), "", 120,
+                                            0.45)[0] for d in range(8)])
+    bursts = stack([randedit.prepend_bursts(np.random.default_rng(s), 12)[0]
+                    for s in (3, 4)], lmax=16, fuse_w=5)
+    if B.fused_width(bursts) <= 2:
+        raise AssertionError("the burst streams must fuse wider than 2")
+    busy = []
+    for k in range(24):
+        busy.append(Patch(0, 0, "ab"))
+        if k % 2:
+            busy.append(Patch(1, 1, ""))
+    busy_ops = stack([[Patch(0, 0, "ab")], busy])
+    bad = stack([[Patch(0, 0, "abc"), Patch(0, 10, "")],
+                 [Patch(0, 0, "abcdefgh"), Patch(2, 3, "")]], lmax=8)
+    k8, k16 = dict(capacity=256, block_k=8), dict(capacity=256, block_k=16)
+    return [
+        ("divergent documents, seed 7, K = 16", divergent(7), 256, k16, None),
+        ("divergent documents, seed 42, K = 8", divergent(42), 256, k8, None),
+        ("pure inserts and deletes (SHARED_CUM on), K = 16", pure, 256, k16,
+         None),
+        (f"fused bursts W = {B.fused_width(bursts)}, K = 16", bursts, 256,
+         k16, None),
+        ("out of capacity -> err[0]", busy_ops, 8,
+         dict(capacity=16, block_k=8), 0),
+        ("delete off the end -> err[1]", bad, 16,
+         dict(capacity=16, block_k=8), 1),
+    ]
+
+
+def local_bound(staged, capacity, blocked, K, NBT):
+    """(bytes, operations, doc-steps with work) one local per-lane replay
+    must at least move and do: each input read once, each output written
+    once (all int32), and per document one K-row block plus the NBT slot
+    prefixes for every step with work. Whole-plane passes are a design's
+    cost, not the function's, and are not counted."""
+    dlen, ilen = staged[1], staged[2]
+    S, Bn = dlen.shape
+    words = 5 * S * Bn                   # op columns
+    words += 2 * 2 * capacity * Bn       # planes in and out
+    words += 2 * S * Bn + 8 * Bn         # origins, err
+    if blocked:
+        words += 2 * (3 * NBT + 1) * Bn  # slot tables and nlog, in and out
+    else:
+        words += 2 * Bn                  # rows in and out
+    active = int(((dlen > 0) | (ilen > 0)).sum())
+    return 4 * words, active * (K + NBT), active
+
+
+def local_lanes_phase(torch, dev, B, RL, randedit, Patch, np):
+    """The local per-lane kernels against their plain versions on small
+    cases and on a warm-start chain whose capacity grows. Returns the
+    worst differences (A4, A5)."""
+    import random
+
+    a4_worst = a5_worst = 0
+    for label, ops, cap4, shape5, expect in local_lanes_cases(
+            B, randedit, Patch, np):
+        r4 = RL.make_replayer_lanes(ops, capacity=cap4, chunk=16, device=dev)
+        r5 = RL.make_replayer_lanes_blocked(ops, chunk=16, device=dev,
+                                            **shape5)
+        k4 = RL.lanes_replay_cuda(*r4.staged, *r4.initial(), **r4.shape)
+        k5 = RL.lanes_blocked_replay_cuda(*r5.staged, *r5.initial(),
+                                          **r5.shape)
+        torch.cuda.synchronize()
+        e4 = worst_err(k4, RL.lanes_replay_plain(
+            *r4.staged, *r4.initial(), **r4.shape), A4_OUTPUTS)
+        e5 = worst_err(k5, RL.lanes_blocked_replay_plain(
+            *r5.staged, *r5.initial(), **r5.shape), A5_OUTPUTS)
+        a4_worst, a5_worst = max(a4_worst, e4), max(a5_worst, e5)
+        f4 = k4[-1][:2].amax(dim=1).tolist()
+        f5 = k5[-1][:2].amax(dim=1).tolist()
+        flags_ok = (f4 == f5 == [0, 0] if expect is None
+                    else f4[expect] == f5[expect] == 1)
+        ok = e4 == 0 and e5 == 0 and flags_ok
+        log(f"compare local lanes {label}: {ops.num_steps} steps x "
+            f"{ops.kind.shape[1]} docs, SHARED_CUM {r4.shape['shared_cum']}, "
+            f"blocks in use {int(k5[4].max())}, max_abs_err un-blocked {e4} "
+            f"blocked {e5}, err flags {f4} {f5}, {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"local per-lane kernel disagrees on: "
+                                 f"{label}")
+
+    # A warm-start chain whose capacity grows 64 -> 128 -> 192 (K = 8).
+    rng = random.Random(31)
+    nexts = [0] * 4
+    chunks = []
+    for _ in range(3):
+        opses = []
+        for d in range(4):
+            ops, nexts[d] = B.compile_local_patches(
+                randedit.random_patches(rng, 15)[0], lmax=8, dmax=None,
+                start_order=nexts[d])
+            opses.append(ops)
+        chunks.append(B.stack_ops(opses))
+    for name, make, kern, plain, names, kw in (
+            ("un-blocked", RL.make_replayer_lanes, RL.lanes_replay_cuda,
+             RL.lanes_replay_plain, A4_OUTPUTS, {}),
+            ("blocked", RL.make_replayer_lanes_blocked,
+             RL.lanes_blocked_replay_cuda, RL.lanes_blocked_replay_plain,
+             A5_OUTPUTS, dict(block_k=8))):
+        runners = [make(c, capacity=cap, chunk=16, device=dev, **kw)
+                   for c, cap in zip(chunks, (64, 128, 192))]
+        kouts = chain(kern, runners, lambda o: o[2:-1])
+        pouts = chain(plain, runners, lambda o: o[2:-1])
+        torch.cuda.synchronize()
+        e = max(worst_err(k, q, names) for k, q in zip(kouts, pouts))
+        flags = kouts[-1][-1][:2].amax(dim=1).tolist()
+        if name == "blocked":
+            a5_worst = max(a5_worst, e)
+        else:
+            a4_worst = max(a4_worst, e)
+        log(f"compare local lanes warm-start chain (capacity 64 -> 128 -> "
+            f"192), {name}: max_abs_err {e}, err flags {flags}, "
+            f"{'ok' if e == 0 and flags == [0, 0] else 'FAILED'}")
+        if e != 0 or flags != [0, 0]:
+            raise AssertionError(f"{name} local kernel disagrees on the "
+                                 f"chain")
+    return a4_worst, a5_worst
+
+
+def config5_phase(torch, dev, card, stream, RL, _kernels, a4_worst,
+                  a5_worst):
+    """Config 5 at full size: ``stream.run_stream_5()`` counted, its chain
+    against the plain chain on all documents, times and the bound; A4 on
+    the same stream, counted through the entry point, against its plain
+    version and against A5. Returns the two ``kernels`` entries."""
+    t0 = time.perf_counter()
+    chunk_patches, contents = stream.generate_5()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s5 = stream.compile_5(chunk_patches, contents)
+    compile_s = time.perf_counter() - t0
+    del chunk_patches
+    setup_s = gen_s + compile_s
+    log(f"host set-up 5: {setup_s:.2f} s = generation {gen_s:.2f} s "
+        f"(continue_patches) + compile {compile_s:.2f} s "
+        f"(compile_local_patches, stack_ops): {s5.n_docs} docs x "
+        f"{s5.chunks} chunks x {s5.steps_per_chunk} patches -> "
+        f"{sum(s5.real_steps)} real steps, {s5.steps} device steps, "
+        f"{s5.n_patches} patches")
+    # The earlier phases still hold device memory: count the path's peak
+    # above it.
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    run5 = stream.run_stream_5(stream=s5, device=dev, clock=time.perf_counter)
+    torch.cuda.synchronize()
+    wall5 = time.perf_counter() - t0
+    l5 = _kernels.launches.get("rle_lanes_blocked", 0)
+    launches5 = dict(_kernels.launches)
+    peak_mem = torch.cuda.max_memory_allocated() - base_mem
+    res5 = run5.result
+    log(f"5 path: run_stream_5() {s5.n_docs} docs x {s5.chunks} chunks, "
+        f"K=64, capacity {res5.ordp.shape[0]} (NB {res5.blkord.shape[0]}): "
+        f"launches {launches5}, chunks checked {run5.stats.checked}, "
+        f"resyncs {run5.stats.resyncs}, sampled texts == simulation "
+        f"{run5.ok}; host wall {wall5:.2f} s (replayer set-up, apply "
+        f"{run5.stats.wall_s:.3f} s, checkpoints {run5.stats.ckpt_ms:.1f} "
+        f"ms, text check); peak device memory {peak_mem / 2**20:.1f} MiB "
+        f"above the {base_mem / 2**20:.1f} MiB held before it")
+    if (l5 != s5.chunks or run5.stats.checked != s5.chunks or not run5.ok):
+        raise AssertionError(
+            f"5 path failed: blocked launches {l5}, checked "
+            f"{run5.stats.checked}, texts {run5.ok}")
+
+    # -- the blocked kernel at the config-5 shapes ---------------------------
+    runners5 = stream.stream_replayers_5(s5, device=dev)
+    t0 = time.perf_counter()
+    p5 = chain(RL.lanes_blocked_replay_plain, runners5, lambda o: o[2:-1])
+    torch.cuda.synchronize()
+    plain5_ms = (time.perf_counter() - t0) * 1e3
+    k5 = chain(RL.lanes_blocked_replay_cuda, runners5, lambda o: o[2:-1])
+    torch.cuda.synchronize()
+    e5 = max(worst_err(k, q, A5_OUTPUTS) for k, q in zip(k5, p5))
+    a5_worst = max(a5_worst, e5)
+    del p5
+    log(f"compare 5 blocked chain: max_abs_err {e5} over {s5.chunks} chunks "
+        f"against its plain version on all {s5.n_docs} docs; plain chain "
+        f"{plain5_ms:.1f} ms")
+    if e5 != 0:
+        raise AssertionError("blocked local kernel disagrees at the 5 "
+                             "shapes")
+    ms5 = cuda_ms(torch, lambda: chain(RL.lanes_blocked_replay_cuda,
+                                       runners5, lambda o: o[2:-1]), reps=3)
+    lat = stream.step_latency_5(runners5, s5.real_steps, time.perf_counter)
+    b5 = [local_bound(r.staged, r.capacity, True, 64, r.nbt)
+          for r in runners5]
+    bytes5, ops5 = sum(b[0] for b in b5), sum(b[1] for b in b5)
+    steps5 = sum(b[2] for b in b5)
+    bb5, bo5 = bytes5 / PEAK_BYTES_PER_S * 1e3, ops5 / PEAK_OPS_PER_S * 1e3
+    rate5 = s5.n_patches / (ms5 / 1e3)
+    log(f"5 blocked chain: median {ms5:.3f} ms over 3 reps after 1 warm-up "
+        f"(CUDA events, {s5.chunks} launches with the state grown between "
+        f"them); {rate5:.4g} patches/s ({s5.n_patches} patches); per-chunk "
+        f"blocking time per real step p50 {lat['p50_us']:.2f} us, p99 "
+        f"{lat['p99_us']:.2f} us (samples "
+        f"{[round(x, 2) for x in lat['samples_us']]}); checkpoints "
+        f"{run5.stats.ckpt_ms:.1f} ms ({run5.stats.resyncs}); {s5.steps} "
+        f"device steps ({steps5} doc-steps with work); plain chain "
+        f"{plain5_ms:.1f} ms; bound {max(bb5, bo5):.4f} ms ({bytes5} B, "
+        f"{ops5} ops); on {card}")
+
+    # -- the un-blocked kernel on the same stream, counted -------------------
+    _kernels.reset_launches()
+    run4 = stream.run_stream_5(stream=s5, device=dev, engine="unblocked")
+    torch.cuda.synchronize()
+    l4 = _kernels.launches.get("rle_lanes", 0)
+    log(f"5 path, un-blocked engine: run_stream_5(engine='unblocked') "
+        f"launches {dict(_kernels.launches)}, chunks checked "
+        f"{run4.stats.checked}, sampled texts == simulation {run4.ok}")
+    if l4 != s5.chunks or run4.stats.checked != s5.chunks or not run4.ok:
+        raise AssertionError(f"5 path (un-blocked) failed: launches {l4}, "
+                             f"texts {run4.ok}")
+    del run4
+    runners4 = stream.stream_replayers_5(s5, engine="unblocked", device=dev)
+    k4 = chain(RL.lanes_replay_cuda, runners4, lambda o: o[2:-1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p4 = chain(RL.lanes_replay_plain, runners4, lambda o: o[2:-1])
+    torch.cuda.synchronize()
+    plain4_ms = (time.perf_counter() - t0) * 1e3
+    e4 = max(worst_err(k, q, A4_OUTPUTS) for k, q in zip(k4, p4))
+    a4_worst = max(a4_worst, e4)
+    del p4
+    # The two engines: same origins every chunk, same documents.
+    same = all(torch.equal(a[i], b[i]) for a, b in zip(k4, k5)
+               for i in (0, 1))
+    last4 = RL.LanesResult(
+        ordp=k4[-1][2].cpu(), lenp=k4[-1][3].cpu(), rows=k4[-1][4].cpu(),
+        ol=None, orr=None, err=k4[-1][5].cpu(), batch=s5.n_docs)
+    last5 = RL.BlockedLanesResult(
+        *[t.cpu() for t in k5[-1][2:8]], ol=None, orr=None,
+        err=k5[-1][8].cpu(), batch=s5.n_docs, block_k=64)
+    same_docs = all(RL.expand_lane(last4, d).tolist()
+                    == RL.expand_lane(last5, d).tolist()
+                    for d in range(s5.n_docs))
+    log(f"compare 5 un-blocked chain: max_abs_err {e4} against its plain "
+        f"version on all {s5.n_docs} docs (plain chain {plain4_ms:.1f} ms); "
+        f"against the blocked kernel: origins equal {same}, all "
+        f"{s5.n_docs} documents equal {same_docs}")
+    if e4 != 0 or not same or not same_docs:
+        raise AssertionError("un-blocked local kernel disagrees at the 5 "
+                             "shapes")
+    del k4, k5
+    ms4 = cuda_ms(torch, lambda: chain(RL.lanes_replay_cuda, runners4,
+                                       lambda o: o[2:-1]), reps=3)
+    b4 = [local_bound(r.staged, r.capacity, False, 64,
+                      max(8, r.capacity // 64)) for r in runners4]
+    bytes4, ops4 = sum(b[0] for b in b4), sum(b[1] for b in b4)
+    bb4, bo4 = bytes4 / PEAK_BYTES_PER_S * 1e3, ops4 / PEAK_OPS_PER_S * 1e3
+    log(f"5 un-blocked chain: median {ms4:.3f} ms over 3 reps after 1 "
+        f"warm-up (CUDA events); {s5.n_patches / (ms4 / 1e3):.4g} "
+        f"patches/s; plain chain {plain4_ms:.1f} ms; bound "
+        f"{max(bb4, bo4):.4f} ms; on {card}")
+
+    a4_line = {
+        "name": "rle_lanes",
+        "route": "cuda",
+        "source": "text_crdt_rust_tpu_torch/ops/csrc/rle_lanes.cu",
+        "replaces": "text_crdt_rust_tpu/ops/rle_lanes.py:111",
+        "jax_counterpart":
+            "text_crdt_rust_tpu/ops/rle_lanes.py::_rle_lanes_kernel",
+        "launches": l4,
+        "launches_path": "stream.run_stream_5(engine='unblocked') "
+                         "(config 5)",
+        "matches_plain": a4_worst == 0,
+        "max_abs_err": a4_worst,
+        "ms": ms4,
+        "plain_ms": plain4_ms,
+        "plain_docs": s5.n_docs,
+        "bound_ms": max(bb4, bo4),
+        "bound_by": "bytes" if bb4 >= bo4 else "operations",
+        "library_ms": None,
+        "bytes": bytes4,
+        "ops_lower_bound": ops4,
+    }
+    a5_line = {
+        "name": "rle_lanes_blocked",
+        "route": "cuda",
+        "source": "text_crdt_rust_tpu_torch/ops/csrc/rle_lanes_blocked.cu",
+        "replaces": "text_crdt_rust_tpu/ops/rle_lanes.py:488",
+        "jax_counterpart":
+            "text_crdt_rust_tpu/ops/rle_lanes.py::_lanes_blocked_kernel",
+        "launches": l5,
+        "launches_path": "stream.run_stream_5 (config 5)",
+        "matches_plain": a5_worst == 0,
+        "max_abs_err": a5_worst,
+        "ms": ms5,
+        "plain_ms": plain5_ms,
+        "plain_docs": s5.n_docs,
+        "bound_ms": max(bb5, bo5),
+        "bound_by": "bytes" if bb5 >= bo5 else "operations",
+        "library_ms": None,
+        "bytes": bytes5,
+        "ops_lower_bound": ops5,
+        "patches_per_s": rate5,
+        "p50_step_us": lat["p50_us"],
+        "p99_step_us": lat["p99_us"],
+        "checkpoint_ms": run5.stats.ckpt_ms,
+        "setup_s": setup_s,
+        "generation_s": gen_s,
+        "compile_s": compile_s,
+        "peak_device_bytes": peak_mem,
+        "device_steps": s5.steps,
+    }
+    return a4_line, a5_line
 
 
 def main() -> int:
@@ -945,7 +1304,13 @@ def main() -> int:
         "peak_device_bytes": peak_mem,
         "device_steps": s5.steps,
     }
-    log(json.dumps({"kernels": [rle_line, mixed_line, a6_line, a7_line]}))
+    # -- the per-lane local replays and the config-5 path ----------------------
+    a4_worst, a5_worst = local_lanes_phase(torch, dev, B, RL, randedit,
+                                           TestPatch, np)
+    a4_line, a5_line = config5_phase(torch, dev, card, stream, RL, _kernels,
+                                     a4_worst, a5_worst)
+    log(json.dumps({"kernels": [rle_line, mixed_line, a6_line, a7_line,
+                                a4_line, a5_line]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

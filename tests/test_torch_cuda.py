@@ -186,3 +186,68 @@ def test_lanes_kernel_matches_plain(card, name, blocked):
     for k, p in zip(kern, plain):
         assert k.dtype == p.dtype and k.shape == p.shape
         assert torch.equal(k, p)
+
+
+def _local_streams(seeds, n=60, fuse_w=1):
+    """Divergent local edit streams, one per seed, at one insert width."""
+    merged = [TB.merge_patches(randedit.random_patches(
+        np.random.default_rng(s), n)[0]) for s in seeds]
+    lmax = max(len(p.ins_content) for m in merged for p in m)
+    return TB.stack_ops([TB.compile_local_patches(m, lmax=lmax,
+                                                  fuse_w=fuse_w)[0]
+                         for m in merged])
+
+
+def _bursts():
+    """Backwards insert bursts compiled into W-row fused steps (W > 2)."""
+    opses = []
+    for seed in (3, 4):
+        ps, _ = randedit.prepend_bursts(np.random.default_rng(seed), 12)
+        opses.append(TB.compile_local_patches(ps, lmax=16, fuse_w=5)[0])
+    return TB.stack_ops(opses)
+
+
+def _bad_deletes():
+    return TB.stack_ops([
+        TB.compile_local_patches([TestPatch(0, 0, "abc"),
+                                  TestPatch(0, 10, "")], lmax=8)[0],
+        TB.compile_local_patches([TestPatch(0, 0, "abcdefgh"),
+                                  TestPatch(2, 3, "")], lmax=8)[0]])
+
+
+# name -> (stacked local streams, capacity, block_k)
+LOCAL_LANES_CASES = {
+    "random-k8": lambda: (_local_streams((1, 2, 3, 4, 5)), 512, 8),
+    "random-k16": lambda: (_local_streams((6, 7, 8), 120), 512, 16),
+    "bursts-k16": lambda: (_bursts(), 256, 16),
+    "out-of-blocks": lambda: (_out_of_blocks(), 8, 8),
+    "bad-delete": lambda: (_bad_deletes(), 16, 8),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOCAL_LANES_CASES))
+@pytest.mark.parametrize("blocked", [False, True])
+def test_local_lanes_kernel_matches_plain(card, name, blocked):
+    from text_crdt_rust_tpu_torch.ops import rle_lanes as TL
+
+    ops, capacity, block_k = LOCAL_LANES_CASES[name]()
+    if blocked:
+        rep = TL.make_replayer_lanes_blocked(
+            ops, capacity=capacity, block_k=block_k, chunk=16, device=card)
+        kern_fn, plain_fn = (TL.lanes_blocked_replay_cuda,
+                             TL.lanes_blocked_replay_plain)
+        kname = "rle_lanes_blocked"
+    else:
+        rep = TL.make_replayer_lanes(ops, capacity=capacity, chunk=16,
+                                     device=card)
+        kern_fn, plain_fn = TL.lanes_replay_cuda, TL.lanes_replay_plain
+        kname = "rle_lanes"
+    args = (*rep.staged, *rep.initial())
+    plain = plain_fn(*args, **rep.shape)
+    before = _kernels.launches.get(kname, 0)
+    kern = kern_fn(*args, **rep.shape)
+    torch.cuda.synchronize()
+    assert _kernels.launches[kname] == before + 1
+    for k, p in zip(kern, plain):
+        assert k.dtype == p.dtype and k.shape == p.shape
+        assert torch.equal(k, p)

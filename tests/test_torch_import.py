@@ -14,6 +14,7 @@ from text_crdt_rust_tpu_torch import northstar, resolve_device, storm, stream
 from text_crdt_rust_tpu_torch.examples import sync_stream
 from text_crdt_rust_tpu_torch.ops import batch as TB
 from text_crdt_rust_tpu_torch.ops import rle as TR
+from text_crdt_rust_tpu_torch.ops import rle_lanes as TL
 from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as TLM
 from text_crdt_rust_tpu_torch.ops import rle_mixed as TRM
 from text_crdt_rust_tpu_torch.ops import span_arrays as TSA
@@ -49,7 +50,7 @@ def test_port_imports_with_jax_blocked():
         "for m in ('ops.rle', 'ops.rle_mixed', 'northstar', 'storm',\n"
         "          'models.oracle', 'models.sync', 'config', 'stream',\n"
         "          'ops.rle_lanes_mixed', 'parallel.causal',\n"
-        "          'examples.sync_stream'):\n"
+        "          'examples.sync_stream', 'ops.rle_lanes', 'convert'):\n"
         "    assert 'text_crdt_rust_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -83,6 +84,9 @@ def _ops():
     "make_replayer_lanes_mixed_blocked",
     "run_stream",
     "sync_stream",
+    "make_replayer_lanes",
+    "make_replayer_lanes_blocked",
+    "run_stream_5",
 ])
 def test_entry_point_without_device_raises_on_cpu_host(entry):
     if torch.cuda.is_available():
@@ -111,6 +115,13 @@ def test_entry_point_without_device_raises_on_cpu_host(entry):
             n_docs=2, chunks=1, steps_per_chunk=4),
         "sync_stream": lambda: sync_stream.run(docs=1, chunks=1,
                                                ops_per_chunk=2),
+        "make_replayer_lanes": lambda: TL.make_replayer_lanes(
+            TB.stack_ops([_ops()]), capacity=64),
+        "make_replayer_lanes_blocked":
+            lambda: TL.make_replayer_lanes_blocked(
+                TB.stack_ops([_ops()]), capacity=64, block_k=8),
+        "run_stream_5": lambda: stream.run_stream_5(
+            n_docs=2, chunks=1, steps_per_chunk=4),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -128,7 +139,9 @@ def test_cpu_is_used_only_when_asked():
     assert np.asarray(res.lenp[0]).tolist() == [2, 2]
 
 
-@pytest.mark.parametrize("replay", [TR.rle_replay, TRM.rle_mixed_replay])
+@pytest.mark.parametrize("replay", [TR.rle_replay, TRM.rle_mixed_replay,
+                                    TL.lanes_replay,
+                                    TL.lanes_blocked_replay])
 def test_replay_refuses_other_devices(replay):
     col = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no replay for device"):

@@ -6,7 +6,8 @@ JAX package it is held against. Plain tensor code is PyTorch; every
 Pallas kernel of the JAX package becomes a CUDA C++ kernel for Hopper
 (``ops/csrc/``), built at first use by ``ops/_kernels.py``.
 
-Layout (the north-star local-edit replay and the config-4 storm):
+Layout (the north-star local-edit replay, the config-4 storm and the
+streaming configs 5r and 5):
 
 - ``common``            sentinels and the remote-txn dataclasses;
 - ``utils/testdata``    the editing-trace loader;
@@ -22,9 +23,15 @@ Layout (the north-star local-edit replay and the config-4 storm):
 - ``ops/rle_mixed``     the mixed local/remote run replay (YATA
                         integrate, interval deletes), plain version and
                         CUDA kernel wrapper;
+- ``ops/rle_lanes``     per-lane local replays (divergent documents),
+                        un-blocked and blocked, plain versions and CUDA
+                        kernel wrappers;
+- ``ops/rle_lanes_mixed`` per-lane mixed replays, likewise;
 - ``convert``           numpy bridges to and from the JAX package's state;
 - ``northstar``         entry point: a full trace × batch;
-- ``storm``             entry point: the config-4 storm × batch.
+- ``storm``             entry point: the config-4 storm × batch;
+- ``stream``            entry point: configs 5r and 5, thousands of
+                        divergent documents chunk after chunk.
 
 Every entry point takes ``device=None``, which means CUDA. Without a card
 it raises unless the caller asked for ``device="cpu"``: the port never

@@ -7,12 +7,14 @@ empty document, so the compiled op stream is what crosses: tests feed the
 same stream to both packages and compare results through numpy. Remote
 transactions cross as ``dataclasses.asdict`` dicts (``txns_from_dicts``).
 
-The per-lane mixed engines carry device state across chunks: the
-un-blocked engine's 5-tuple ``(ordp, lenp, rows, oll, orl)`` and the
-blocked engine's 11-tuple (``BlockedLanesMixedResult.STATE_KEYS``).
-``lanes_state_to_numpy`` / ``lanes_state_from_numpy`` carry either across
-as a dict of int32 arrays, so a state the JAX package left can
-warm-start the port's next chunk, and back.
+The per-lane engines carry device state across chunks: the local
+engines' 3-tuple ``(ordp, lenp, rows)`` (un-blocked) and 6-tuple
+``(ordp, lenp, nlog, blkord, rws, liv)`` (blocked), the mixed engines'
+5-tuple ``(ordp, lenp, rows, oll, orl)`` and 11-tuple
+(``BlockedLanesMixedResult.STATE_KEYS``). ``lanes_state_to_numpy`` /
+``lanes_state_from_numpy`` carry any of them across as a dict of int32
+arrays, so a state the JAX package left can warm-start the port's next
+chunk, and back.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from . import resolve_device
 from .common import RemoteDel, RemoteId, RemoteIns, RemoteTxn
 from .ops.batch import OpTensors
 from .ops.rle import RleResult
+from .ops.rle_lanes import BlockedLanesResult, LanesResult
 from .ops.rle_lanes_mixed import BlockedLanesMixedResult
 from .ops.span_arrays import FlatDoc
 
@@ -107,16 +110,18 @@ def rle_result_to_numpy(res: RleResult) -> Dict[str, np.ndarray]:
 rle_mixed_result_to_numpy = rle_result_to_numpy
 
 
-#: ``state()`` keys of the per-lane mixed engines, by tuple length.
+#: ``state()`` keys of the per-lane engines, by tuple length.
 LANES_STATE_KEYS = {
+    3: LanesResult.STATE_KEYS,
     5: ("ordp", "lenp", "rows", "oll", "orl"),
+    6: BlockedLanesResult.STATE_KEYS,
     11: BlockedLanesMixedResult.STATE_KEYS,
 }
 
 
 def lanes_state_to_numpy(state) -> Dict[str, np.ndarray]:
-    """A per-lane mixed engine's ``state()`` tuple (the port's tensors or
-    the JAX package's arrays) as a dict of int32 numpy arrays."""
+    """A per-lane engine's ``state()`` tuple (the port's tensors or the JAX
+    package's arrays) as a dict of int32 numpy arrays."""
     keys = LANES_STATE_KEYS[len(state)]
     out = {}
     for k, a in zip(keys, state):
@@ -128,8 +133,9 @@ def lanes_state_to_numpy(state) -> Dict[str, np.ndarray]:
 
 def lanes_state_from_numpy(fields: Dict[str, np.ndarray],
                            device=None) -> tuple:
-    """The port's ``state()`` tuple from such a dict (5 or 11 arrays), as
-    int32 tensors on ``device``: the ``init`` of the next chunk."""
+    """The port's ``state()`` tuple from such a dict (3, 5, 6 or 11
+    arrays), as int32 tensors on ``device``: the ``init`` of the next
+    chunk."""
     dev = resolve_device(device)
     keys = next(ks for ks in LANES_STATE_KEYS.values()
                 if set(ks) == set(fields))

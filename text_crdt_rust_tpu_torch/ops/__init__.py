@@ -8,5 +8,10 @@
                    and the wrapper of its CUDA kernel;
 - ``rle_mixed``    the mixed local/remote run replay of the storm: plain
                    PyTorch version and the wrapper of its CUDA kernel;
+- ``rle_lanes``    the per-lane local replays of config 5 (un-blocked and
+                   blocked): plain versions and their CUDA kernels' wrappers,
+                   plus the lane-vector helpers the mixed ones share;
+- ``rle_lanes_mixed`` the per-lane mixed replays of config 5r, likewise;
+- ``lane_blocks``  per-lane K-row block helpers of the blocked engines;
 - ``_kernels``     builds ``csrc/*.cu`` with nvcc, loads and counts them.
 """

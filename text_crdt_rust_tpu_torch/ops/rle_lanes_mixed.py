@@ -61,14 +61,22 @@ from .lane_blocks import (
     vshift_up,
 )
 from .rle_lanes import (
+    ROOT_I,
     LanesResult,
     _as_i32,
+    _check_cols,
     _empty_blocked_state,
+    _fdiv,
+    _fused_splice_lanes,
     _grow_blocked_state,
     _grow_planes,
     _live_prefix,
+    _lmax,
+    _lmin,
+    _lsum,
     _pad_rows,
     _shared_cum_gate,
+    _stage,
     _vcumsum,
     _vrow,
     _vshift,
@@ -76,16 +84,11 @@ from .rle_lanes import (
 
 I32 = torch.int32
 TAB_UNKNOWN = -2  # by-order table sentinel: entry not yet known
-ROOT_I = -1       # ROOT_ORDER as int32
 
 #: Names of the ten staged op columns, in kernel argument order.
 OP_COLUMNS = ("kind", "pos", "del_len", "del_target", "origin_left",
               "origin_right", "rank", "ins_len", "ins_order_start",
               "rows_per_step")
-
-
-def _fdiv(a, b):
-    return torch.div(a, b, rounding_mode="floor")
 
 
 def _fused_table_writes(oll, orl, oidx, act, st, il, lrun, left, right):
@@ -100,46 +103,6 @@ def _fused_table_writes(oll, orl, oidx, act, st, il, lrun, left, right):
     orl.copy_(torch.where(
         span, torch.where(qoff < ls, right, st + (_fdiv(qoff, ls) - 1) * ls),
         orl))
-
-
-def _fused_splice_lanes(bo, bl, idx, p, i_r, o_r, l_r, off, il, st, w,
-                        wmax: int, act):
-    """The W-row fused-splice arithmetic with a per-lane ``act`` mask
-    (``rle.fused_splice_rows`` with ``active``): ``w`` run rows of stride
-    ``L = il // w`` land in one circular shift. Returns ``(no, nl, amt,
-    mrg, is_split, lrun)``."""
-    lrun = _fdiv(il, torch.clamp(w, min=1))
-    mrg = act & (w == 1) & (p > 0) & (off == l_r) & ((st + 1) == (o_r + l_r))
-    is_split = act & (p > 0) & (off < l_r)
-    dead = ~act | mrg
-    ins_at = torch.where(p == 0, 0, i_r + 1)
-    amt = torch.where(dead, 0, w + is_split.to(I32))
-    so = _vshift(bo, amt, wmax + 1)
-    sl = _vshift(bl, amt, wmax + 1)
-    no = torch.where(idx < ins_at, bo, so)
-    nl = torch.where(idx < ins_at, bl, sl)
-    nl = torch.where(is_split & (idx == i_r), off, nl)
-    new_run = act & (idx >= ins_at) & (idx < ins_at + w) & ~mrg
-    no = torch.where(new_run, st + il - (idx - ins_at + 1) * lrun + 1, no)
-    nl = torch.where(new_run, lrun, nl)
-    tail = is_split & (idx == ins_at + w)
-    no = torch.where(tail, o_r + off, no)
-    nl = torch.where(tail, l_r - off, nl)
-    nl = torch.where(mrg & (idx == i_r), l_r + il, nl)
-    return no, nl, amt, mrg, is_split, lrun
-
-
-def _lsum(x):
-    """Per-lane sum over rows as ``[1, B]`` int32."""
-    return x.sum(dim=0, keepdim=True, dtype=I32)
-
-
-def _lmin(x):
-    return x.min(dim=0, keepdim=True).values
-
-
-def _lmax(x):
-    return x.max(dim=0, keepdim=True).values
 
 
 def _t_read(tab, o):
@@ -916,13 +879,6 @@ _BARGTYPES = [ctypes.c_void_p] * 39 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _BSCRATCH_PLANES = 2  # lane-major [B, CAP]: ordp, lenp
 
 
-def _check_cols(cols, dev, S, B, what="op columns"):
-    for c in cols:
-        _require(c.device == dev and c.dtype == I32 and c.is_contiguous()
-                 and tuple(c.shape) == (S, B),
-                 f"{what} must be contiguous int32 [{S}, {B}] on {dev}")
-
-
 def lanes_mixed_replay_cuda(kind, pos, dlen, dtgt, olop, orop, rank, ilen,
                             start, wcol, ord0, len0, rows0, oll0, orl0,
                             olld, orld, rkl, *, wmax: int,
@@ -1119,17 +1075,6 @@ def lane_tables(stacked: OpTensors, ocap: int):
             np.ascontiguousarray(rkl.T))
 
 
-def _stage(ops: OpTensors, s_pad: int, dev):
-    """The ten op columns as int32 ``[s_pad, B]`` tensors (u32 bits)."""
-    S = ops.num_steps
-
-    def col(name):
-        a = np.asarray(getattr(ops, name), dtype=np.uint32).view(np.int32)
-        return torch.from_numpy(np.pad(a, ((0, s_pad - S), (0, 0)))).to(dev)
-
-    return tuple(col(n) for n in OP_COLUMNS)
-
-
 def _order_capacity(ops: OpTensors, order_capacity: int, base: int) -> int:
     adv = np.asarray(ops.order_advance, dtype=np.int64).sum(axis=0)
     ocap = order_capacity or max(
@@ -1195,7 +1140,7 @@ def make_replayer_lanes_mixed(ops: OpTensors, capacity: int,
     if init is not None and init[3] is not None:
         base = init[3].shape[0]
     ocap = _order_capacity(ops, order_capacity, base)
-    staged = _stage(ops, s_pad, dev)
+    staged = _stage(ops, s_pad, dev, OP_COLUMNS)
     deltas = _rank_table(ops, ocap, rkl, B, dev)
     start = [None if init is None
              else _grow_state(init, capacity, ocap, B, dev)]
@@ -1301,7 +1246,7 @@ def make_replayer_lanes_mixed_blocked(
     if init is not None and init[7] is not None:
         base = init[7].shape[0]
     ocap = _order_capacity(ops, order_capacity, base)
-    staged = _stage(ops, s_pad, dev)
+    staged = _stage(ops, s_pad, dev, OP_COLUMNS)
     deltas = _rank_table(ops, ocap, rkl, B, dev)
     NBT = max(8, capacity // block_k)
     start = [None if init is None else _grow_mixed_blocked_state(
