@@ -85,7 +85,33 @@
    just before and read just after, against its plain version on all
    2,048 documents, and against the blocked kernel (origins every chunk,
    every document); its chain's median time and bound.
-18. Prints ``{"kernels": [...]}`` (all six kernels) and, as its last
+18. The HBM-plane run replay (``rle_hbm_replay``, A2) against its plain
+   version on the card, bit for bit on all eight outputs: random streams
+   and three divergent groups at K = 8, fused prepend bursts at K = 64, a
+   far-jump stream beside a raw random one at K = 512 (window misses), 20k
+   prepends fused W = 64 at K = 2,048 (splits) with and without origins,
+   and both error rows.
+19. Drives kevin through its entry point, ``kevin.run_kevin()``:
+   5,000,000 single-char prepends fused to 78,125 W = 64 steps, 128
+   documents, K = 2,048, capacity 10,500,096 run rows (10.75 GB of
+   planes), no per-op origins; launch counts set to 0 just before and
+   read just after. It fails unless ``rle_hbm_replay`` launched, the
+   flags are clear, lane 0 expands to orders ``n .. 1`` and every lane
+   equals lane 0 over the used blocks. Host set-up (``compile_kevin``)
+   apart; the kernel's median over 3 runs after 1 warm-up (CUDA events),
+   prepends/s, device steps, blocks in use, peak device memory above what
+   was held before, the bound. The planes are freed after it.
+20. The plain check at kevin's geometry: kernel against plain version, bit
+   for bit, on all 5,000,000 prepends (78,125 steps, K = 2,048, W = 64,
+   128 documents, origins kept so they are checked too), the plain
+   version's time.
+21. Drives the north star on A2 through ``northstar.run_northstar(engine=
+   "rle-hbm", batch=1024)`` (K = 512, capacity 32,768), counted the same
+   way: it fails unless doc 0 reproduces ``endContent`` and every lane
+   equals lane 0; then, at the same shapes, the kernel against its plain
+   version and against A1's kernel on the same stream (lane 0's expanded
+   runs and origins), times and the bound.
+22. Prints ``{"kernels": [...]}`` (all seven kernels) and, as its last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line; so does a host without
@@ -149,6 +175,17 @@ def max_abs_err(got, want) -> int:
     return worst
 
 
+def compile_patches(B, patches, fuse_w=1):
+    """A patch list merged, compiled at its longest insert and, for
+    ``fuse_w`` > 1, fused."""
+    merged = B.merge_patches(patches)
+    lmax = max([len(p.ins_content) for p in merged] + [1])
+    ops, _ = B.compile_local_patches(merged, lmax=lmax, fuse_w=fuse_w)
+    if fuse_w > 1:
+        ops, _ = B.fuse_steps(ops, fuse_w=fuse_w)
+    return ops
+
+
 def compare_cases(B, northstar, randedit, TestPatch, np):
     """(label, streams, shape, wants, expect_err) of the kernel-vs-plain
     phase. ``wants`` holds each group's expected text (None for the
@@ -156,12 +193,7 @@ def compare_cases(B, northstar, randedit, TestPatch, np):
     rng = np.random.default_rng
 
     def compile_merged(patches, fuse_w=1):
-        merged = B.merge_patches(patches)
-        lmax = max([len(p.ins_content) for p in merged] + [1])
-        ops, _ = B.compile_local_patches(merged, lmax=lmax, fuse_w=fuse_w)
-        if fuse_w > 1:
-            ops, _ = B.fuse_steps(ops, fuse_w=fuse_w)
-        return ops
+        return compile_patches(B, patches, fuse_w)
 
     cases = []
     prefix = northstar.compile_northstar(patches=20000, fuse_w=8)
@@ -773,6 +805,252 @@ def config5_phase(torch, dev, card, stream, RL, _kernels, a4_worst,
     return a4_line, a5_line
 
 
+# -- the HBM-plane run replay: kevin and the north star on A2 -----------------
+
+KEVIN_N = 5_000_000            # kevin's prepends (upstream benches/yjs.rs)
+
+
+def hbm_compare_cases(B, randedit, TestPatch, np):
+    """(label, streams, replayer kwargs, expected error row or None) of
+    the A2 kernel-vs-plain phase."""
+    rng = np.random.default_rng
+
+    def merged(patches, fuse_w=1):
+        return compile_patches(B, patches, fuse_w)
+
+    def prepends(n, w):
+        return B.compile_local_patches([TestPatch(0, 0, " ")] * n, lmax=w,
+                                       fuse_w=w)[0]
+
+    far = [TestPatch(0, 0, "abcdefgh")]
+    for k in range(300):
+        far += [TestPatch(0, 0, "xy"), TestPatch(8 + 2 * k, 0, "pq")]
+    raw = B.compile_local_patches(
+        randedit.random_patches(rng(13), 1500)[0], lmax=8)[0]
+    return [
+        ("random, K=8", [merged(randedit.random_patches(rng(1), 200)[0])],
+         dict(capacity=512, block_k=8), None),
+        ("3 divergent groups, K=8",
+         [merged(randedit.random_patches(rng(s), 150)[0]) for s in (4, 5, 6)],
+         dict(capacity=512, block_k=8), None),
+        ("prepend bursts W=8, K=64",
+         [merged(randedit.prepend_bursts(rng(3), 60)[0], fuse_w=8)],
+         dict(capacity=2048, block_k=64), None),
+        ("far-jump stream and a raw random stream, K=512",
+         [B.compile_local_patches(far, lmax=8)[0], raw],
+         dict(capacity=8192, block_k=512), None),
+        ("kevin prepends W=64, K=2048 (splits)", [prepends(20000, 64)],
+         dict(capacity=65536, block_k=2048, batch=128), None),
+        ("kevin prepends W=64, K=2048, store_origins=False",
+         [prepends(20000, 64)],
+         dict(capacity=65536, block_k=2048, batch=128, store_origins=False),
+         None),
+        ("block table full -> err[0]",
+         [B.compile_local_patches([TestPatch(0, 0, "ab")] * 40, lmax=2)[0]],
+         dict(capacity=16, block_k=8), 0),
+        ("delete past the end -> err[1]",
+         [B.compile_local_patches([TestPatch(0, 0, "abc"),
+                                   TestPatch(0, 10, "")], lmax=4)[0]],
+         dict(capacity=32, block_k=8), 1),
+    ]
+
+
+def hbm_bound(TH, staged, shape, used_rows):
+    """(bytes, operations) one HBM-plane replay must at least move and do:
+    each input read once and each output written once (the planes' rows of
+    the blocks the replay used, ``used_rows`` over all groups, since no
+    other row is an output; the tables, meta, err and the origins when
+    kept), and per lane, for every step with work, one K-row block and the
+    two levels of the descent (the NSUP segment sums, one 64-slot
+    segment)."""
+    G, S, Bn, CAP, K = (shape["groups"], shape["steps"], shape["batch"],
+                        shape["capacity"], shape["block_k"])
+    _, NSUP, NBL, _ = TH.table_geometry(CAP, K)
+    words = (5 * G * S + 2 * used_rows * Bn + 2 * G * NBL * Bn + 8 * G * Bn
+             + 8 * Bn)
+    if shape["store_origins"]:
+        words += 2 * G * S * Bn
+    active = int(((staged[1] > 0) | (staged[2] > 0)).sum())
+    return 4 * words, active * Bn * (K + NSUP + TH.SUP), active
+
+
+def hbm_phase(torch, dev, card, B, R, TH, kevin, northstar, randedit,
+              TestPatch, np, _kernels):
+    """A2: the small cases, kevin at 5M prepends through ``run_kevin()``
+    (counted), the plain check at kevin's geometry, and the north star on
+    A2 through ``run_northstar(engine="rle-hbm")`` (counted), against its
+    plain version and A1. Returns the ``kernels`` entry."""
+    worst = 0
+    for label, streams, kw, expect in hbm_compare_cases(B, randedit,
+                                                        TestPatch, np):
+        kw.setdefault("batch", 32)
+        rep = TH.make_replayer_rle_hbm(streams, device=dev, chunk=128, **kw)
+        plain = TH.rle_hbm_replay_plain(*rep.staged, **rep.shape)
+        kern = TH.rle_hbm_replay_cuda(*rep.staged, **rep.shape)
+        torch.cuda.synchronize()
+        err = max_abs_err(kern, plain)
+        worst = max(worst, err)
+        flags = kern[7][:2].amax(dim=1).tolist()
+        flags_ok = flags == [0, 0] if expect is None else flags[expect] == 1
+        ok = err == 0 and flags_ok
+        log(f"compare hbm {label}: {[s.num_steps for s in streams]} steps, "
+            f"blocks in use {kern[6][:, 0, 0].tolist()}, max_abs_err {err}, "
+            f"err flags {flags}, {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"hbm kernel disagrees on: {label}")
+        del plain, kern
+
+    # -- kevin, counted -------------------------------------------------------
+    t0 = time.perf_counter()
+    ks = kevin.compile_kevin(KEVIN_N, 64)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    krun = kevin.run_kevin(batch=128, device=dev, stream=ks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    l_kevin = launches.get("rle_hbm_replay", 0)
+    peak_mem = torch.cuda.max_memory_allocated() - base_mem
+    res = krun.result
+    flags = res.err[:2].amax(dim=1).tolist()
+    nlog = int(res.meta[0, 0])
+    used = TH.used_rows(res)
+    log(f"kevin path: run_kevin() {ks.n} prepends -> {ks.steps} device "
+        f"steps (W=64), B={res.batch}, K={res.block_k}, capacity "
+        f"{res.ordp.shape[0]} run rows (NB {res.num_blocks}): launches "
+        f"{launches}, err flags {flags}, meta[0] {nlog} blocks, lane 0 == "
+        f"arange(n, 0, -1) {krun.order_ok}, all lanes equal over the used "
+        f"blocks {krun.lanes_equal}; host set-up (compile_kevin) "
+        f"{setup_s:.2f} s; host wall {wall:.2f} s (replay and checks); "
+        f"peak device memory {peak_mem / 2**30:.2f} GiB above the "
+        f"{base_mem / 2**30:.2f} GiB held before it")
+    if (l_kevin < 1 or flags != [0, 0] or not krun.order_ok
+            or not krun.lanes_equal):
+        raise AssertionError(f"kevin path failed: launches {l_kevin}, flags "
+                             f"{flags}, order {krun.order_ok}, lanes "
+                             f"{krun.lanes_equal}")
+    del krun, res  # free the 10.75 GB of planes
+    rep = kevin.make_kevin_replayer(ks, batch=128, device=dev)
+    ms = cuda_ms(torch, lambda: TH.rle_hbm_replay_cuda(*rep.staged,
+                                                       **rep.shape), reps=3)
+    nbytes, nops, active = hbm_bound(TH, rep.staged, rep.shape, used)
+    bb, bo = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_OPS_PER_S * 1e3
+    rate = ks.n * 128 / (ms / 1e3)
+    log(f"kevin replay: median {ms:.3f} ms over 3 reps after 1 warm-up "
+        f"(CUDA events, the wrapper's zeroing of the "
+        f"{2 * rep.shape['capacity'] * 128 * 4 / 1e9:.2f} GB of planes "
+        f"included); "
+        f"{rate:.4g} prepends/s over 128 docs ({ks.n / (ms / 1e3):.4g} a "
+        f"doc); {active} device steps, {ms / active * 1e3:.3f} us a step; "
+        f"bound {max(bb, bo):.4f} ms ({nbytes} B, {nops} ops); on {card}")
+    del rep
+
+    # -- the plain check at kevin's geometry ----------------------------------
+    prep = kevin.make_kevin_replayer(ks, batch=128, store_origins=True,
+                                     device=dev)
+    kern = TH.rle_hbm_replay_cuda(*prep.staged, **prep.shape)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = TH.rle_hbm_replay_plain(*prep.staged, **prep.shape)
+    torch.cuda.synchronize()
+    kplain_ms = (time.perf_counter() - t0) * 1e3
+    e = max_abs_err(kern, plain)
+    worst = max(worst, e)
+    log(f"compare kevin geometry: all {ks.n} prepends ({ks.steps} "
+        f"steps, K={prep.shape['block_k']}, W=64, B=128, capacity "
+        f"{prep.shape['capacity']}, "
+        f"origins kept): max_abs_err {e} on all eight outputs, blocks in "
+        f"use {int(kern[6][0, 0, 0])}; plain version {kplain_ms:.1f} ms")
+    if e != 0:
+        raise AssertionError("hbm kernel disagrees at kevin's geometry")
+    del kern, plain, prep
+
+    # -- the north star on A2, counted ----------------------------------------
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    nrun = northstar.run_northstar(engine="rle-hbm", batch=1024, device=dev)
+    torch.cuda.synchronize()
+    nwall = time.perf_counter() - t0
+    nlaunch = dict(_kernels.launches)
+    l_ns = nlaunch.get("rle_hbm_replay", 0)
+    nres = nrun.results[0]
+    nequal = TH.lanes_equal(nres)
+    log(f"north star on A2: run_northstar(engine='rle-hbm') "
+        f"{nrun.stream.n_patches} patches -> {nrun.stream.steps} device "
+        f"steps, B={nres.batch}, K={nres.block_k}, capacity "
+        f"{nres.ordp.shape[0]}: text ok {nrun.ok}, all lanes equal "
+        f"{nequal}, launches {nlaunch}, blocks in use "
+        f"{int(nres.meta[0, 0])}, host wall {nwall:.2f} s with compile")
+    if l_ns < 1 or not nrun.ok or not nequal:
+        raise AssertionError(f"north star on A2 failed: launches {l_ns}, "
+                             f"text {nrun.ok}, lanes {nequal}")
+    nrep = northstar.make_northstar_replayer(nrun.stream, batch=1024,
+                                             device=dev, engine="rle-hbm")
+    t0 = time.perf_counter()
+    plain = TH.rle_hbm_replay_plain(*nrep.staged, **nrep.shape)
+    torch.cuda.synchronize()
+    nplain_ms = (time.perf_counter() - t0) * 1e3
+    kern = TH.rle_hbm_replay_cuda(*nrep.staged, **nrep.shape)
+    torch.cuda.synchronize()
+    en = max_abs_err(kern, plain)
+    worst = max(worst, en)
+    del plain, kern
+    a1 = northstar.make_northstar_replayer(nrun.stream, batch=1024,
+                                           device=dev)()[0]
+    same = (np.array_equal(R.expand_runs(a1), R.expand_runs(nres))
+            and torch.equal(a1.ol[:, 0], nres.ol[:, 0])
+            and torch.equal(a1.orr[:, 0], nres.orr[:, 0]))
+    log(f"compare north star on A2: max_abs_err {en} against its plain "
+        f"version (plain {nplain_ms:.1f} ms); against A1's kernel on the "
+        f"same stream (lane 0's expand_runs, ol, orr): equal {same}")
+    if en != 0 or not same:
+        raise AssertionError("hbm kernel disagrees on the north star")
+    del a1
+    nms = cuda_ms(torch, lambda: TH.rle_hbm_replay_cuda(*nrep.staged,
+                                                        **nrep.shape), reps=3)
+    nb2, no2, nact = hbm_bound(TH, nrep.staged, nrep.shape,
+                               TH.used_rows(nres))
+    nbb, nbo = nb2 / PEAK_BYTES_PER_S * 1e3, no2 / PEAK_OPS_PER_S * 1e3
+    nrate = nrun.stream.n_patches * 1024 / (nms / 1e3)
+    log(f"north star on A2 replay: median {nms:.3f} ms over 3 reps after 1 "
+        f"warm-up (CUDA events); {nrate:.4g} patches/s ({nrun.stream.n_patches} x 1024 docs); {nact} device "
+        f"steps; plain version {nplain_ms:.1f} ms; bound "
+        f"{max(nbb, nbo):.4f} ms ({nb2} B, {no2} ops); on {card}")
+    return {
+        "name": "rle_hbm_replay",
+        "route": "cuda",
+        "source": "text_crdt_rust_tpu_torch/ops/csrc/rle_hbm_replay.cu",
+        "replaces": "text_crdt_rust_tpu/ops/rle_hbm.py:54",
+        "jax_counterpart":
+            "text_crdt_rust_tpu/ops/rle_hbm.py::_rle_hbm_kernel",
+        "launches": l_kevin,
+        "launches_path": "kevin.run_kevin (5M prepends)",
+        "launches_northstar": l_ns,
+        "matches_plain": worst == 0,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": kplain_ms,
+        "plain_prepends": ks.n,
+        "bound_ms": max(bb, bo),
+        "bound_by": "bytes" if bb >= bo else "operations",
+        "library_ms": None,
+        "bytes": nbytes,
+        "ops_lower_bound": nops,
+        "serial_steps": active,
+        "prepends_per_s": rate,
+        "blocks_used": nlog,
+        "setup_s": setup_s,
+        "peak_device_bytes": peak_mem,
+        "northstar_ms": nms,
+        "northstar_plain_ms": nplain_ms,
+        "northstar_bound_ms": max(nbb, nbo),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -782,13 +1060,20 @@ def main() -> int:
     try:
         import numpy as np
 
-        from text_crdt_rust_tpu_torch import common, northstar, storm, stream
+        from text_crdt_rust_tpu_torch import (
+            common,
+            kevin,
+            northstar,
+            storm,
+            stream,
+        )
         from text_crdt_rust_tpu_torch.examples import sync_stream
         from text_crdt_rust_tpu_torch.models.oracle import ListCRDT
         from text_crdt_rust_tpu_torch.models.sync import export_txns_since
         from text_crdt_rust_tpu_torch.ops import _kernels
         from text_crdt_rust_tpu_torch.ops import batch as B
         from text_crdt_rust_tpu_torch.ops import rle as R
+        from text_crdt_rust_tpu_torch.ops import rle_hbm as TH
         from text_crdt_rust_tpu_torch.ops import rle_lanes as RL
         from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as RLM
         from text_crdt_rust_tpu_torch.ops import rle_mixed as RM
@@ -1309,8 +1594,11 @@ def main() -> int:
                                            TestPatch, np)
     a4_line, a5_line = config5_phase(torch, dev, card, stream, RL, _kernels,
                                      a4_worst, a5_worst)
+    # -- the HBM-plane replay: kevin and the north star on A2 ----------------
+    hbm_line = hbm_phase(torch, dev, card, B, R, TH, kevin, northstar,
+                         randedit, TestPatch, np, _kernels)
     log(json.dumps({"kernels": [rle_line, mixed_line, a6_line, a7_line,
-                                a4_line, a5_line]}))
+                                a4_line, a5_line, hbm_line]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

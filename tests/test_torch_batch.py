@@ -128,13 +128,17 @@ def test_require_unfused_agrees(fuse_w):
     if JB.fused_width(jops) > 1:
         with pytest.raises(ValueError, match="no fused multi-row splice"):
             JB.require_unfused(jops, "flat")
-        with pytest.raises(ValueError, match="no fused multi-row splice"):
+        with pytest.raises(ValueError,
+                           match="no fused multi-row splice") as ei:
             TB.require_unfused(tops, "flat")
+        for name in TB.fused_engine_names():
+            assert name in str(ei.value)
     else:
         JB.require_unfused(jops, "flat")
         TB.require_unfused(tops, "flat")
     assert "rle" in JB.fused_engine_names()
-    assert TB.fused_engine_names() == ("rle",)
+    assert "rle-hbm" in JB.fused_engine_names()
+    assert TB.fused_engine_names() == ("rle", "rle-hbm")
 
 
 @pytest.mark.parametrize("fuse_w", [1, 8])

@@ -251,3 +251,63 @@ def test_local_lanes_kernel_matches_plain(card, name, blocked):
     for k, p in zip(kern, plain):
         assert k.dtype == p.dtype and k.shape == p.shape
         assert torch.equal(k, p)
+
+
+def _kevin(n, fuse_w):
+    return TB.compile_local_patches([TestPatch(0, 0, " ")] * n, lmax=fuse_w,
+                                    fuse_w=fuse_w)[0]
+
+
+def _far_jump(n):
+    ps = [TestPatch(0, 0, "abcdefgh")]
+    for k in range(n):
+        ps += [TestPatch(0, 0, "xy"), TestPatch(8 + 2 * k, 0, "pq")]
+    return TB.compile_local_patches(ps, lmax=8)[0]
+
+
+# name -> (streams, replayer kwargs); the plane rows of unused blocks are
+# zeroed by both versions, so every output compares in full.
+HBM_CASES = {
+    "random-k8": lambda: ([_random(1)], dict(capacity=512, block_k=8)),
+    "bursts-w8-k64": lambda: ([_compile(randedit.prepend_bursts(
+        np.random.default_rng(3), 60)[0], fuse_w=8)],
+        dict(capacity=2048, block_k=64)),
+    "groups-3-k8": lambda: ([_random(4), _random(5, 100), _random(6, 50)],
+                            dict(capacity=512, block_k=8)),
+    "kevin-w64-k512": lambda: ([_kevin(6000, 64)],
+                               dict(capacity=512 * 32, block_k=512)),
+    "far-jump-k512": lambda: ([TB.compile_local_patches(
+        randedit.random_patches(np.random.default_rng(13), 1500)[0],
+        lmax=8)[0], _far_jump(300)],
+        dict(capacity=512 * 16, block_k=512, batch=4)),
+    "kevin-w64-k2048": lambda: ([_kevin(20000, 64)],
+                                dict(capacity=2048 * 32, block_k=2048)),
+    "kevin-k2048-no-origins": lambda: ([_kevin(20000, 64)], dict(
+        capacity=2048 * 32, block_k=2048, store_origins=False)),
+    "capacity-overflow": lambda: (
+        [_compile([TestPatch(0, 0, "ab")] * 40)],
+        dict(capacity=16, block_k=8)),
+    "bad-delete": lambda: (
+        [_compile([TestPatch(0, 0, "abc"), TestPatch(0, 10, "")])],
+        dict(capacity=32, block_k=8)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HBM_CASES))
+def test_hbm_kernel_matches_plain(card, name):
+    from text_crdt_rust_tpu_torch.ops import rle_hbm as TH
+
+    streams, kw = HBM_CASES[name]()
+    kw.setdefault("batch", 8)
+    rep = TH.make_replayer_rle_hbm(streams, device=card, chunk=128, **kw)
+    plain = TH.rle_hbm_replay_plain(*rep.staged, **rep.shape)
+    before = _kernels.launches.get("rle_hbm_replay", 0)
+    kern = TH.rle_hbm_replay_cuda(*rep.staged, **rep.shape)
+    torch.cuda.synchronize()
+    assert _kernels.launches["rle_hbm_replay"] == before + 1
+    for k, p in zip(kern, plain):
+        assert k.dtype == p.dtype and k.shape == p.shape
+        assert torch.equal(k, p)
+    flags = kern[7][:2].amax(dim=1).tolist()
+    assert flags == {"capacity-overflow": [1, 0],
+                     "bad-delete": [0, 1]}.get(name, [0, 0])

@@ -10,10 +10,17 @@ import numpy as np
 import pytest
 import torch
 
-from text_crdt_rust_tpu_torch import northstar, resolve_device, storm, stream
+from text_crdt_rust_tpu_torch import (
+    kevin,
+    northstar,
+    resolve_device,
+    storm,
+    stream,
+)
 from text_crdt_rust_tpu_torch.examples import sync_stream
 from text_crdt_rust_tpu_torch.ops import batch as TB
 from text_crdt_rust_tpu_torch.ops import rle as TR
+from text_crdt_rust_tpu_torch.ops import rle_hbm as TH
 from text_crdt_rust_tpu_torch.ops import rle_lanes as TL
 from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as TLM
 from text_crdt_rust_tpu_torch.ops import rle_mixed as TRM
@@ -50,13 +57,14 @@ def test_port_imports_with_jax_blocked():
         "for m in ('ops.rle', 'ops.rle_mixed', 'northstar', 'storm',\n"
         "          'models.oracle', 'models.sync', 'config', 'stream',\n"
         "          'ops.rle_lanes_mixed', 'parallel.causal',\n"
-        "          'examples.sync_stream', 'ops.rle_lanes', 'convert'):\n"
+        "          'examples.sync_stream', 'ops.rle_lanes', 'convert',\n"
+        "          'ops.rle_hbm', 'kevin'):\n"
         "    assert 'text_crdt_rust_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 22
+    assert int(out.stdout.split()[-1]) >= 24
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
@@ -87,6 +95,10 @@ def _ops():
     "make_replayer_lanes",
     "make_replayer_lanes_blocked",
     "run_stream_5",
+    "make_replayer_rle_hbm",
+    "replay_local_rle_hbm",
+    "run_kevin",
+    "run_northstar_rle_hbm",
 ])
 def test_entry_point_without_device_raises_on_cpu_host(entry):
     if torch.cuda.is_available():
@@ -122,6 +134,14 @@ def test_entry_point_without_device_raises_on_cpu_host(entry):
                 TB.stack_ops([_ops()]), capacity=64, block_k=8),
         "run_stream_5": lambda: stream.run_stream_5(
             n_docs=2, chunks=1, steps_per_chunk=4),
+        "make_replayer_rle_hbm": lambda: TH.make_replayer_rle_hbm(
+            _ops(), capacity=64, batch=2, block_k=8),
+        "replay_local_rle_hbm": lambda: TH.replay_local_rle_hbm(
+            _ops(), capacity=64, batch=2, block_k=8),
+        "run_kevin": lambda: kevin.run_kevin(n=16, batch=2, fuse_w=4,
+                                             block_k=8),
+        "run_northstar_rle_hbm": lambda: northstar.run_northstar(
+            patches=10, batch=2, block_k=8, engine="rle-hbm"),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -137,11 +157,16 @@ def test_cpu_is_used_only_when_asked():
                                device="cpu")
     assert res.ordp.device.type == "cpu"
     assert np.asarray(res.lenp[0]).tolist() == [2, 2]
+    res = TH.replay_local_rle_hbm(_ops(), capacity=64, batch=2, block_k=8,
+                                  device="cpu")
+    assert res.ordp.device.type == "cpu"
+    assert np.asarray(res.lenp[0]).tolist() == [2, 2]
 
 
 @pytest.mark.parametrize("replay", [TR.rle_replay, TRM.rle_mixed_replay,
                                     TL.lanes_replay,
-                                    TL.lanes_blocked_replay])
+                                    TL.lanes_blocked_replay,
+                                    TH.rle_hbm_replay])
 def test_replay_refuses_other_devices(replay):
     col = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no replay for device"):

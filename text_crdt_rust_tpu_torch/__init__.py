@@ -6,8 +6,8 @@ JAX package it is held against. Plain tensor code is PyTorch; every
 Pallas kernel of the JAX package becomes a CUDA C++ kernel for Hopper
 (``ops/csrc/``), built at first use by ``ops/_kernels.py``.
 
-Layout (the north-star local-edit replay, the config-4 storm and the
-streaming configs 5r and 5):
+Layout (the north-star local-edit replay, kevin, the config-4 storm and
+the streaming configs 5r and 5):
 
 - ``common``            sentinels and the remote-txn dataclasses;
 - ``utils/testdata``    the editing-trace loader;
@@ -20,6 +20,9 @@ streaming configs 5r and 5):
 - ``ops/span_arrays``   ``FlatDoc``, the per-char document on tensors;
 - ``ops/rle``           the RLE run-block replay, its plain PyTorch
                         version and its CUDA kernel wrapper;
+- ``ops/rle_hbm``       the run-block replay with its planes in device
+                        memory and a two-level live index (millions of
+                        run rows), plain version and CUDA kernel wrapper;
 - ``ops/rle_mixed``     the mixed local/remote run replay (YATA
                         integrate, interval deletes), plain version and
                         CUDA kernel wrapper;
@@ -28,7 +31,10 @@ streaming configs 5r and 5):
                         kernel wrappers;
 - ``ops/rle_lanes_mixed`` per-lane mixed replays, likewise;
 - ``convert``           numpy bridges to and from the JAX package's state;
-- ``northstar``         entry point: a full trace × batch;
+- ``northstar``         entry point: a full trace × batch, on ``rle`` or
+                        ``rle-hbm``;
+- ``kevin``             entry point: millions of single-char prepends ×
+                        batch on ``rle-hbm``;
 - ``storm``             entry point: the config-4 storm × batch;
 - ``stream``            entry point: configs 5r and 5, thousands of
                         divergent documents chunk after chunk.

@@ -96,7 +96,9 @@ def flat_doc_from_numpy(fields: Dict[str, np.ndarray],
 
 def rle_result_to_numpy(res: RleResult) -> Dict[str, np.ndarray]:
     """An ``RleResult``'s eight arrays on the host, origins as ``uint32``
-    bit views, in the JAX package's field names."""
+    bit views, in the JAX package's field names. A result replayed with
+    ``store_origins=False`` (``ops/rle_hbm.py``) carries ``ol``/``orr`` of
+    0 steps, as ``uint32 [0, B]`` arrays like the JAX package's."""
     out = {}
     for name in ("ordp", "lenp", "blkord", "rows", "meta", "ol", "orr",
                  "err"):

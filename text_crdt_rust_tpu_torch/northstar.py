@@ -8,9 +8,15 @@ them into op tensors, fuse steps (W-row bursts, replace pairs), replay on
 check its text against the trace's ``endContent``.
 
     python -m text_crdt_rust_tpu_torch.northstar [--batch 512] [--device cpu]
+        [--engine rle|rle-hbm]
 
 prints one JSON line with the step counts and whether every group's
 doc 0 reproduced the trace (``chip_smoke.py`` times the replay).
+
+Two engines replay it: ``rle`` (``ops/rle.py``, K = 128, capacity 20,992
+run rows, the default) and ``rle-hbm`` (``ops/rle_hbm.py``, the planes in
+device memory: K = 512, capacity 32,768, as the JAX package's ``bench.py
+--engine rle-hbm`` sizes it for 1,024 documents and more).
 """
 from __future__ import annotations
 
@@ -25,7 +31,15 @@ from . import resolve_device
 from .ops import batch as B
 from .ops import span_arrays as SA
 from .ops.rle import RleResult, make_replayer_rle, rle_to_flat
+from .ops.rle_hbm import make_replayer_rle_hbm
 from .utils.testdata import flatten_patches, load_testing_data, trace_path
+
+
+#: Engine -> (replayer, default block_k, default capacity in run rows).
+ENGINES = {
+    "rle": (make_replayer_rle, 128, 20992),
+    "rle-hbm": (make_replayer_rle_hbm, 512, 32768),
+}
 
 
 @dataclasses.dataclass
@@ -85,25 +99,35 @@ def compile_northstar(trace: str = "automerge-paper",
 
 
 def make_northstar_replayer(stream: NorthstarStream, batch: int = 512,
-                            capacity: int = 20992, block_k: int = 128,
-                            groups: int = 1, device=None):
-    """The replayer of a compiled trace (``capacity`` rounded up to whole
-    blocks); every group replays the same stream."""
+                            capacity: Optional[int] = None,
+                            block_k: Optional[int] = None, groups: int = 1,
+                            device=None, engine: str = "rle"):
+    """The replayer of a compiled trace on ``engine`` (``capacity`` and
+    ``block_k`` default to the engine's geometry; ``capacity`` is rounded
+    up to whole blocks); every group replays the same stream."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; one of "
+                         f"{sorted(ENGINES)}")
+    make, k_default, cap_default = ENGINES[engine]
+    block_k = block_k or k_default
+    capacity = capacity or cap_default
     capacity = ((capacity + block_k - 1) // block_k) * block_k
-    return make_replayer_rle([stream.ops] * groups, capacity=capacity,
-                             batch=batch, block_k=block_k, device=device)
+    return make([stream.ops] * groups, capacity=capacity, batch=batch,
+                block_k=block_k, device=device)
 
 
 def run_northstar(trace: str = "automerge-paper", batch: int = 512,
-                  capacity: int = 20992, block_k: int = 128, fuse_w: int = 8,
+                  capacity: Optional[int] = None,
+                  block_k: Optional[int] = None, fuse_w: int = 8,
                   groups: int = 1, patches: Optional[int] = None,
-                  device=None) -> NorthstarRun:
+                  device=None, engine: str = "rle") -> NorthstarRun:
     """Compile and replay a trace into ``batch`` x ``groups`` identical
-    documents, and check every group's doc 0 against the trace."""
+    documents on ``engine``, and check every group's doc 0 against the
+    trace."""
     dev = resolve_device(device)
     stream = compile_northstar(trace, patches, fuse_w)
     results = make_northstar_replayer(stream, batch, capacity, block_k,
-                                      groups, dev)()
+                                      groups, dev, engine)()
     docs = [rle_to_flat(stream.ops, r) for r in results]
     ok = all(SA.to_string(d) == stream.want for d in docs)
     return NorthstarRun(stream=stream, results=results, doc=docs[0], ok=ok)
@@ -113,8 +137,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", default="automerge-paper")
     ap.add_argument("--batch", type=int, default=512)
-    ap.add_argument("--capacity", type=int, default=20992)
-    ap.add_argument("--block-k", type=int, default=128)
+    ap.add_argument("--engine", default="rle", choices=sorted(ENGINES))
+    ap.add_argument("--capacity", type=int, default=None,
+                    help="run rows (default: the engine's, 20,992 / 32,768)")
+    ap.add_argument("--block-k", type=int, default=None,
+                    help="rows per block (default: the engine's, 128 / 512)")
     ap.add_argument("--fuse-w", type=int, default=8)
     ap.add_argument("--groups", type=int, default=1)
     ap.add_argument("--patches", type=int, default=0,
@@ -124,11 +151,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     run = run_northstar(args.trace, args.batch, args.capacity, args.block_k,
-                        args.fuse_w, args.groups, args.patches or None, dev)
+                        args.fuse_w, args.groups, args.patches or None, dev,
+                        args.engine)
     print(json.dumps({
         "trace": args.trace, "patches": run.stream.n_patches,
         "steps": run.stream.steps, "steps_merged": run.stream.steps_merged,
-        "batch": args.batch, "groups": args.groups,
+        "engine": args.engine, "batch": args.batch, "groups": args.groups,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "ok": run.ok}))

@@ -6,6 +6,10 @@
 - ``blocked``      block-plane helpers of the run replays;
 - ``rle``          the north-star run-block replay: plain PyTorch version
                    and the wrapper of its CUDA kernel;
+- ``rle_hbm``      the run-block replay with millions of run rows (planes
+                   in device memory, a two-level live index) of kevin and
+                   the north star at 1,024 documents: plain PyTorch version
+                   and the wrapper of its CUDA kernel;
 - ``rle_mixed``    the mixed local/remote run replay of the storm: plain
                    PyTorch version and the wrapper of its CUDA kernel;
 - ``rle_lanes``    the per-lane local replays of config 5 (un-blocked and

@@ -45,7 +45,7 @@ KIND_REMOTE_DEL = 2   # tombstone an order-contiguous target range
 
 #: Engines of the port whose insert splice accepts W-row fused steps
 #: (the port's stand-in for the JAX package's registry ``fused_steps``).
-FUSED_ENGINES: Tuple[str, ...] = ("rle",)
+FUSED_ENGINES: Tuple[str, ...] = ("rle", "rle-hbm")
 
 
 @dataclasses.dataclass

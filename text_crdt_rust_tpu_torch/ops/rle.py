@@ -493,40 +493,30 @@ class RleResult:
                 "stream)")
 
 
-def make_replayer_rle(
-    ops,
-    capacity: int,
-    batch: int = 128,
-    block_k: int = 256,
-    chunk: int = 1024,
-    device=None,
-):
-    """Build a replayer for one local-edit stream (or a SEQUENCE of
-    streams — divergent doc groups on a leading dimension). Returns a
-    function of no arguments that runs the replay and returns an
-    ``RleResult`` (a list of them for a sequence).
-
-    ``capacity`` counts RUN ROWS, not characters: automerge-paper peaks at
-    13,218 rows. ``chunk`` pads the step count to a multiple of itself,
-    as the JAX package's grid does."""
-    dev = resolve_device(device)
+def stage_local_streams(ops, engine: str, capacity: int, block_k: int,
+                        chunk: int, dev):
+    """Validate one local-edit stream (or a SEQUENCE of them, divergent
+    doc groups) for a run-block replay of ``engine`` and stage its five
+    int32 op columns ``[G * s_pad]`` on ``dev``, each group's padded to
+    ``s_pad``, a multiple of ``chunk``. Returns ``(grouped, lens, staged,
+    shape)``: ``shape`` holds the replay's keyword arguments but
+    ``batch``."""
     grouped = isinstance(ops, (list, tuple))
     streams = list(ops) if grouped else [ops]
     G = len(streams)
     _require(G >= 1, "need at least one op stream")
     for st in streams:
         kinds = np.asarray(st.kind)
-        _require(kinds.ndim == 1, "rle engine takes per-group shared "
+        _require(kinds.ndim == 1, f"{engine} engine takes per-group shared "
                  "streams (no per-lane batching inside a group)")
         _require(bool((kinds == KIND_LOCAL).all()),
-                 "rle engine replays local streams; remote ops -> "
-                 "a later slice of the port")
+                 f"{engine} engine replays local streams; remote ops -> "
+                 "ops.rle_mixed")
     _require(capacity % block_k == 0,
              f"capacity ({capacity}) must be a multiple of block_k "
              f"({block_k})")
     _require(chunk >= 1, "chunk must be positive")
-    NB = capacity // block_k
-    _require(NB >= 1, "need at least one block")
+    _require(capacity // block_k >= 1, "need at least one block")
     _require(block_k >= 8, "block_k must hold a few runs")
     WMAX = fused_width_checked(streams, block_k)
 
@@ -545,22 +535,54 @@ def make_replayer_rle(
               staged_col(lambda o: o.ins_len),
               staged_col(lambda o: o.ins_order_start),
               staged_col(lambda o: o.rows_per_step))
-    shape = dict(groups=G, steps=s_pad, batch=batch, capacity=capacity,
-                 block_k=block_k, wmax=WMAX)
+    shape = dict(groups=G, steps=s_pad, capacity=capacity, block_k=block_k,
+                 wmax=WMAX)
+    return grouped, lens, staged, shape
+
+
+def split_results(outs, grouped: bool, lens, capacity: int, block_k: int,
+                  batch: int, keep_origins: bool = True):
+    """A replay's eight outputs as one ``RleResult`` per group (a list
+    when ``grouped``), origins cut to each group's real steps (to none
+    when ``keep_origins`` is False)."""
+    ol, orr, ordp, lenp, blk, rows, meta, err = outs
+    results = [
+        RleResult(
+            ordp=ordp[gi * capacity:(gi + 1) * capacity],
+            lenp=lenp[gi * capacity:(gi + 1) * capacity],
+            blkord=blk[gi], rows=rows[gi], meta=meta[gi],
+            ol=ol[gi, :lens[gi] if keep_origins else 0],
+            orr=orr[gi, :lens[gi] if keep_origins else 0], err=err,
+            block_k=block_k, num_blocks=capacity // block_k, batch=batch)
+        for gi in range(len(lens))
+    ]
+    return results if grouped else results[0]
+
+
+def make_replayer_rle(
+    ops,
+    capacity: int,
+    batch: int = 128,
+    block_k: int = 256,
+    chunk: int = 1024,
+    device=None,
+):
+    """Build a replayer for one local-edit stream (or a SEQUENCE of
+    streams — divergent doc groups on a leading dimension). Returns a
+    function of no arguments that runs the replay and returns an
+    ``RleResult`` (a list of them for a sequence).
+
+    ``capacity`` counts RUN ROWS, not characters: automerge-paper peaks at
+    13,218 rows. ``chunk`` pads the step count to a multiple of itself,
+    as the JAX package's grid does."""
+    dev = resolve_device(device)
+    grouped, lens, staged, shape = stage_local_streams(
+        ops, "rle", capacity, block_k, chunk, dev)
+    shape["batch"] = batch
 
     def run():
-        ol, orr, ordp, lenp, blk, rows, meta, err = rle_replay(
-            *staged, **shape)
-        results = [
-            RleResult(
-                ordp=ordp[gi * capacity:(gi + 1) * capacity],
-                lenp=lenp[gi * capacity:(gi + 1) * capacity],
-                blkord=blk[gi], rows=rows[gi], meta=meta[gi],
-                ol=ol[gi, :lens[gi]], orr=orr[gi, :lens[gi]], err=err,
-                block_k=block_k, num_blocks=NB, batch=batch)
-            for gi in range(G)
-        ]
-        return results if grouped else results[0]
+        return split_results(rle_replay(*staged, **shape), grouped, lens,
+                             capacity, block_k, batch)
 
     run.staged = staged
     run.shape = shape
