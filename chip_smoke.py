@@ -111,7 +111,47 @@
    equals lane 0; then, at the same shapes, the kernel against its plain
    version and against A1's kernel on the same stream (lane 0's expanded
    runs and origins), times and the bound.
-22. Prints ``{"kernels": [...]}`` (all seven kernels) and, as its last
+22. The per-character block replay with the document in shared memory
+   (``blocked_replay``, A8) against its plain version on the card (random
+   streams with rebalances at K = 16 and 32, prepends, a delete across
+   blocks, the delete past the end), then the north star's 19,149-patch
+   prefix (16,384 inserted characters, capacity 32,768 rows, K = 512, 128
+   documents) through ``northstar.run_northstar(engine="blocked")``,
+   counted: it fails unless the kernel launched, doc 0 reproduces the
+   prefix's text and every lane equals lane 0. At that shape: the kernel
+   against its plain version on all 128 lanes, against A9's kernel on the
+   same stream and geometry (``signed``, ``rows[:NB]``, ``ol``, ``orr``,
+   ``err``), its median over 3 runs after 1 warm-up, patches/s, the bound.
+23. The main path of this slice, the per-character replay with the rows
+   in device memory (``blocked_hbm_replay``, A9): the small cases (three
+   doc groups included), then the whole automerge-paper trace (259,778
+   steps, capacity 524,288 rows, K = 512, 128 documents) through
+   ``northstar.run_northstar(engine="hbm")``, counted the same way, with
+   doc 0 against ``endContent`` and peak device memory. At that shape: the
+   kernel against its plain version over all 259,778 steps on lanes 0-7,
+   and every one of the kernel's 128 lanes equal to lane 0 (every lane
+   replays the same stream, and the plain version replays each step as a
+   sequence of small PyTorch operations: minutes on one CPU core even at
+   8 lanes); the median over 3 runs after 1 warm-up, patches/s, the
+   rebalance count and the bound, without and with the rebalances'
+   traffic.
+24. The per-character mixed replay (``blocked_mixed_replay``, A10): small
+   storms, a delete storm and an unknown delete target (err rows 1 and 2)
+   against its plain version, then the config-4 insert storm (16 peers x
+   200 rounds, 12,800 characters, capacity 32,768 rows, K = 256, 128
+   documents) through ``storm.run_storm(engine="blocked-mixed")``,
+   counted: it fails unless the kernel launched, doc 0 equals the oracle
+   receiver and every lane equals lane 0. The main path's outputs against
+   the plain version over all 3,200 steps on all 128 lanes (its ~9.7M
+   conflict-scan steps read a host copy of the state: under a minute on
+   one CPU core), then the median over 3 runs after 1 warm-up, char-ops/s,
+   the bound.
+   The plain versions of phases 22-24 at those shapes run on the CPU in
+   three child processes, one thread each, started when phase 21 ends
+   (so they take no core from the earlier phases' plain checks); the
+   three phases run in the order 24, 22, 23, each doing its card work
+   first and waiting for its plain result last.
+25. Prints ``{"kernels": [...]}`` (all ten kernels) and, as its last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line; so does a host without
@@ -119,7 +159,9 @@ CUDA, and a directory without the rest of the repository.
 """
 from __future__ import annotations
 
+import atexit
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -1051,6 +1093,514 @@ def hbm_phase(torch, dev, card, B, R, TH, kevin, northstar, randedit,
     }
 
 
+# -- the per-character block replays: A8, A9 and A10 -------------------------
+
+CHAR_LANES = 128             # documents of the three per-character paths
+PREFIX_A8 = 19_149           # the largest prefix bench.py sizes to 32,768 rows
+TRACE_A9 = None              # the whole trace (259,778 patches)
+STORM_ROUNDS = 200           # the config-4 insert storm: 16 peers x 200
+PLAIN_LANES_A9 = 8           # A9's full-trace plain check: lanes
+CHAR_OUTPUTS = ("ol", "orr", "signed", "rows", "err")
+
+
+def plain_a9(lanes: int, patches):
+    """Runs in a child process, on the CPU: A9's plain version over the
+    trace (its first ``patches``, None for all) on ``lanes`` lanes (every
+    lane replays the same stream, so the kernel's 128 are each held equal
+    to lane 0 besides). Returns the staged columns, the outputs, the work
+    counts and the seconds."""
+    from text_crdt_rust_tpu_torch import northstar
+    from text_crdt_rust_tpu_torch.ops import blocked_hbm as TBH
+
+    stream = northstar.compile_northstar(patches=patches, engine="hbm")
+    rep = northstar.make_northstar_replayer(stream, batch=lanes,
+                                            engine="hbm", device="cpu")
+    return timed_plain(TBH.blocked_hbm_replay_plain, rep.staged, rep.shape)
+
+
+def plain_a8(prefix: int, lanes: int):
+    """Runs in a child process, on the CPU: A8's plain version at the
+    trace's first ``prefix`` patches on ``lanes`` lanes, the main path's
+    geometry. Returns as ``plain_a9``."""
+    from text_crdt_rust_tpu_torch import northstar
+    from text_crdt_rust_tpu_torch.ops import blocked as TBL
+
+    stream = northstar.compile_northstar(patches=prefix, engine="blocked")
+    rep = northstar.make_northstar_replayer(stream, batch=lanes,
+                                            engine="blocked", device="cpu")
+    return timed_plain(TBL.blocked_replay_plain, rep.staged, rep.shape)
+
+
+def plain_a10(rounds: int, lanes: int):
+    """Runs in a child process, on the CPU: A10's plain version on the
+    insert storm of ``rounds`` rounds, on ``lanes`` lanes at the storm's
+    geometry and tables. Returns as ``plain_a9``."""
+    from text_crdt_rust_tpu_torch import storm
+    from text_crdt_rust_tpu_torch.ops import blocked_mixed as TBM
+
+    sst = storm.make_storm_stream(rounds=rounds)
+    rep = storm.make_storm_replayer(sst, batch=lanes,
+                                    engine="blocked-mixed", device="cpu")
+    return timed_plain(TBM.blocked_mixed_replay_plain, rep.staged,
+                       rep.shape)
+
+
+def timed_plain(replay, staged, shape):
+    """One plain replay on one CPU thread: (staged columns, outputs, work
+    counts, seconds), as numpy arrays."""
+    import torch
+
+    torch.set_num_threads(1)
+    counts = {}
+    t0 = time.perf_counter()
+    outs = replay(*staged, **shape, counts=counts)
+    secs = time.perf_counter() - t0
+    return ([c.numpy() for c in staged], [o.numpy() for o in outs], counts,
+            secs)
+
+
+def same_inputs(torch, staged, cols_np) -> bool:
+    """The child compiled the same inputs as this process."""
+    return len(staged) == len(cols_np) and all(
+        torch.equal(c.cpu(), torch.from_numpy(n))
+        for c, n in zip(staged, cols_np))
+
+
+def char_err(torch, kern, plain, lanes=None) -> int:
+    """Largest absolute difference between a kernel's outputs (lanes
+    ``[:lanes]`` when given) and its plain version's (tensors or numpy
+    arrays); 0 = bit-identical."""
+    worst = 0
+    for name, k, p in zip(CHAR_OUTPUTS, kern, plain):
+        if lanes is not None:
+            k = k[..., :lanes]
+        p = torch.as_tensor(p).to(k.device)
+        if k.shape != p.shape:
+            raise AssertionError(f"{name}: shape {tuple(k.shape)} != "
+                                 f"{tuple(p.shape)}")
+        if k.numel():
+            worst = max(worst, int((k.long() - p.long()).abs().max()))
+    return worst
+
+
+def char_compare_cases(B, randedit, TestPatch, np):
+    """(label, local streams, capacity, block_k, expected error rows) of
+    the A8 and A9 kernel-vs-plain phases: random streams with rebalances
+    (K = 16 and 32), prepends, a delete across blocks and the delete past
+    the end."""
+    import random
+
+    def chars(patches, lmax=4):
+        return B.compile_local_patches(patches, lmax=lmax, dmax=lmax)[0]
+
+    def rnd(seed, steps):
+        return chars(randedit.random_patches(random.Random(seed), steps)[0])
+
+    return [
+        ("random streams, K=16", [rnd(7, 120), rnd(11, 80)], 1024, 16,
+         [0, 0, 0]),
+        ("random, lmax 16, K=32", [chars(randedit.random_patches(
+            random.Random(5), 400)[0], 16)], 4096, 32, [0, 0, 0]),
+        ("prepends, K=8", [chars([TestPatch(0, 0, "ab")] * 40)], 256, 8,
+         [0, 0, 0]),
+        ("delete across blocks, K=8", [chars(
+            [TestPatch(0, 0, "abcdefghijklmnopqrstuvwxyz"),
+             TestPatch(2, 20, "")])], 64, 8, [0, 0, 0]),
+        ("delete past the end -> err[1]", [chars(
+            [TestPatch(0, 0, "abc"), TestPatch(0, 10, "")])], 64, 8,
+         [0, 1, 0]),
+    ]
+
+
+def mixed_char_cases(B, storm, np):
+    """(label, stream, capacity, block_k, expected error rows) of the A10
+    kernel-vs-plain phase: storms (rebalances between remote lookups,
+    stale hints and the full-state fallback), a delete storm, and an
+    unknown delete target (err rows 1 and 2)."""
+    import dataclasses
+
+    def stormops(n_peers, rounds, run_len, del_prob):
+        st = storm.make_storm_stream(n_peers, rounds, run_len, seed=7,
+                                     del_prob=del_prob)
+        return st.ops
+
+    small = stormops(2, 3, 2, 0.0)
+    fields = {f.name: np.asarray(getattr(small, f.name))
+              for f in dataclasses.fields(small)}
+    fields = {k: np.concatenate([v, np.zeros((1,) + v.shape[1:], v.dtype)])
+              for k, v in fields.items()}
+    fields["kind"][-1] = B.KIND_REMOTE_DEL
+    fields["del_len"][-1] = 3
+    fields["del_target"][-1] = 90
+    fields["rows_per_step"][-1] = 1
+    return [
+        ("storm 4x10, K=16", stormops(4, 10, 2, 0.0), 256, 16, [0, 0, 0]),
+        ("storm 16x20, K=32", stormops(16, 20, 4, 0.0), 4096, 32,
+         [0, 0, 0]),
+        ("delete storm 6x20, K=16", stormops(6, 20, 3, 0.3), 1024, 16,
+         [0, 0, 0]),
+        ("unknown delete target -> err[1], err[2]", B.OpTensors(**fields),
+         256, 16, [0, 1, 1]),
+    ]
+
+
+def char_bound(staged, shape, ops_per_step: int, ncols: int = 4,
+               table_words: int = 0, rebalances: int = 0):
+    """(bytes, operations, active steps) one per-character replay must at
+    least move and do: each input read once (the op columns, the order
+    tables) and each output written once (the origins, the rows, the block
+    counts, err), and per lane, for every step with work, one K-row block
+    and the block descent (``ops_per_step``). ``rebalances`` adds one read
+    and one write of the rows per rebalance (the second bound asked of
+    A9)."""
+    G = shape.get("groups", 1)
+    S, Bn, CAP, K = (shape["steps"], shape["batch"], shape["capacity"],
+                     shape["block_k"])
+    nbp = max(8, CAP // K)
+    words = (ncols * G * S + table_words + 2 * G * S * Bn + G * CAP * Bn
+             + G * nbp * Bn + 8 * Bn + rebalances * 2 * CAP * Bn)
+    if ncols == 4:   # pos, del_len, ins_len, ins_order_start
+        busy = (staged[1] > 0) | (staged[2] > 0)
+    else:            # kind, pos, del_len, ..., ins_len, ins_order_start
+        busy = (staged[2] > 0) | (staged[7] > 0) | (staged[0] == 2)
+    active = int(busy.sum())
+    return 4 * words, active * Bn * ops_per_step, active
+
+
+def bound_ms(nbytes, nops):
+    bb, bo = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_OPS_PER_S * 1e3
+    return max(bb, bo), "bytes" if bb >= bo else "operations"
+
+
+def blocked_a8_phase(torch, dev, card, B, northstar, TBL, TBH, randedit,
+                     TestPatch, np, _kernels, plain_async):
+    """A8: the small cases, the north star's 19,149-patch prefix through
+    ``run_northstar(engine="blocked")`` (counted), and at that shape the
+    kernel against its plain version, against A9's kernel, and timed.
+    Returns the ``kernels`` entry."""
+    worst = 0
+    for label, streams, cap, k, flags in char_compare_cases(
+            B, randedit, TestPatch, np):
+        rep = TBL.make_replayer(streams[0], cap, batch=32, block_k=k,
+                                chunk=128, device=dev)
+        plain = TBL.blocked_replay_plain(*rep.staged, **rep.shape)
+        kern = TBL.blocked_replay_cuda(*rep.staged, **rep.shape)
+        torch.cuda.synchronize()
+        e = char_err(torch, kern, plain)
+        worst = max(worst, e)
+        got = kern[4][:3].amax(dim=1).tolist()
+        ok = e == 0 and got == flags
+        log(f"compare blocked {label}: {streams[0].num_steps} steps, "
+            f"max_abs_err {e}, err flags {got}, {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"blocked kernel disagrees on: {label}")
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    run = northstar.run_northstar(engine="blocked", patches=PREFIX_A8,
+                                  batch=CHAR_LANES, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    n_launch = launches.get("blocked_replay", 0)
+    res = run.results[0]
+    equal = TBL.lanes_equal(res)
+    log(f"north star on A8: run_northstar(engine='blocked', patches="
+        f"{PREFIX_A8}) -> {run.stream.steps} device steps, "
+        f"{run.stream.ins_total} inserted chars, B={res.batch}, "
+        f"K={res.block_k}, capacity {res.signed.shape[0]} rows: text ok "
+        f"{run.ok}, all lanes equal {equal}, launches {launches}, host wall "
+        f"{wall:.2f} s with compile")
+    if n_launch < 1 or not run.ok or not equal:
+        raise AssertionError(f"north star on A8 failed: launches {n_launch},"
+                             f" text {run.ok}, lanes {equal}")
+    rep = northstar.make_northstar_replayer(run.stream, batch=CHAR_LANES,
+                                            engine="blocked", device=dev)
+    kern = TBL.blocked_replay_cuda(*rep.staged, **rep.shape)
+    NB = rep.shape["capacity"] // rep.shape["block_k"]
+    hrep = TBH.make_replayer_hbm(run.stream.ops, rep.shape["capacity"],
+                                 batch=CHAR_LANES,
+                                 block_k=rep.shape["block_k"], device=dev)
+    hk = TBH.blocked_hbm_replay_cuda(*hrep.staged, **hrep.shape)
+    torch.cuda.synchronize()
+    same = (torch.equal(kern[0], hk[0][0]) and torch.equal(kern[1], hk[1][0])
+            and torch.equal(kern[2], hk[2])
+            and torch.equal(kern[3][:NB], hk[3][0][:NB])
+            and torch.equal(kern[4], hk[4]))
+    del hk
+    ms = cuda_ms(torch, lambda: TBL.blocked_replay_cuda(*rep.staged,
+                                                        **rep.shape), reps=3)
+    nbytes, nops, active = char_bound(rep.staged, rep.shape,
+                                      rep.shape["block_k"] + NB)
+    bms, by = bound_ms(nbytes, nops)
+    rate = PREFIX_A8 * CHAR_LANES / (ms / 1e3)
+    cols, plain, counts, plain_s = plain_async.get()
+    if not same_inputs(torch, rep.staged, cols):
+        raise AssertionError("A8's plain check compiled other inputs")
+    e = char_err(torch, kern, plain)
+    worst = max(worst, e)
+    log(f"compare north star on A8: max_abs_err {e} against its plain "
+        f"version on all {CHAR_LANES} lanes (plain {plain_s:.1f} s on one "
+        f"CPU core, {counts}); against A9's kernel on the same stream and "
+        f"geometry (signed, rows[:NB], ol, orr, err): equal {same}")
+    if e != 0 or not same:
+        raise AssertionError("blocked kernel disagrees on the north-star "
+                             "prefix")
+    del kern
+    log(f"north star on A8 replay: median {ms:.3f} ms over 3 reps after 1 "
+        f"warm-up (CUDA events); {rate:.4g} patches/s ({PREFIX_A8} x "
+        f"{CHAR_LANES} docs); {active} device steps, "
+        f"{ms / active * 1e3:.3f} us a step; plain version {plain_s:.1f} s; "
+        f"bound {bms:.4f} ms by {by} ({nbytes} B, {nops} ops); on {card}")
+    return {
+        "name": "blocked_replay",
+        "route": "cuda",
+        "source": "text_crdt_rust_tpu_torch/ops/csrc/blocked_replay.cu",
+        "replaces": "text_crdt_rust_tpu/ops/blocked.py:227",
+        "jax_counterpart": "text_crdt_rust_tpu/ops/blocked.py::"
+                           "_replay_kernel",
+        "launches": n_launch,
+        "launches_path": f"northstar.run_northstar(engine='blocked', "
+                         f"patches={PREFIX_A8})",
+        "matches_plain": worst == 0,
+        "max_abs_err": worst,
+        "matches_a9": same,
+        "ms": ms,
+        "plain_ms": plain_s * 1e3,
+        "plain_where": "CPU, one core, all lanes",
+        "bound_ms": bms,
+        "bound_by": by,
+        "library_ms": None,
+        "bytes": nbytes,
+        "ops_lower_bound": nops,
+        "serial_steps": active,
+        "patches_per_s": rate,
+        "rebalances": counts.get("rebalances"),
+        "delete_windows": counts.get("delete_windows"),
+    }
+
+
+def blocked_a9_phase(torch, dev, card, B, northstar, TBL, TBH, randedit,
+                     TestPatch, np, _kernels, plain_async):
+    """A9, the main path: the small cases (doc groups included), the full
+    trace through ``run_northstar(engine="hbm")`` (counted), and at that
+    shape the kernel against its plain version (on PLAIN_LANES_A9 lanes,
+    every lane of the kernel held equal to lane 0), timed, with peak
+    device memory and the rebalance count. Returns the ``kernels``
+    entry."""
+    worst = 0
+    cases = char_compare_cases(B, randedit, TestPatch, np)
+    for label, streams, cap, k, flags in cases:
+        rep = TBH.make_replayer_hbm(streams, cap, batch=32, block_k=k,
+                                    chunk=128, device=dev)
+        plain = TBH.blocked_hbm_replay_plain(*rep.staged, **rep.shape)
+        kern = TBH.blocked_hbm_replay_cuda(*rep.staged, **rep.shape)
+        torch.cuda.synchronize()
+        e = char_err(torch, kern, plain)
+        worst = max(worst, e)
+        got = kern[4][:3].amax(dim=1).tolist()
+        ok = e == 0 and got == flags
+        log(f"compare blocked-hbm {label}: "
+            f"{[s.num_steps for s in streams]} steps, max_abs_err {e}, err "
+            f"flags {got}, {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"blocked-hbm kernel disagrees on: {label}")
+
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    run = northstar.run_northstar(engine="hbm", patches=TRACE_A9,
+                                  batch=CHAR_LANES, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    n_launch = launches.get("blocked_hbm_replay", 0)
+    peak_mem = torch.cuda.max_memory_allocated() - base_mem
+    res = run.results[0]
+    equal = TBL.lanes_equal(res)
+    log(f"main path on A9: run_northstar(engine='hbm') "
+        f"{run.stream.n_patches} patches -> {run.stream.steps} device steps, "
+        f"{run.stream.ins_total} inserted chars, B={res.batch}, "
+        f"K={res.block_k}, capacity {res.signed.shape[0]} rows (NB "
+        f"{res.num_blocks}): text ok {run.ok}, all lanes equal {equal}, "
+        f"launches {launches}, host wall {wall:.2f} s with compile and "
+        f"checks, peak device memory {peak_mem / 2**30:.2f} GiB above the "
+        f"{base_mem / 2**30:.2f} GiB held before it")
+    if n_launch < 1 or not run.ok or not equal:
+        raise AssertionError(f"north star on A9 failed: launches {n_launch},"
+                             f" text {run.ok}, lanes {equal}")
+    del run, res
+    stream = northstar.compile_northstar(patches=TRACE_A9, engine="hbm")
+    rep = northstar.make_northstar_replayer(stream, batch=CHAR_LANES,
+                                            engine="hbm", device=dev)
+    kern = TBH.blocked_hbm_replay_cuda(*rep.staged, **rep.shape)
+    torch.cuda.synchronize()
+    equal = TBL.lanes_equal(TBL.BlockedResult(
+        signed=kern[2], rows=kern[3][0], ol=kern[0][0], orr=kern[1][0],
+        err=kern[4], block_k=rep.shape["block_k"],
+        num_blocks=rep.shape["capacity"] // rep.shape["block_k"],
+        batch=CHAR_LANES))
+    ms = cuda_ms(torch, lambda: TBH.blocked_hbm_replay_cuda(*rep.staged,
+                                                            **rep.shape),
+                 reps=3)
+    cols, plain, counts, plain_s = plain_async.get()
+    if not same_inputs(torch, rep.staged, cols):
+        raise AssertionError("A9's plain check compiled other inputs")
+    e = char_err(torch, kern, plain, lanes=PLAIN_LANES_A9)
+    worst = max(worst, e)
+    log(f"compare main path on A9: all {stream.steps} steps, max_abs_err "
+        f"{e} against its plain version on lanes 0-{PLAIN_LANES_A9 - 1} "
+        f"(plain {plain_s:.1f} s on one CPU core; {counts}); all "
+        f"{CHAR_LANES} lanes of the kernel equal lane 0: {equal}")
+    if e != 0 or not equal:
+        raise AssertionError("blocked-hbm kernel disagrees on the trace")
+    del kern
+    _, NSUP, _, _ = TBH.hbm_geometry(rep.shape["capacity"],
+                                     rep.shape["block_k"])
+    per_step = rep.shape["block_k"] + NSUP + TBH.SUP
+    nbytes, nops, active = char_bound(rep.staged, rep.shape, per_step)
+    bms, by = bound_ms(nbytes, nops)
+    rb = counts.get("rebalances", 0)
+    nbytes_rb, _, _ = char_bound(rep.staged, rep.shape, per_step,
+                                 rebalances=rb)
+    bms_rb, by_rb = bound_ms(nbytes_rb, nops)
+    rate = stream.n_patches * CHAR_LANES / (ms / 1e3)
+    log(f"main path on A9 replay: median {ms:.3f} ms over 3 reps after 1 "
+        f"warm-up (CUDA events, the wrapper's allocations included); "
+        f"{rate:.4g} patches/s ({stream.n_patches} x {CHAR_LANES} docs); "
+        f"{active} device steps, {ms / active * 1e3:.3f} us a step; "
+        f"{rb} rebalances; bound {bms:.4f} ms by {by} ({nbytes} B, {nops} "
+        f"ops), {bms_rb:.4f} ms by {by_rb} with one read and one write of "
+        f"the rows per rebalance ({nbytes_rb} B); on {card}")
+    return {
+        "name": "blocked_hbm_replay",
+        "route": "cuda",
+        "source": "text_crdt_rust_tpu_torch/ops/csrc/blocked_hbm_replay.cu",
+        "replaces": "text_crdt_rust_tpu/ops/blocked_hbm.py:50",
+        "jax_counterpart": "text_crdt_rust_tpu/ops/blocked_hbm.py::"
+                           "_hbm_replay_kernel",
+        "launches": n_launch,
+        "launches_path": "northstar.run_northstar(engine='hbm'), the "
+                         "whole trace",
+        "matches_plain": worst == 0,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_s * 1e3,
+        "plain_where": f"CPU, one core, {PLAIN_LANES_A9} lanes",
+        "bound_ms": bms,
+        "bound_by": by,
+        "bound_with_rebalances_ms": bms_rb,
+        "library_ms": None,
+        "bytes": nbytes,
+        "bytes_with_rebalances": nbytes_rb,
+        "ops_lower_bound": nops,
+        "serial_steps": active,
+        "patches_per_s": rate,
+        "rebalances": rb,
+        "delete_windows": counts.get("delete_windows"),
+        "peak_device_bytes": peak_mem,
+    }
+
+
+def blocked_a10_phase(torch, dev, card, B, storm, TBL, TBM, np, _kernels,
+                      plain_async):
+    """A10: the small cases (error rows included), the config-4 insert
+    storm through ``run_storm(engine="blocked-mixed")`` (counted), and at
+    that shape the main path's outputs against the plain version's over
+    the whole storm, and timed. Returns the ``kernels`` entry."""
+    worst = 0
+    for label, ops, cap, k, flags in mixed_char_cases(B, storm, np):
+        rep = TBM.make_replayer_mixed(ops, cap, batch=32, block_k=k,
+                                      chunk=128, device=dev)
+        plain = TBM.blocked_mixed_replay_plain(*rep.staged, **rep.shape)
+        kern = TBM.blocked_mixed_replay_cuda(*rep.staged, **rep.shape)
+        torch.cuda.synchronize()
+        e = char_err(torch, kern, plain)
+        worst = max(worst, e)
+        got = kern[4][:3].amax(dim=1).tolist()
+        ok = e == 0 and got == flags
+        log(f"compare blocked-mixed {label}: {ops.num_steps} steps, "
+            f"max_abs_err {e}, err flags {got}, {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"blocked-mixed kernel disagrees on: "
+                                 f"{label}")
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    run = storm.run_storm(rounds=STORM_ROUNDS, batch=CHAR_LANES,
+                          engine="blocked-mixed", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    n_launch = launches.get("blocked_mixed_replay", 0)
+    res = run.result
+    equal = TBL.lanes_equal(res)
+    log(f"storm on A10: run_storm(engine='blocked-mixed') "
+        f"{len(run.stream.txns)} txns -> {run.stream.steps} device steps, "
+        f"{run.stream.char_ops} char-ops, B={res.batch}, K={res.block_k}, "
+        f"capacity {res.signed.shape[0]} rows: text ok {run.ok}, all lanes "
+        f"equal {equal}, launches {launches}, host wall {wall:.2f} s with "
+        f"generation and compile")
+    if n_launch < 1 or not run.ok or not equal:
+        raise AssertionError(f"storm on A10 failed: launches {n_launch}, "
+                             f"text {run.ok}, lanes {equal}")
+    rep = storm.make_storm_replayer(run.stream, batch=CHAR_LANES,
+                                    engine="blocked-mixed", device=dev)
+    ms = cuda_ms(torch, lambda: TBM.blocked_mixed_replay_cuda(
+        *rep.staged, **rep.shape), reps=3)
+    cols, plain, counts, plain_s = plain_async.get()
+    if not same_inputs(torch, rep.staged, cols):
+        raise AssertionError("A10's plain check compiled other inputs")
+    s = run.stream.steps
+    e = char_err(torch, (res.ol, res.orr, res.signed, res.rows, res.err),
+                 (plain[0][:s], plain[1][:s], *plain[2:]))
+    worst = max(worst, e)
+    log(f"compare storm on A10: the main path's outputs, all {s} steps and "
+        f"all {CHAR_LANES} lanes: max_abs_err {e} against the plain version "
+        f"at the storm's geometry and tables (plain {plain_s:.1f} s on one "
+        f"CPU core; {counts})")
+    if e != 0:
+        raise AssertionError("blocked-mixed kernel disagrees on the storm")
+    NB = rep.shape["capacity"] // rep.shape["block_k"]
+    nbytes, nops, active = char_bound(
+        rep.staged, rep.shape, rep.shape["block_k"] + NB, ncols=9,
+        table_words=3 * rep.shape["order_rows"] * 128)
+    bms, by = bound_ms(nbytes, nops)
+    rate = run.stream.char_ops * CHAR_LANES / (ms / 1e3)
+    log(f"storm on A10 replay: median {ms:.3f} ms over 3 reps after 1 "
+        f"warm-up (CUDA events); {rate:.4g} char-ops/s "
+        f"({run.stream.char_ops} x {CHAR_LANES} docs); {active} device "
+        f"steps, {ms / active * 1e3:.3f} us a step; bound {bms:.4f} ms by "
+        f"{by} ({nbytes} B, {nops} ops); on {card}")
+    return {
+        "name": "blocked_mixed_replay",
+        "route": "cuda",
+        "source":
+            "text_crdt_rust_tpu_torch/ops/csrc/blocked_mixed_replay.cu",
+        "replaces": "text_crdt_rust_tpu/ops/blocked_mixed.py:68",
+        "jax_counterpart": "text_crdt_rust_tpu/ops/blocked_mixed.py::"
+                           "_mixed_kernel",
+        "launches": n_launch,
+        "launches_path": "storm.run_storm(engine='blocked-mixed'), the "
+                         "16 x 200 insert storm",
+        "matches_plain": worst == 0,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_s * 1e3,
+        "plain_where": "CPU, one core, all steps and lanes",
+        "bound_ms": bms,
+        "bound_by": by,
+        "library_ms": None,
+        "bytes": nbytes,
+        "ops_lower_bound": nops,
+        "serial_steps": active,
+        "char_ops_per_s": rate,
+        "plain_counts": counts,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1072,6 +1622,9 @@ def main() -> int:
         from text_crdt_rust_tpu_torch.models.sync import export_txns_since
         from text_crdt_rust_tpu_torch.ops import _kernels
         from text_crdt_rust_tpu_torch.ops import batch as B
+        from text_crdt_rust_tpu_torch.ops import blocked as TBL
+        from text_crdt_rust_tpu_torch.ops import blocked_hbm as TBH
+        from text_crdt_rust_tpu_torch.ops import blocked_mixed as TBM
         from text_crdt_rust_tpu_torch.ops import rle as R
         from text_crdt_rust_tpu_torch.ops import rle_hbm as TH
         from text_crdt_rust_tpu_torch.ops import rle_lanes as RL
@@ -1597,8 +2150,31 @@ def main() -> int:
     # -- the HBM-plane replay: kevin and the north star on A2 ----------------
     hbm_line = hbm_phase(torch, dev, card, B, R, TH, kevin, northstar,
                          randedit, TestPatch, np, _kernels)
+    # -- the per-character block replays: A10, A8, A9 (the main path) ------
+    # Their plain checks at the main paths' shapes run on the CPU in three
+    # child processes meanwhile, one thread each: each phase does its card
+    # work first and waits for its plain result last. The children start
+    # only now, so that they take no core from the earlier phases' own
+    # plain checks; they are stopped at exit.
+    pool = multiprocessing.get_context("spawn").Pool(3)
+    atexit.register(pool.terminate)
+    plain_a9_async = pool.apply_async(plain_a9, (PLAIN_LANES_A9, TRACE_A9))
+    plain_a10_async = pool.apply_async(plain_a10,
+                                       (STORM_ROUNDS, CHAR_LANES))
+    plain_a8_async = pool.apply_async(plain_a8, (PREFIX_A8, CHAR_LANES))
+    a10_line = blocked_a10_phase(torch, dev, card, B, storm, TBL, TBM, np,
+                                 _kernels, plain_a10_async)
+    a8_line = blocked_a8_phase(torch, dev, card, B, northstar, TBL, TBH,
+                               randedit, TestPatch, np, _kernels,
+                               plain_a8_async)
+    a9_line = blocked_a9_phase(torch, dev, card, B, northstar, TBL, TBH,
+                               randedit, TestPatch, np, _kernels,
+                               plain_a9_async)
+    pool.close()
+    pool.join()
     log(json.dumps({"kernels": [rle_line, mixed_line, a6_line, a7_line,
-                                a4_line, a5_line, hbm_line]}))
+                                a4_line, a5_line, hbm_line, a8_line,
+                                a9_line, a10_line]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,6 +5,8 @@ need not have, so run them there without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import random
+
 import numpy as np
 import pytest
 import torch
@@ -311,3 +313,117 @@ def test_hbm_kernel_matches_plain(card, name):
     flags = kern[7][:2].amax(dim=1).tolist()
     assert flags == {"capacity-overflow": [1, 0],
                      "bad-delete": [0, 1]}.get(name, [0, 0])
+
+
+# -- the per-character blocked replays (A8, A9, A10) --------------------------
+
+
+def _chars(patches, lmax=4):
+    return TB.compile_local_patches(patches, lmax=lmax, dmax=lmax)[0]
+
+
+def _char_random(seed, steps=120):
+    return _chars(randedit.random_patches(random.Random(seed), steps)[0])
+
+
+# name -> (streams, capacity, block_k, expected error rows)
+BLOCKED_CASES = {
+    "random-k16": lambda: ([_char_random(7)], 512, 16, [0, 0, 0]),
+    "prepends-k8": lambda: ([_chars([TestPatch(0, 0, "ab")] * 40)], 256, 8,
+                            [0, 0, 0]),
+    "trace-shape-k32": lambda: ([_char_random(5, 400)], 2048, 32,
+                                [0, 0, 0]),
+    "bad-delete": lambda: (
+        [_chars([TestPatch(0, 0, "abc"), TestPatch(0, 10, "")])], 64, 8,
+        [0, 1, 0]),
+}
+
+
+def _launched(name, fn):
+    before = _kernels.launches.get(name, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    assert _kernels.launches[name] == before + 1
+    return out
+
+
+def _assert_equal(kern, plain):
+    for k, p in zip(kern, plain):
+        assert k.dtype == p.dtype and k.shape == p.shape
+        assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("name", sorted(BLOCKED_CASES))
+def test_blocked_kernel_matches_plain(card, name):
+    from text_crdt_rust_tpu_torch.ops import blocked as TBL
+
+    streams, capacity, block_k, flags = BLOCKED_CASES[name]()
+    rep = TBL.make_replayer(streams[0], capacity, batch=8, block_k=block_k,
+                            chunk=128, device=card)
+    plain = TBL.blocked_replay_plain(*rep.staged, **rep.shape)
+    kern = _launched("blocked_replay",
+                     lambda: TBL.blocked_replay_cuda(*rep.staged,
+                                                     **rep.shape))
+    _assert_equal(kern, plain)
+    assert kern[4][:3].amax(dim=1).tolist() == flags
+
+
+@pytest.mark.parametrize("name", sorted(BLOCKED_CASES) + ["groups-3"])
+def test_blocked_hbm_kernel_matches_plain(card, name):
+    from text_crdt_rust_tpu_torch.ops import blocked_hbm as TBH
+
+    if name == "groups-3":
+        streams = [_char_random(s, 60 + 20 * s) for s in range(3)]
+        capacity, block_k, flags = 1024, 16, [0, 0, 0]
+    else:
+        streams, capacity, block_k, flags = BLOCKED_CASES[name]()
+    rep = TBH.make_replayer_hbm(streams, capacity, batch=8, block_k=block_k,
+                                chunk=128, device=card)
+    plain = TBH.blocked_hbm_replay_plain(*rep.staged, **rep.shape)
+    kern = _launched("blocked_hbm_replay",
+                     lambda: TBH.blocked_hbm_replay_cuda(*rep.staged,
+                                                         **rep.shape))
+    _assert_equal(kern, plain)
+    assert kern[4][:3].amax(dim=1).tolist() == flags
+
+
+def _unknown_order():
+    import dataclasses
+
+    ops = _storm(2, 3, 2, 0.0)
+    fields = {f.name: np.asarray(getattr(ops, f.name))
+              for f in dataclasses.fields(ops)}
+    fields = {k: np.concatenate([v, np.zeros((1,) + v.shape[1:], v.dtype)])
+              for k, v in fields.items()}
+    fields["kind"][-1] = TB.KIND_REMOTE_DEL
+    fields["del_len"][-1] = 3
+    fields["del_target"][-1] = 90
+    fields["rows_per_step"][-1] = 1
+    return TB.OpTensors(**fields)
+
+
+# name -> (stream, capacity, block_k, expected error rows)
+BLOCKED_MIXED_CASES = {
+    "storm-4x10-k16": lambda: (_storm(4, 10, 2, 0.0), 256, 16, [0, 0, 0]),
+    "storm-16x20-k32": lambda: (_storm(16, 20, 4, 0.0), 4096, 32,
+                                [0, 0, 0]),
+    "delete-storm-k16": lambda: (_storm(6, 20, 3, 0.3), 1024, 16,
+                                 [0, 0, 0]),
+    "local-k16": lambda: (_char_random(13, 60), 512, 16, [0, 0, 0]),
+    "unknown-order": lambda: (_unknown_order(), 256, 16, [0, 1, 1]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BLOCKED_MIXED_CASES))
+def test_blocked_mixed_kernel_matches_plain(card, name):
+    from text_crdt_rust_tpu_torch.ops import blocked_mixed as TBM
+
+    ops, capacity, block_k, flags = BLOCKED_MIXED_CASES[name]()
+    rep = TBM.make_replayer_mixed(ops, capacity, batch=8, block_k=block_k,
+                                  chunk=128, device=card)
+    plain = TBM.blocked_mixed_replay_plain(*rep.staged, **rep.shape)
+    kern = _launched("blocked_mixed_replay",
+                     lambda: TBM.blocked_mixed_replay_cuda(*rep.staged,
+                                                           **rep.shape))
+    _assert_equal(kern, plain)
+    assert kern[4][:3].amax(dim=1).tolist() == flags

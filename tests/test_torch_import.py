@@ -19,6 +19,9 @@ from text_crdt_rust_tpu_torch import (
 )
 from text_crdt_rust_tpu_torch.examples import sync_stream
 from text_crdt_rust_tpu_torch.ops import batch as TB
+from text_crdt_rust_tpu_torch.ops import blocked as TBL
+from text_crdt_rust_tpu_torch.ops import blocked_hbm as TBH
+from text_crdt_rust_tpu_torch.ops import blocked_mixed as TBM
 from text_crdt_rust_tpu_torch.ops import rle as TR
 from text_crdt_rust_tpu_torch.ops import rle_hbm as TH
 from text_crdt_rust_tpu_torch.ops import rle_lanes as TL
@@ -58,7 +61,8 @@ def test_port_imports_with_jax_blocked():
         "          'models.oracle', 'models.sync', 'config', 'stream',\n"
         "          'ops.rle_lanes_mixed', 'parallel.causal',\n"
         "          'examples.sync_stream', 'ops.rle_lanes', 'convert',\n"
-        "          'ops.rle_hbm', 'kevin'):\n"
+        "          'ops.rle_hbm', 'kevin', 'ops.blocked', 'ops.blocked_hbm',\n"
+        "          'ops.blocked_mixed'):\n"
         "    assert 'text_crdt_rust_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -99,6 +103,15 @@ def _ops():
     "replay_local_rle_hbm",
     "run_kevin",
     "run_northstar_rle_hbm",
+    "make_replayer_blocked",
+    "replay_local_blocked",
+    "make_replayer_hbm",
+    "replay_local_hbm",
+    "make_replayer_mixed",
+    "replay_mixed",
+    "run_northstar_blocked",
+    "run_northstar_hbm",
+    "run_storm_blocked_mixed",
 ])
 def test_entry_point_without_device_raises_on_cpu_host(entry):
     if torch.cuda.is_available():
@@ -142,6 +155,24 @@ def test_entry_point_without_device_raises_on_cpu_host(entry):
                                              block_k=8),
         "run_northstar_rle_hbm": lambda: northstar.run_northstar(
             patches=10, batch=2, block_k=8, engine="rle-hbm"),
+        "make_replayer_blocked": lambda: TBL.make_replayer(
+            _ops(), capacity=64, batch=2, block_k=8),
+        "replay_local_blocked": lambda: TBL.replay_local(
+            _ops(), capacity=64, batch=2, block_k=8),
+        "make_replayer_hbm": lambda: TBH.make_replayer_hbm(
+            _ops(), capacity=64, batch=2, block_k=8),
+        "replay_local_hbm": lambda: TBH.replay_local_hbm(
+            _ops(), capacity=64, batch=2, block_k=8),
+        "make_replayer_mixed": lambda: TBM.make_replayer_mixed(
+            _ops(), capacity=64, batch=2, block_k=8),
+        "replay_mixed": lambda: TBM.replay_mixed(
+            _ops(), capacity=64, batch=2, block_k=8),
+        "run_northstar_blocked": lambda: northstar.run_northstar(
+            patches=10, batch=2, engine="blocked"),
+        "run_northstar_hbm": lambda: northstar.run_northstar(
+            patches=10, batch=2, engine="hbm"),
+        "run_storm_blocked_mixed": lambda: storm.run_storm(
+            n_peers=2, rounds=2, batch=2, engine="blocked-mixed"),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -161,6 +192,11 @@ def test_cpu_is_used_only_when_asked():
                                   device="cpu")
     assert res.ordp.device.type == "cpu"
     assert np.asarray(res.lenp[0]).tolist() == [2, 2]
+    for replay in (TBL.replay_local, TBH.replay_local_hbm,
+                   TBM.replay_mixed):
+        res = replay(_ops(), capacity=64, batch=2, block_k=8, device="cpu")
+        assert res.signed.device.type == "cpu"
+        assert np.asarray(res.signed[:3, 0]).tolist() == [1, 2, 0]
 
 
 @pytest.mark.parametrize("replay", [TR.rle_replay, TRM.rle_mixed_replay,
@@ -171,6 +207,15 @@ def test_replay_refuses_other_devices(replay):
     col = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no replay for device"):
         replay(*[col] * 5)
+
+
+@pytest.mark.parametrize("replay, ncols", [
+    (TBL.blocked_replay, 4), (TBH.blocked_hbm_replay, 4),
+    (TBM.blocked_mixed_replay, 12)])
+def test_blocked_replay_refuses_other_devices(replay, ncols):
+    col = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no replay for device"):
+        replay(*[col] * ncols)
 
 
 def _smoke(cwd):

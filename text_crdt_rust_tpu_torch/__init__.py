@@ -6,8 +6,8 @@ JAX package it is held against. Plain tensor code is PyTorch; every
 Pallas kernel of the JAX package becomes a CUDA C++ kernel for Hopper
 (``ops/csrc/``), built at first use by ``ops/_kernels.py``.
 
-Layout (the north-star local-edit replay, kevin, the config-4 storm and
-the streaming configs 5r and 5):
+Layout (the north-star local-edit replay on run and character blocks,
+kevin, the config-4 storm and the streaming configs 5r and 5):
 
 - ``common``            sentinels and the remote-txn dataclasses;
 - ``utils/testdata``    the editing-trace loader;
@@ -30,12 +30,21 @@ the streaming configs 5r and 5):
                         un-blocked and blocked, plain versions and CUDA
                         kernel wrappers;
 - ``ops/rle_lanes_mixed`` per-lane mixed replays, likewise;
+- ``ops/blocked``       the per-character block replay (one row per
+                        character, the document in shared memory), plain
+                        version and CUDA kernel wrapper, and the block
+                        helpers every replay shares;
+- ``ops/blocked_hbm``   the per-character block replay with the rows in
+                        device memory (the full trace), likewise;
+- ``ops/blocked_mixed`` the per-character block replay of mixed
+                        local/remote streams, likewise;
 - ``convert``           numpy bridges to and from the JAX package's state;
-- ``northstar``         entry point: a full trace × batch, on ``rle`` or
-                        ``rle-hbm``;
+- ``northstar``         entry point: a full trace × batch, on ``rle``,
+                        ``rle-hbm``, ``blocked`` or ``hbm``;
 - ``kevin``             entry point: millions of single-char prepends ×
                         batch on ``rle-hbm``;
-- ``storm``             entry point: the config-4 storm × batch;
+- ``storm``             entry point: the config-4 storm × batch, on
+                        ``rle-mixed`` or ``blocked-mixed``;
 - ``stream``            entry point: configs 5r and 5, thousands of
                         divergent documents chunk after chunk.
 

@@ -27,6 +27,7 @@ import torch
 from . import resolve_device
 from .common import RemoteDel, RemoteId, RemoteIns, RemoteTxn
 from .ops.batch import OpTensors
+from .ops.blocked import BlockedResult
 from .ops.rle import RleResult
 from .ops.rle_lanes import BlockedLanesResult, LanesResult
 from .ops.rle_lanes_mixed import BlockedLanesMixedResult
@@ -110,6 +111,17 @@ def rle_result_to_numpy(res: RleResult) -> Dict[str, np.ndarray]:
 #: An ``RleMixedResult`` has the same eight arrays (its ``err`` row 2 is
 #: the order-index miss flag).
 rle_mixed_result_to_numpy = rle_result_to_numpy
+
+
+def blocked_result_to_numpy(res: BlockedResult) -> Dict[str, np.ndarray]:
+    """A ``BlockedResult``'s five arrays (``signed``, ``rows``, ``ol``,
+    ``orr``, ``err``) on the host, origins as ``uint32`` bit views, in the
+    JAX package's field names."""
+    out = {}
+    for name in ("signed", "rows", "ol", "orr", "err"):
+        a = getattr(res, name).cpu().numpy()
+        out[name] = a.view(np.uint32) if name in _U32_RESULT_FIELDS else a
+    return out
 
 
 #: ``state()`` keys of the per-lane engines, by tuple length.

@@ -3,7 +3,17 @@
 - ``batch``        the numpy op compiler (local edits, step fusion,
                    remote txns, by-order log prefill);
 - ``span_arrays``  ``FlatDoc``, the per-char document on tensors;
-- ``blocked``      block-plane helpers of the run replays;
+- ``blocked``      the per-character block replay of one shared local
+                   stream (the document in shared memory) and the block
+                   helpers every replay shares: plain PyTorch version and
+                   the wrapper of its CUDA kernel;
+- ``blocked_hbm``  the per-character block replay with the rows in device
+                   memory and a two-level live index (the full
+                   automerge-paper trace), doc groups: plain version and
+                   CUDA kernel wrapper;
+- ``blocked_mixed`` the per-character block replay of mixed local/remote
+                   streams (the config-4 storm): plain version and CUDA
+                   kernel wrapper;
 - ``rle``          the north-star run-block replay: plain PyTorch version
                    and the wrapper of its CUDA kernel;
 - ``rle_hbm``      the run-block replay with millions of run rows (planes

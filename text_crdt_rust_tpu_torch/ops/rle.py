@@ -51,7 +51,14 @@ from .batch import (
     merge_fused_origins,
     prefill_logs,
 )
-from .blocked import _cumsum_rows, _lane_scalar, _require, _roll_amount, _shift_rows
+from .blocked import (
+    _cumsum_rows,
+    _lane_scalar,
+    _require,
+    _roll_amount,
+    _row_scalar,
+    _shift_rows,
+)
 from .span_arrays import FlatDoc, make_flat_doc, u32_bits
 
 I32 = torch.int32
@@ -64,15 +71,6 @@ def _shift_rows_up(x: torch.Tensor, amount: int, max_amount: int) -> torch.Tenso
     """Rows shifted toward LOWER indices by ``amount`` (out[j] =
     x[j + amount]), circularly, as the JAX package's per-bit rolls are."""
     return torch.roll(x, -_roll_amount(amount, max_amount, x.shape[0]), 0)
-
-
-def _row_scalar(arr2d: torch.Tensor, r: int) -> int:
-    """Row ``r`` of a lane-replicated [K, B] value, as one scalar (the
-    lane max). A row outside the block reads as 0, as the masked sum of
-    the Pallas body does."""
-    if 0 <= r < arr2d.shape[0]:
-        return int(arr2d[r].max())
-    return 0
 
 
 def _locate_run(bo, bl, idx_k, r0: int, local: int):
