@@ -114,7 +114,8 @@
 22. The per-character block replay with the document in shared memory
    (``blocked_replay``, A8) against its plain version on the card (random
    streams with rebalances at K = 16 and 32, prepends, a delete across
-   blocks, the delete past the end), then the north star's 19,149-patch
+   blocks, a far-jump stream, the delete past the end), then the north
+   star's 19,149-patch
    prefix (16,384 inserted characters, capacity 32,768 rows, K = 512, 128
    documents) through ``northstar.run_northstar(engine="blocked")``,
    counted: it fails unless the kernel launched, doc 0 reproduces the
@@ -122,9 +123,11 @@
    against its plain version on all 128 lanes, against A9's kernel on the
    same stream and geometry (``signed``, ``rows[:NB]``, ``ol``, ``orr``,
    ``err``), its median over 3 runs after 1 warm-up, patches/s, the bound.
-23. The main path of this slice, the per-character replay with the rows
-   in device memory (``blocked_hbm_replay``, A9): the small cases (three
-   doc groups included), then the whole automerge-paper trace (259,778
+23. The per-character replay with the rows in device memory
+   (``blocked_hbm_replay``, A9): the small cases (three doc groups, K =
+   2,048, and the far-jump stream that leaves the kernel's cache of
+   blocks on nearly every step, with the misses printed), then the whole
+   automerge-paper trace (259,778
    steps, capacity 524,288 rows, K = 512, 128 documents) through
    ``northstar.run_northstar(engine="hbm")``, counted the same way, with
    doc 0 against ``endContent`` and peak device memory. At that shape: the
@@ -134,18 +137,26 @@
    sequence of small PyTorch operations: minutes on one CPU core even at
    8 lanes); the median over 3 runs after 1 warm-up, patches/s, the
    rebalance count and the bound, without and with the rebalances'
-   traffic.
-24. The per-character mixed replay (``blocked_mixed_replay``, A10): small
-   storms, a delete storm and an unknown delete target (err rows 1 and 2)
-   against its plain version, then the config-4 insert storm (16 peers x
-   200 rounds, 12,800 characters, capacity 32,768 rows, K = 256, 128
-   documents) through ``storm.run_storm(engine="blocked-mixed")``,
-   counted: it fails unless the kernel launched, doc 0 equals the oracle
-   receiver and every lane equals lane 0. The main path's outputs against
-   the plain version over all 3,200 steps on all 128 lanes (its ~9.7M
-   conflict-scan steps read a host copy of the state: under a minute on
-   one CPU core), then the median over 3 runs after 1 warm-up, char-ops/s,
-   the bound.
+   traffic, the cache misses, and the replay's median at 1, 2, 4, 8 and
+   16 warps a thread block, with the choice the wrapper makes.
+24. The per-character mixed replay (``blocked_mixed_replay``, A10) against
+   its plain version: small storms, a delete storm, storms of 40 and 48
+   peers (more than 32 concurrent inserts at one origin) and tie runs
+   that carry a pinned scan_start across the scan's 32-position
+   sub-windows, K = 2,048, a document too large for the scan's view to
+   sit beside it in shared memory, an unknown delete target (err rows 1
+   and 2), a remote insert after an absent order and origin-left entries
+   naming absent orders (err row 2 from the left cursor and from inside
+   the scan). Then the config-4 insert storm (16 peers x 200 rounds,
+   12,800 characters, capacity 32,768 rows, K = 256, 128 documents)
+   through ``storm.run_storm(engine="blocked-mixed")``, counted: it fails
+   unless the kernel launched, doc 0 equals the oracle receiver and every
+   lane equals lane 0. The main path's outputs against the plain version
+   over all 3,200 steps on all 128 lanes (its ~9.7M conflict-scan steps
+   read a host copy of the state: under a minute on one CPU core), the
+   kernel's conflict-scan steps (equal to the plain version's count) and
+   windows, then the median over 3 runs after 1 warm-up, char-ops/s, µs a
+   scan step, the bound (the scan's comparisons counted as operations).
    The plain versions of phases 22-24 at those shapes run on the CPU in
    three child processes, one thread each, started when phase 21 ends
    (so they take no core from the earlier phases' plain checks); the
@@ -1100,6 +1111,9 @@ PREFIX_A8 = 19_149           # the largest prefix bench.py sizes to 32,768 rows
 TRACE_A9 = None              # the whole trace (259,778 patches)
 STORM_ROUNDS = 200           # the config-4 insert storm: 16 peers x 200
 PLAIN_LANES_A9 = 8           # A9's full-trace plain check: lanes
+# A10's serial rule per scan step: other == o_right, olc < lc, olc == lc,
+# rank > rank, o_right == right, and the scanning/scan_start updates.
+OPS_PER_SCAN_STEP = 8
 CHAR_OUTPUTS = ("ol", "orr", "signed", "rows", "err")
 
 
@@ -1199,6 +1213,8 @@ def char_compare_cases(B, randedit, TestPatch, np):
     return [
         ("random streams, K=16", [rnd(7, 120), rnd(11, 80)], 1024, 16,
          [0, 0, 0]),
+        ("far jumps, K=32", [chars(far_jump_patches(TestPatch), 16)], 8192,
+         32, [0, 0, 0]),
         ("random, lmax 16, K=32", [chars(randedit.random_patches(
             random.Random(5), 400)[0], 16)], 4096, 32, [0, 0, 0]),
         ("prepends, K=8", [chars([TestPatch(0, 0, "ab")] * 40)], 256, 8,
@@ -1210,6 +1226,70 @@ def char_compare_cases(B, randedit, TestPatch, np):
             [TestPatch(0, 0, "abc"), TestPatch(0, 10, "")])], 64, 8,
          [0, 1, 0]),
     ]
+
+
+def far_jump_patches(TestPatch, n=300):
+    """2,048 characters typed, then single-character edits whose positions
+    jump across the document: nearly every step leaves the A9 kernel's
+    cache of blocks."""
+    patches = [TestPatch(16 * i, 0, "x" * 16) for i in range(128)]
+    size = 2048
+    for i in range(n):
+        at = (i * 7919) % size
+        if i % 3 == 2:
+            patches.append(TestPatch(at, 1, ""))
+            size -= 1
+        else:
+            patches.append(TestPatch(at, 0, "y"))
+            size += 1
+    return patches
+
+
+def hbm_char_cases(B, randedit):
+    """A9's own cases beside ``char_compare_cases``: three doc groups and
+    K = 2,048, which A8 refuses."""
+    import random
+
+    def rnd(seed, steps, lmax=4):
+        patches = randedit.random_patches(random.Random(seed), steps)[0]
+        return B.compile_local_patches(patches, lmax=lmax, dmax=lmax)[0]
+
+    return [
+        ("three groups, K=16", [rnd(s, 60 + 20 * s) for s in range(3)],
+         1024, 16, [0, 0, 0]),
+        ("random, lmax 16, K=2048", [rnd(3, 300, 16)], 8192, 2048,
+         [0, 0, 0]),
+    ]
+
+
+def absent_left_in_scan(oll):
+    """Two orders' origin-left entries set to orders no item has (one past
+    the table, one inside it): the scans passing those items take the
+    serial step with the search of the whole state (err row 2)."""
+    oll[5] = 70000
+    oll[9] = 100
+
+
+def tie_run_ops(storm):
+    """40 concurrent inserts at ROOT, then three agents that saw only the
+    last of them insert before it: their scans pin scan_start and carry it
+    past 32 positions (A10's sub-window) to the break."""
+    from text_crdt_rust_tpu_torch.common import (
+        ROOT_REMOTE_ID,
+        RemoteId,
+        RemoteIns,
+        RemoteTxn,
+    )
+
+    peers = [f"p{i:02d}" for i in range(40)]
+    txns = [RemoteTxn(id=RemoteId(n, 0), parents=[],
+                      ops=[RemoteIns(ROOT_REMOTE_ID, ROOT_REMOTE_ID, "x")])
+            for n in peers]
+    last = RemoteId(peers[-1], 0)
+    txns += [RemoteTxn(id=RemoteId(n, 0), parents=[last],
+                       ops=[RemoteIns(ROOT_REMOTE_ID, last, "y")])
+             for n in ("a", "p20x", "p35x")]
+    return storm.compile_storm_txns(txns, 1, 0.0)
 
 
 def mixed_char_cases(B, storm, np):
@@ -1233,14 +1313,33 @@ def mixed_char_cases(B, storm, np):
     fields["del_len"][-1] = 3
     fields["del_target"][-1] = 90
     fields["rows_per_step"][-1] = 1
+    absent = {f.name: np.asarray(getattr(small, f.name)).copy()
+              for f in dataclasses.fields(small)}
+    last = int(np.nonzero(absent["kind"] == B.KIND_REMOTE_INS)[0][-1])
+    absent["origin_left"][last] = 60
     return [
-        ("storm 4x10, K=16", stormops(4, 10, 2, 0.0), 256, 16, [0, 0, 0]),
+        ("storm 4x10, K=16", stormops(4, 10, 2, 0.0), 256, 16, [0, 0, 0],
+         None),
         ("storm 16x20, K=32", stormops(16, 20, 4, 0.0), 4096, 32,
-         [0, 0, 0]),
+         [0, 0, 0], None),
         ("delete storm 6x20, K=16", stormops(6, 20, 3, 0.3), 1024, 16,
-         [0, 0, 0]),
+         [0, 0, 0], None),
+        ("ties: storm 40x3, K=16", stormops(40, 3, 1, 0.0), 512, 16,
+         [0, 0, 0], None),
+        ("ties: storm 48x4, K=32", stormops(48, 4, 2, 0.0), 1024, 32,
+         [0, 0, 0], None),
+        ("tie runs pinned past 32 positions, K=16", tie_run_ops(storm), 256,
+         16, [0, 0, 0], None),
+        ("storm 8x20, K=2048", stormops(8, 20, 4, 0.0), 4096, 2048,
+         [0, 0, 0], None),
+        ("storm 4x10, capacity 49,152: the view in device memory",
+         stormops(4, 10, 2, 0.0), 49152, 256, [0, 0, 0], None),
         ("unknown delete target -> err[1], err[2]", B.OpTensors(**fields),
-         256, 16, [0, 1, 1]),
+         256, 16, [0, 1, 1], None),
+        ("insert after an absent order -> err[2]", B.OpTensors(**absent),
+         256, 16, [0, 0, 1], None),
+        ("absent origin-left inside the scan -> err[2]",
+         stormops(4, 10, 2, 0.0), 256, 16, [0, 0, 1], absent_left_in_scan),
     ]
 
 
@@ -1377,6 +1476,8 @@ def blocked_a8_phase(torch, dev, card, B, northstar, TBL, TBH, randedit,
         "patches_per_s": rate,
         "rebalances": counts.get("rebalances"),
         "delete_windows": counts.get("delete_windows"),
+        "design": "follows blocked_ops.cuh, one warp running the step "
+                  "chain",
     }
 
 
@@ -1389,12 +1490,15 @@ def blocked_a9_phase(torch, dev, card, B, northstar, TBL, TBH, randedit,
     device memory and the rebalance count. Returns the ``kernels``
     entry."""
     worst = 0
-    cases = char_compare_cases(B, randedit, TestPatch, np)
+    cases = (char_compare_cases(B, randedit, TestPatch, np)
+             + hbm_char_cases(B, randedit))
     for label, streams, cap, k, flags in cases:
         rep = TBH.make_replayer_hbm(streams, cap, batch=32, block_k=k,
                                     chunk=128, device=dev)
         plain = TBH.blocked_hbm_replay_plain(*rep.staged, **rep.shape)
-        kern = TBH.blocked_hbm_replay_cuda(*rep.staged, **rep.shape)
+        stats = torch.zeros(len(streams), 32, dtype=torch.int32, device=dev)
+        kern = TBH.blocked_hbm_replay_cuda(*rep.staged, **rep.shape,
+                                           stats=stats)
         torch.cuda.synchronize()
         e = char_err(torch, kern, plain)
         worst = max(worst, e)
@@ -1402,7 +1506,8 @@ def blocked_a9_phase(torch, dev, card, B, northstar, TBL, TBH, randedit,
         ok = e == 0 and got == flags
         log(f"compare blocked-hbm {label}: "
             f"{[s.num_steps for s in streams]} steps, max_abs_err {e}, err "
-            f"flags {got}, {'ok' if ok else 'FAILED'}")
+            f"flags {got}, cache misses {stats[:, 0].tolist()}, "
+            f"{'ok' if ok else 'FAILED'}")
         if not ok:
             raise AssertionError(f"blocked-hbm kernel disagrees on: {label}")
 
@@ -1442,9 +1547,23 @@ def blocked_a9_phase(torch, dev, card, B, northstar, TBL, TBH, randedit,
         err=kern[4], block_k=rep.shape["block_k"],
         num_blocks=rep.shape["capacity"] // rep.shape["block_k"],
         batch=CHAR_LANES))
-    ms = cuda_ms(torch, lambda: TBH.blocked_hbm_replay_cuda(*rep.staged,
-                                                            **rep.shape),
-                 reps=3)
+    stats = torch.zeros(1, CHAR_LANES, dtype=torch.int32, device=dev)
+    TBH.blocked_hbm_replay_cuda(*rep.staged, **rep.shape, stats=stats)
+    torch.cuda.synchronize()
+    misses = int(stats[0, 0])
+    # The thread block's warps: warp 0 runs the chain, and every warp
+    # takes part in the rebalances' device-memory passes.
+    by_warps = {w: cuda_ms(torch, lambda: TBH.blocked_hbm_replay_cuda(
+        *rep.staged, **rep.shape, warps=w), reps=3)
+        for w in (1, 2, 4, 8, 16)}
+    best = min(by_warps, key=by_warps.get)
+    log(f"main path on A9 warps a thread block: " + ", ".join(
+        f"{w}: {t:.3f} ms" for w, t in by_warps.items())
+        + f"; fastest {best}, the wrapper's choice {TBH.WARPS} (warp 0 runs "
+        f"the step chain alone; the other warps only join the rebalance's "
+        f"passes over device memory, which more warps keep more loads in "
+        f"flight for)")
+    ms = by_warps[TBH.WARPS]
     cols, plain, counts, plain_s = plain_async.get()
     if not same_inputs(torch, rep.staged, cols):
         raise AssertionError("A9's plain check compiled other inputs")
@@ -1453,7 +1572,9 @@ def blocked_a9_phase(torch, dev, card, B, northstar, TBL, TBH, randedit,
     log(f"compare main path on A9: all {stream.steps} steps, max_abs_err "
         f"{e} against its plain version on lanes 0-{PLAIN_LANES_A9 - 1} "
         f"(plain {plain_s:.1f} s on one CPU core; {counts}); all "
-        f"{CHAR_LANES} lanes of the kernel equal lane 0: {equal}")
+        f"{CHAR_LANES} lanes of the kernel equal lane 0: {equal}; cache "
+        f"misses {misses} a lane ({misses / stream.steps:.2%} of the "
+        f"steps)")
     if e != 0 or not equal:
         raise AssertionError("blocked-hbm kernel disagrees on the trace")
     del kern
@@ -1501,6 +1622,11 @@ def blocked_a9_phase(torch, dev, card, B, northstar, TBL, TBH, randedit,
         "rebalances": rb,
         "delete_windows": counts.get("delete_windows"),
         "peak_device_bytes": peak_mem,
+        "cache_misses": misses,
+        "warps": TBH.WARPS,
+        "ms_by_warps": by_warps,
+        "design": "one warp runs the step chain over a cache of four "
+                  "blocks in shared memory",
     }
 
 
@@ -1511,9 +1637,13 @@ def blocked_a10_phase(torch, dev, card, B, storm, TBL, TBM, np, _kernels,
     that shape the main path's outputs against the plain version's over
     the whole storm, and timed. Returns the ``kernels`` entry."""
     worst = 0
-    for label, ops, cap, k, flags in mixed_char_cases(B, storm, np):
+    for label, ops, cap, k, flags, edit in mixed_char_cases(B, storm, np):
         rep = TBM.make_replayer_mixed(ops, cap, batch=32, block_k=k,
                                       chunk=128, device=dev)
+        if edit is not None:
+            oll = rep.staged[9].clone()
+            edit(oll)
+            rep.staged = rep.staged[:9] + (oll,) + rep.staged[10:]
         plain = TBM.blocked_mixed_replay_plain(*rep.staged, **rep.shape)
         kern = TBM.blocked_mixed_replay_cuda(*rep.staged, **rep.shape)
         torch.cuda.synchronize()
@@ -1548,6 +1678,11 @@ def blocked_a10_phase(torch, dev, card, B, storm, TBL, TBM, np, _kernels,
                              f"text {run.ok}, lanes {equal}")
     rep = storm.make_storm_replayer(run.stream, batch=CHAR_LANES,
                                     engine="blocked-mixed", device=dev)
+    stats = torch.zeros(2, CHAR_LANES, dtype=torch.int32, device=dev)
+    TBM.blocked_mixed_replay_cuda(*rep.staged, **rep.shape, stats=stats)
+    torch.cuda.synchronize()
+    scan_steps, windows = (int(stats[0, 0]), int(stats[1, 0]))
+    same_stats = bool((stats == stats[:, :1]).all())
     ms = cuda_ms(torch, lambda: TBM.blocked_mixed_replay_cuda(
         *rep.staged, **rep.shape), reps=3)
     cols, plain, counts, plain_s = plain_async.get()
@@ -1563,10 +1698,20 @@ def blocked_a10_phase(torch, dev, card, B, storm, TBL, TBM, np, _kernels,
         f"CPU core; {counts})")
     if e != 0:
         raise AssertionError("blocked-mixed kernel disagrees on the storm")
+    log(f"storm on A10 scan: {scan_steps} conflict-scan steps and {windows} "
+        f"windows of {4 * 32} positions a lane (the plain version counts "
+        f"{counts.get('scan_steps')} steps; every lane the same: "
+        f"{same_stats}), {ms / scan_steps * 1e3:.5f} us a scan step")
+    if scan_steps != counts.get("scan_steps") or not same_stats:
+        raise AssertionError("A10's scan steps differ from the plain "
+                             "version's count")
     NB = rep.shape["capacity"] // rep.shape["block_k"]
     nbytes, nops, active = char_bound(
         rep.staged, rep.shape, rep.shape["block_k"] + NB, ncols=9,
         table_words=3 * rep.shape["order_rows"] * 128)
+    # The conflict scan is this run's data-dependent work: each scan step
+    # of each lane makes the serial rule's comparisons.
+    nops += scan_steps * CHAR_LANES * OPS_PER_SCAN_STEP
     bms, by = bound_ms(nbytes, nops)
     rate = run.stream.char_ops * CHAR_LANES / (ms / 1e3)
     log(f"storm on A10 replay: median {ms:.3f} ms over 3 reps after 1 "
@@ -1598,6 +1743,11 @@ def blocked_a10_phase(torch, dev, card, B, storm, TBL, TBM, np, _kernels,
         "serial_steps": active,
         "char_ops_per_s": rate,
         "plain_counts": counts,
+        "scan_steps": scan_steps,
+        "scan_windows": windows,
+        "us_per_scan_step": ms / scan_steps * 1e3,
+        "design": "a per-insert view built on the card, one warp "
+                  "scanning 128 raw positions a window",
     }
 
 

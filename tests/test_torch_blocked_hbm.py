@@ -168,3 +168,36 @@ def test_run_northstar_hbm_prefix():
                                  block_k=512, chunk=1024, interpret=True)()
     for res in run.results:
         assert_blocked_equal(jres, res)
+
+
+def test_replay_at_k2048_matches_jax():
+    """K = 2,048 (the kernel's largest block): a random stream with
+    deletes across two blocks, against the JAX kernel in interpret
+    mode."""
+    patches, _ = random_patches(random.Random(8), 200)
+    jops = compile_local(patches, lmax=16)
+    jres, tres = _both([jops], 4096, 2048)
+    assert not np.asarray(jres[0].err).any()
+    assert TBL.lanes_equal(tres[0])
+
+
+def test_kernel_limits_checked_before_launch():
+    """The kernel takes K up to 2,048 (A8's keeps its 1,024) and 1-16
+    warps; both are refused before anything is built."""
+    import torch
+
+    col = torch.zeros(4, dtype=torch.int32)
+    shape = dict(groups=1, steps=4, batch=8, capacity=8192, lmax=4)
+    with pytest.raises(ValueError, match=r"\[8, 2048\]"):
+        TBH.blocked_hbm_replay_cuda(col, col, col, col, block_k=4096,
+                                    **shape)
+    with pytest.raises(ValueError, match="warps"):
+        TBH.blocked_hbm_replay_cuda(col, col, col, col, block_k=2048,
+                                    warps=0, **shape)
+    with pytest.raises(ValueError, match=r"\[8, 1024\]"):
+        TBL.blocked_replay_cuda(col, col, col, col, steps=4, batch=8,
+                                capacity=8192, block_k=2048, lmax=4)
+    # Tables, cache tags and four cached blocks.
+    assert TBH.kernel_smem_bytes(1024, 16, 512) == 4 * (
+        TBL.table_ints(1024, 16) + 2 * TBH.SLOTS + TBH.SLOTS * 512)
+    assert TBH.kernel_smem_bytes(64, 8, 2048) <= TBL.SMEM_LIMIT

@@ -8,7 +8,12 @@ K = 8-32, batch 8, chunk 128): the root tiebreak, two-peer merges,
 fragmented and double remote deletes, local/remote convergence, the
 interleaved storm (rebalances between remote lookups: stale hints, the
 full-state fallback and its healing), the long chunked delete, a
-local-only stream against A8, and an unknown delete target (``err[2]``).
+local-only stream against A8, an unknown delete target and a remote
+insert after an absent order (``err[2]``), and a storm of 40 peers (more
+than 32 concurrent inserts at one origin).
+Beside them, a plain-Python model of the CUDA kernel's windowed conflict
+scan is held equal to ``integrate_cursor`` on every remote insert of
+seeded storms.
 Each case compiles its txns with the JAX package and replays the same
 ``OpTensors`` in both; ``signed``, ``rows``, ``ol``, ``orr`` and ``err``
 compare in full. Tolerance: none, the state is integers.
@@ -18,6 +23,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from text_crdt_rust_tpu.common import (
     RemoteDel,
@@ -28,6 +34,7 @@ from text_crdt_rust_tpu.common import (
 from text_crdt_rust_tpu.models.sync import export_txns_since
 from text_crdt_rust_tpu.ops import batch as JB
 from text_crdt_rust_tpu.ops import blocked_mixed as JBM
+from text_crdt_rust_tpu.utils.randedit import make_storm as jax_make_storm
 from text_crdt_rust_tpu_torch import storm
 from text_crdt_rust_tpu_torch.ops import blocked as TBL
 from text_crdt_rust_tpu_torch.ops import blocked_mixed as TBM
@@ -114,6 +121,22 @@ def _long_delete():
     return [base, kill]
 
 
+def _tie_runs():
+    """40 concurrent inserts at ROOT (ascending rank order in the
+    document), then three agents that saw only the last of them insert
+    before it: each loses the ties of the ranks above its own, so its scan
+    pins scan_start and carries it past 32 positions (the CUDA kernel's
+    sub-window) to the break at its origin-right."""
+    peers = [f"p{i:02d}" for i in range(40)]
+    txns = [RemoteTxn(id=RemoteId(n, 0), parents=[],
+                      ops=[RemoteIns(ROOT, ROOT, "x")]) for n in peers]
+    last = RemoteId(peers[-1], 0)
+    txns += [RemoteTxn(id=RemoteId(n, 0), parents=[last],
+                       ops=[RemoteIns(ROOT, last, "y")])
+             for n in ("a", "p20x", "p35x")]
+    return txns
+
+
 CASES = {
     "root-tiebreak": lambda: ([
         RemoteTxn(id=RemoteId(name, 0), parents=[],
@@ -126,6 +149,9 @@ CASES = {
     "local-remote-convergence": lambda: (_convergence(), 4, 512, 16),
     "storm-interleaved-peers": lambda: (_interleaved(), 4, 1024, 16),
     "long-remote-delete-chunked": lambda: (_long_delete(), 16, 128, 32),
+    "storm-40-peers": lambda: (jax_make_storm(40, 2, 1, seed=7)[0], 4, 256,
+                               16),
+    "tie-runs-past-32": lambda: (_tie_runs(), 4, 256, 16),
 }
 
 
@@ -209,3 +235,219 @@ def test_storm_cli_blocked_mixed(capsys):
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1 and '"ok": true' in out[0]
     assert '"engine": "blocked-mixed"' in out[0]
+
+
+def test_insert_after_an_absent_order_flags_err2():
+    """A remote insert whose origin-left no item has: the left cursor's
+    search of the whole state misses (``err[2]``) and clamps the cursor
+    past the end; the post-error state is the JAX kernel's."""
+    jops = compile_txns(_interleaved()[:12], lmax=4)
+    fields = {f.name: np.asarray(getattr(jops, f.name)).copy()
+              for f in dataclasses.fields(jops)}
+    last = int(np.nonzero(fields["kind"] == JB.KIND_REMOTE_INS)[0][-1])
+    fields["origin_left"][last] = 300
+    jres, tres = _both(JB.OpTensors(**fields), 512, 16)
+    err = tres.err.numpy()
+    assert err[2].all() and not err[0].any() and not err[1].any()
+
+
+# -- the CUDA kernel's windowed conflict scan, modelled on the CPU -------------
+
+NONE, BRK, RESET, SET, UNKNOWN = range(5)
+
+
+def _lowest(mask):
+    return (mask & -mask).bit_length() - 1
+
+
+def windowed_cursor(m, my_rank, o_left, o_right, width=32, trace=None):
+    """The raw cursor a remote insert lands at, decided as
+    ``blocked_mixed_replay.cu`` decides it: over ``m``'s ``raw_view``,
+    ``width`` positions at a time, each position's flag computed on its
+    own (the serial rule's break, a won tie that resets the scan, a lost
+    tie that may pin ``scan_start``, or unknown when the item's
+    origin-left is not in the view), the first break or unknown found by
+    a mask, and the ties before it applied in order: after the last won
+    tie, the first lost one pins ``scan_start``. An unknown position
+    takes the serial step. Reads ``m`` and changes nothing. ``trace``,
+    when a list, receives ``(window start, scanning, scan_start)`` after
+    every window that ran to its end with more positions after it."""
+    raw, _block, where = m.raw_view()
+    n = len(raw)
+
+    def cursor_after(o):
+        if o == -1:
+            return 0
+        if 0 <= o < len(where) and where[o] >= 0:
+            return where[o] + 1
+        hit = ((m.sig == o + 1) | (m.sig == -(o + 1))).any(dim=1)
+        rows = hit.nonzero()
+        g = int(rows[0, 0]) if rows.numel() else m.CAP
+        return m.raw_before_block(g // m.K) + g % m.K + 1
+
+    lc = cursor_after(o_left)
+
+    def origins(p):
+        other = abs(raw[p]) - 1
+        return other, [m.tab_read(t, other) for t in (m.oll, m.orl, m.rkl)]
+
+    def flag(p):
+        other, (left, right, rank) = origins(p)
+        if left != -1 and not (0 <= left < len(where) and where[left] >= 0):
+            return UNKNOWN
+        olc = 0 if left == -1 else where[left] + 1
+        cut = other == o_right or olc < lc
+        eq = not cut and olc == lc
+        gt = my_rank > rank
+        if cut or (eq and not gt and o_right == right):
+            return BRK
+        if not eq:
+            return NONE
+        return RESET if gt else SET
+
+    cursor = scan_start = lc
+    scanning = False
+    while cursor < n:
+        flags = [flag(p) for p in range(cursor, min(cursor + width, n))]
+        masks = {f: sum(1 << i for i, x in enumerate(flags) if x == f)
+                 for f in (BRK, RESET, SET, UNKNOWN)}
+        stop = masks[BRK] | masks[UNKNOWN]
+        lim = _lowest(stop) if stop else len(flags)
+        below = (1 << lim) - 1
+        reset, lost = masks[RESET] & below, masks[SET] & below
+        if reset:
+            after = lost >> reset.bit_length() << reset.bit_length()
+            scanning = after != 0
+            if after:
+                scan_start = cursor + _lowest(after)
+        elif lost and not scanning:
+            scanning, scan_start = True, cursor + _lowest(lost)
+        base, cursor = cursor, cursor + lim
+        if not stop:
+            if trace is not None and cursor < n:
+                trace.append((base, scanning, scan_start))
+            continue
+        if flags[lim] == BRK:
+            break
+        # The serial step at an unknown position, the whole-state search.
+        other, (left, right, rank) = origins(cursor)
+        olc = cursor_after(left)
+        brk = other == o_right or olc < lc
+        eq = not brk and olc == lc
+        gt = my_rank > rank
+        brk = brk or (eq and not gt and o_right == right)
+        if eq and not gt and o_right != right and not scanning:
+            scan_start = cursor
+        if eq:
+            scanning = False if gt else (
+                scanning if o_right == right else True)
+        if brk:
+            break
+        cursor += 1
+    return scan_start if scanning else cursor
+
+
+def _windowed_checks(monkeypatch, ops, capacity, block_k, edit=None):
+    """Replays ``ops`` with the plain version, holding ``windowed_cursor``
+    equal to ``integrate_cursor`` before every remote insert. Returns the
+    inserts checked and the windows that ended with a tie run open."""
+    seen, crossings = [], []
+
+    class Checked(TBM._MixedOps):
+        def integrate_cursor(self, my_rank, o_left, o_right):
+            want = windowed_cursor(self, my_rank, o_left, o_right,
+                                   trace=crossings)
+            got = super().integrate_cursor(my_rank, o_left, o_right)
+            assert got == want, (len(seen), got, want)
+            seen.append(got)
+            return got
+
+    monkeypatch.setattr(TBM, "_MixedOps", Checked)
+    rep = TBM.make_replayer_mixed(ops, capacity, batch=1, block_k=block_k,
+                                  chunk=128, device="cpu")
+    staged = rep.staged
+    if edit is not None:
+        oll = staged[9].clone()
+        edit(oll)
+        staged = staged[:9] + (oll,) + staged[10:]
+    TBM.blocked_mixed_replay_plain(*staged, **rep.shape)
+    return len(seen), [c for c in crossings if c[1]]
+
+
+def _absent_left(oll):
+    oll[5] = 70000  # past the tables
+    oll[9] = 100    # inside them, no such item
+
+
+def _storm_ops(peers, rounds, run_len, del_prob=0.0):
+    return storm.make_storm_stream(peers, rounds, run_len, seed=7,
+                                   del_prob=del_prob).ops
+
+
+# name -> (ops, capacity, block_k, table edit, pinned runs past a window)
+WINDOW_CASES = {
+    "storm-4x10": lambda: (_storm_ops(4, 10, 2), 256, 16, None, False),
+    "storm-16x20": lambda: (_storm_ops(16, 20, 4), 4096, 32, None, False),
+    "delete-storm-6x20": lambda: (_storm_ops(6, 20, 3, 0.3), 1024, 16, None,
+                                  False),
+    "storm-40x3": lambda: (_storm_ops(40, 3, 1), 512, 16, None, False),
+    "storm-48x4": lambda: (_storm_ops(48, 4, 2), 1024, 32, None, False),
+    "tie-runs-past-32": lambda: (port_ops(compile_txns(_tie_runs())), 256,
+                                 16, None, True),
+    "absent-origin-left": lambda: (_storm_ops(4, 10, 2), 256, 16,
+                                   _absent_left, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WINDOW_CASES))
+def test_windowed_scan_equals_integrate_cursor(monkeypatch, name):
+    ops, cap, k, edit, pinned = WINDOW_CASES[name]()
+    inserts = int((np.asarray(ops.kind) == JB.KIND_REMOTE_INS).sum())
+    checked, open_runs = _windowed_checks(monkeypatch, ops, cap, k, edit)
+    assert checked == inserts > 0
+    if pinned:
+        # A tie run with scan_start pinned crosses a window boundary.
+        assert open_runs
+
+
+def test_window_width_does_not_change_the_cursor(monkeypatch):
+    """The decision is the serial rule's at any window width: 1 (the
+    serial walk itself), 7 and 32 agree on every insert of a storm."""
+    sst = storm.make_storm_stream(40, 2, 1, seed=3)
+    widths = []
+
+    class Checked(TBM._MixedOps):
+        def integrate_cursor(self, my_rank, o_left, o_right):
+            widths.append({windowed_cursor(self, my_rank, o_left, o_right,
+                                           width=w) for w in (1, 7, 32)})
+            return super().integrate_cursor(my_rank, o_left, o_right)
+
+    monkeypatch.setattr(TBM, "_MixedOps", Checked)
+    rep = TBM.make_replayer_mixed(sst.ops, 256, batch=1, block_k=16,
+                                  chunk=128, device="cpu")
+    TBM.blocked_mixed_replay_plain(*rep.staged, **rep.shape)
+    assert widths and all(len(w) == 1 for w in widths)
+
+
+# -- the CUDA wrapper's limits (checked before any build or launch) ----------
+
+
+def test_kernel_takes_k_up_to_2048_and_names_the_shared_memory_limit():
+    from text_crdt_rust_tpu_torch.ops.blocked import SMEM_LIMIT
+
+    col = torch.zeros(4, dtype=torch.int32)
+    tab = torch.zeros(8 * 128, dtype=torch.int32)
+    shape = dict(steps=4, batch=8, capacity=8192, lmax=4, order_rows=8)
+    with pytest.raises(ValueError, match=r"\[8, 2048\]"):
+        TBM.blocked_mixed_replay_cuda(*[col] * 9, tab, tab, tab,
+                                      block_k=4096, **shape)
+    with pytest.raises(ValueError, match=f"{SMEM_LIMIT} B of shared"):
+        TBM.blocked_mixed_replay_cuda(
+            *[col] * 9, tab, tab, tab, block_k=2048,
+            **dict(shape, capacity=65536))
+    # The storm's geometry keeps the view beside the document; a larger
+    # document sends it to device memory.
+    assert TBM.kernel_smem_bytes(32768, 128, 128, 104 * 128) == (225312,
+                                                                 True)
+    nbytes, in_smem = TBM.kernel_smem_bytes(49152, 192, 192, 104 * 128)
+    assert not in_smem and nbytes <= SMEM_LIMIT

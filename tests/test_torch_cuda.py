@@ -368,15 +368,41 @@ def test_blocked_kernel_matches_plain(card, name):
     assert kern[4][:3].amax(dim=1).tolist() == flags
 
 
-@pytest.mark.parametrize("name", sorted(BLOCKED_CASES) + ["groups-3"])
+def _far_jumps(n=300):
+    """2,048 characters typed, then single-character edits whose
+    positions jump across the document: nearly every step leaves the
+    kernel's cache of blocks."""
+    patches = [TestPatch(16 * i, 0, "x" * 16) for i in range(128)]
+    size = 2048
+    for i in range(n):
+        at = (i * 7919) % size
+        if i % 3 == 2:
+            patches.append(TestPatch(at, 1, ""))
+            size -= 1
+        else:
+            patches.append(TestPatch(at, 0, "y"))
+            size += 1
+    return _chars(patches, lmax=16)
+
+
+# The device-memory engine's own cases: name -> (streams, capacity,
+# block_k, expected error rows).
+HBM_CHAR_CASES = {
+    "groups-3": lambda: ([_char_random(s, 60 + 20 * s) for s in range(3)],
+                         1024, 16, [0, 0, 0]),
+    "far-jumps-k32": lambda: ([_far_jumps()], 8192, 32, [0, 0, 0]),
+    "random-k2048": lambda: ([_chars(randedit.random_patches(
+        random.Random(3), 300)[0], lmax=16)], 8192, 2048, [0, 0, 0]),
+}
+
+
+@pytest.mark.parametrize("name",
+                         sorted(BLOCKED_CASES) + sorted(HBM_CHAR_CASES))
 def test_blocked_hbm_kernel_matches_plain(card, name):
     from text_crdt_rust_tpu_torch.ops import blocked_hbm as TBH
 
-    if name == "groups-3":
-        streams = [_char_random(s, 60 + 20 * s) for s in range(3)]
-        capacity, block_k, flags = 1024, 16, [0, 0, 0]
-    else:
-        streams, capacity, block_k, flags = BLOCKED_CASES[name]()
+    streams, capacity, block_k, flags = (HBM_CHAR_CASES.get(name)
+                                         or BLOCKED_CASES[name])()
     rep = TBH.make_replayer_hbm(streams, capacity, batch=8, block_k=block_k,
                                 chunk=128, device=card)
     plain = TBH.blocked_hbm_replay_plain(*rep.staged, **rep.shape)
@@ -402,7 +428,55 @@ def _unknown_order():
     return TB.OpTensors(**fields)
 
 
-# name -> (stream, capacity, block_k, expected error rows)
+def _absent_origin():
+    """The small storm with its last remote insert's origin-left set to
+    an order no item has: the left cursor's search of the whole state
+    misses (``err[2]``) and clamps the cursor past the end."""
+    import dataclasses
+
+    ops = _storm(2, 3, 2, 0.0)
+    fields = {f.name: np.asarray(getattr(ops, f.name)).copy()
+              for f in dataclasses.fields(ops)}
+    last = int(np.nonzero(fields["kind"] == TB.KIND_REMOTE_INS)[0][-1])
+    fields["origin_left"][last] = 60
+    return TB.OpTensors(**fields)
+
+
+def _tie_runs():
+    """40 concurrent inserts at ROOT, then three agents that saw only the
+    last of them insert before it: their scans pin scan_start and carry it
+    past 32 positions (the kernel's sub-window) to the break."""
+    from text_crdt_rust_tpu_torch.common import (
+        ROOT_REMOTE_ID,
+        RemoteId,
+        RemoteIns,
+        RemoteTxn,
+    )
+
+    peers = [f"p{i:02d}" for i in range(40)]
+    txns = [RemoteTxn(id=RemoteId(n, 0), parents=[],
+                      ops=[RemoteIns(ROOT_REMOTE_ID, ROOT_REMOTE_ID, "x")])
+            for n in peers]
+    last = RemoteId(peers[-1], 0)
+    txns += [RemoteTxn(id=RemoteId(n, 0), parents=[last],
+                       ops=[RemoteIns(ROOT_REMOTE_ID, last, "y")])
+             for n in ("a", "p20x", "p35x")]
+    return storm.compile_storm_txns(txns, 1, 0.0)
+
+
+def _absent_left_in_scan(oll):
+    """Two orders' origin-left table entries set to orders no item has
+    (one past the table, one inside it): the conflict scans that pass
+    those items take the serial step with the search of the whole state
+    (``err[2]``)."""
+    oll[5] = 70000
+    oll[9] = 100
+
+
+# name -> (stream, capacity, block_k, expected error rows); the storms of
+# 40 and 48 peers put more than 32 concurrent inserts at one origin, and
+# the tie runs carry a pinned scan_start across the kernel's 32-position
+# sub-windows.
 BLOCKED_MIXED_CASES = {
     "storm-4x10-k16": lambda: (_storm(4, 10, 2, 0.0), 256, 16, [0, 0, 0]),
     "storm-16x20-k32": lambda: (_storm(16, 20, 4, 0.0), 4096, 32,
@@ -411,7 +485,19 @@ BLOCKED_MIXED_CASES = {
                                  [0, 0, 0]),
     "local-k16": lambda: (_char_random(13, 60), 512, 16, [0, 0, 0]),
     "unknown-order": lambda: (_unknown_order(), 256, 16, [0, 1, 1]),
+    "ties-40x3-k16": lambda: (_storm(40, 3, 1, 0.0), 512, 16, [0, 0, 0]),
+    "ties-48x4-k32": lambda: (_storm(48, 4, 2, 0.0), 1024, 32, [0, 0, 0]),
+    "tie-runs-past-32-k16": lambda: (_tie_runs(), 256, 16, [0, 0, 0]),
+    "absent-origin": lambda: (_absent_origin(), 256, 16, [0, 0, 1]),
+    "absent-left-in-scan": lambda: (_storm(4, 10, 2, 0.0), 256, 16,
+                                    [0, 0, 1]),
+    "storm-k2048": lambda: (_storm(8, 20, 4, 0.0), 4096, 2048, [0, 0, 0]),
+    # 49,152 rows leave no room for the view beside the document: it goes
+    # to device memory.
+    "storm-view-in-device-memory": lambda: (_storm(4, 10, 2, 0.0), 49152,
+                                            256, [0, 0, 0]),
 }
+MIXED_TABLE_EDITS = {"absent-left-in-scan": _absent_left_in_scan}
 
 
 @pytest.mark.parametrize("name", sorted(BLOCKED_MIXED_CASES))
@@ -421,6 +507,10 @@ def test_blocked_mixed_kernel_matches_plain(card, name):
     ops, capacity, block_k, flags = BLOCKED_MIXED_CASES[name]()
     rep = TBM.make_replayer_mixed(ops, capacity, batch=8, block_k=block_k,
                                   chunk=128, device=card)
+    if name in MIXED_TABLE_EDITS:
+        oll = rep.staged[9].clone()
+        MIXED_TABLE_EDITS[name](oll)
+        rep.staged = rep.staged[:9] + (oll,) + rep.staged[10:]
     plain = TBM.blocked_mixed_replay_plain(*rep.staged, **rep.shape)
     kern = _launched("blocked_mixed_replay",
                      lambda: TBM.blocked_mixed_replay_cuda(*rep.staged,

@@ -28,7 +28,8 @@ Two implementations of the replay, held against each other bit for bit:
   vectorised gather; it leaves the rows the deal reads as the kernel's
   K-row copies do);
 - ``ops/csrc/blocked_replay.cu``: the hand-written CUDA kernel, one thread
-  block per lane, the lane's whole document in shared memory.
+  block per lane, the lane's whole document in shared memory, one warp
+  running the step chain.
 
 ``blocked_replay`` picks between them by the device of its inputs.
 ``_BlockOps`` is written once and also carries ``ops/blocked_hbm.py``
@@ -62,9 +63,11 @@ I32 = torch.int32
 
 #: Shared memory one thread block may use on an H100 (232,448 bytes).
 SMEM_LIMIT = 232448
-#: Largest ``block_k`` of the blocked kernels (a 2K-row window at 8 rows
-#: a thread).
+#: Largest ``block_k`` of ``blocked_replay_kernel`` (A8).
 KMAX_KERNEL = 1024
+#: Largest ``block_k`` of the device-memory and mixed kernels (A9, A10),
+#: the largest the card holds them against their plain versions at.
+KMAX_WARP_KERNEL = 2048
 #: Rows compared at a time by ``lanes_equal`` (bounds its temporary).
 _ROWS_PER_PASS = 1 << 20
 
@@ -361,11 +364,17 @@ _LAUNCH = "blocked_replay_launch"
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
+def table_ints(nbp: int, nsupp: int) -> int:
+    """Ints of the block tables in shared memory (``blocked_ops.cuh::
+    table_ints``): ``rws``, ``liv``, ``hw``, ``supliv``, the non-empty
+    bitmask and the helper warps' job slots."""
+    return 3 * nbp + nsupp + nbp // 32 + 1 + 2
+
+
 def kernel_smem_bytes(capacity: int, nbp: int) -> int:
     """Shared memory of one thread block of ``blocked_replay_kernel``: the
-    lane's ``capacity`` rows, ``rws``/``liv`` and 40 ints of reduction and
-    broadcast scratch."""
-    return 4 * (capacity + 2 * nbp + 40)
+    lane's ``capacity`` rows and the block tables."""
+    return 4 * (capacity + table_ints(nbp, 0))
 
 
 def _check_columns(cols, n: int, dev) -> None:

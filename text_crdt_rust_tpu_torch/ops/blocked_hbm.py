@@ -26,7 +26,9 @@ Two implementations, held against each other bit for bit:
   window cache and DMA staging move data without changing a value, so the
   plain version works on the state directly);
 - ``ops/csrc/blocked_hbm_replay.cu``: the hand-written CUDA kernel, one
-  thread block per (lane, group), the lane's rows in device memory.
+  thread block per (lane, group), the lane's rows in device memory behind
+  a cache of four blocks in shared memory, one warp running the step
+  chain and the others helping with the rebalance.
 
 ``blocked_hbm_replay`` picks between them by the device of its inputs.
 Results are ``BlockedResult``s, read by ``blocked_to_flat`` as they are.
@@ -42,7 +44,7 @@ from .. import resolve_device
 from . import _kernels
 from .batch import KIND_LOCAL, require_unfused
 from .blocked import (
-    KMAX_KERNEL,
+    KMAX_WARP_KERNEL,
     SMEM_LIMIT,
     BlockedResult,
     _BlockOps,
@@ -55,11 +57,18 @@ from .blocked import (
     local_columns,
     replay_local_steps,
     stage_columns,
+    table_ints,
 )
 
 I32 = torch.int32
 
 SUP = 64  # blocks per super-block (level-2 index fan-out)
+SLOTS = 4  # blocks the kernel caches in shared memory (``kSlots``)
+#: Warps of the kernel's thread block: warp 0 runs the step chain, and
+#: every warp takes part in the rebalance's device-memory passes, which
+#: run faster with more warps (``chip_smoke.py`` times 1-16 warps on the
+#: whole trace; 16 was the fastest).
+WARPS = 16
 
 
 def hbm_geometry(capacity: int, block_k: int):
@@ -141,31 +150,41 @@ def blocked_hbm_replay_plain(pos, dlen, ilen, start, *, groups: int,
 
 _KERNEL = "blocked_hbm_replay"
 _LAUNCH = "blocked_hbm_replay_launch"
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
-def kernel_smem_bytes(nbp: int, nsupp: int) -> int:
+def kernel_smem_bytes(nbp: int, nsupp: int, block_k: int) -> int:
     """Shared memory of one thread block of ``blocked_hbm_replay_kernel``:
-    ``rws``/``liv``, ``supliv`` and 40 ints of reduction and broadcast
-    scratch (the rows stay in device memory)."""
-    return 4 * (2 * nbp + nsupp + 40)
+    the block tables, the cache's tags and its ``SLOTS`` blocks of
+    ``block_k`` rows (the rows stay in device memory)."""
+    return 4 * (table_ints(nbp, nsupp) + 2 * SLOTS + SLOTS * block_k)
 
 
 def blocked_hbm_replay_cuda(pos, dlen, ilen, start, *, groups: int,
                             steps: int, batch: int, capacity: int,
-                            block_k: int, lmax: int):
+                            block_k: int, lmax: int, warps: int = WARPS,
+                            stats=None):
     """Launch ``ops/csrc/blocked_hbm_replay.cu`` on PyTorch's current
-    stream. Same arguments and results as ``blocked_hbm_replay_plain``."""
+    stream. Same arguments and results as ``blocked_hbm_replay_plain``.
+    ``warps`` sizes the thread block (1-16; the default is the measured
+    choice); ``stats``, an int32 ``[groups, batch]`` tensor on the card,
+    receives each lane's cache misses."""
     G, S, B, CAP, K = groups, steps, batch, capacity, block_k
     NB, NSUP, NBp, NSUPp = hbm_geometry(CAP, K)
     dev = pos.device
     _check_columns((pos, dlen, ilen, start), G * S, dev)
-    _require(8 <= K <= KMAX_KERNEL,
-             f"block_k must lie in [8, {KMAX_KERNEL}] for the kernel")
-    smem = kernel_smem_bytes(NBp, NSUPp)
+    _require(8 <= K <= KMAX_WARP_KERNEL,
+             f"block_k must lie in [8, {KMAX_WARP_KERNEL}] for the kernel")
+    _require(1 <= warps <= 16, "warps must lie in [1, 16]")
+    _require(stats is None or (stats.device == dev and stats.dtype == I32
+                               and stats.is_contiguous()
+                               and stats.shape == (G, B)),
+             f"stats must be a contiguous int32 [{G}, {B}] on the card")
+    smem = kernel_smem_bytes(NBp, NSUPp, K)
     _require(smem <= SMEM_LIMIT,
-             f"the block tables of {NB} blocks need {smem} B of shared "
-             f"memory (limit {SMEM_LIMIT}); raise block_k")
+             f"the block tables of {NB} blocks and a cache of {SLOTS} "
+             f"blocks of {K} rows need {smem} B of shared memory (limit "
+             f"{SMEM_LIMIT})")
     ol = torch.zeros(G, S, B, dtype=I32, device=dev)
     orr = torch.zeros_like(ol)
     state = torch.empty(G * CAP, B, dtype=I32, device=dev)
@@ -179,8 +198,9 @@ def blocked_hbm_replay_cuda(pos, dlen, ilen, start, *, groups: int,
     fn = _kernels.function(_KERNEL, _LAUNCH, _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     tensors = (pos, dlen, ilen, start, ol, orr, state, rows, err, work, tmp)
-    code = fn(*(t.data_ptr() for t in tensors), G, S, B, CAP, K, NB, NBp,
-              NSUP, lmax, smem, stream)
+    code = fn(*(t.data_ptr() for t in tensors),
+              None if stats is None else stats.data_ptr(), G, S, B, CAP, K,
+              NB, NBp, NSUP, lmax, warps, smem, stream)
     _kernels.check(_KERNEL, code)
     _kernels.count_launch(_KERNEL)
     return ol, orr, state, rows, err

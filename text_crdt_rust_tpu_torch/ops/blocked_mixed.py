@@ -35,7 +35,11 @@ Two implementations, held against each other bit for bit:
   per remote insert;
 - ``ops/csrc/blocked_mixed_replay.cu``: the hand-written CUDA kernel, one
   thread block per lane, the document in shared memory and the lane's
-  own copy of the mutable tables in device memory.
+  own copy of the mutable tables in device memory. It keeps no hint
+  table: before each remote insert its warps build ``raw_view``'s
+  order -> raw position table on the card, and one warp scans 128 raw
+  positions at a time against it (the window rule that
+  ``tests/test_torch_blocked_mixed.py`` models on the CPU).
 
 ``blocked_mixed_replay`` picks between them by the device of its inputs.
 Results are ``BlockedResult``s (``err`` row 2: an unknown order).
@@ -58,7 +62,7 @@ from .batch import (
     require_unfused,
 )
 from .blocked import (
-    KMAX_KERNEL,
+    KMAX_WARP_KERNEL,
     SMEM_LIMIT,
     BlockedResult,
     _BlockOps,
@@ -70,8 +74,8 @@ from .blocked import (
     add_counts,
     block_geometry,
     check_rows_limit,
-    kernel_smem_bytes,
     stage_columns,
+    table_ints,
 )
 from .span_arrays import make_flat_doc, u32_bits
 
@@ -316,17 +320,32 @@ def blocked_mixed_replay_plain(kind, pos, dlen, dtgt, olop, orop, rank,
 
 _KERNEL = "blocked_mixed_replay"
 _LAUNCH = "blocked_mixed_replay_launch"
-_ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+
+def kernel_smem_bytes(capacity: int, nbp: int, nb: int, otl: int):
+    """``(bytes, view_in_smem)``: the shared memory of one thread block of
+    ``blocked_mixed_replay_kernel`` (the document's ``capacity`` rows, the
+    block tables and the view's ``nb + 1`` block offsets) and whether the
+    view's 16-bit tables (``otl`` order positions, ``capacity`` raw
+    positions' rows) fit beside them; they go to device memory when they
+    do not."""
+    base = 4 * (capacity + table_ints(nbp, 0) + nb + 1)
+    view = 2 * (otl + capacity)
+    if base + view <= SMEM_LIMIT:
+        return base + view, True
+    return base, False
 
 
 def blocked_mixed_replay_cuda(kind, pos, dlen, dtgt, olop, orop, rank,
                               ilen, start, oll, orl, rkl, *, steps: int,
                               batch: int, capacity: int, block_k: int,
-                              lmax: int, order_rows: int):
+                              lmax: int, order_rows: int, stats=None):
     """Launch ``ops/csrc/blocked_mixed_replay.cu`` on PyTorch's current
     stream. Same arguments and results as ``blocked_mixed_replay_plain``.
     Refuses a document that does not fit one thread block's shared
-    memory."""
+    memory. ``stats``, an int32 ``[2, batch]`` tensor on the card,
+    receives each lane's conflict-scan steps and scan windows."""
     S, B, CAP, K = steps, batch, capacity, block_k
     NB, NBp = block_geometry(CAP, K)
     OTL = order_rows * LANES
@@ -334,26 +353,36 @@ def blocked_mixed_replay_cuda(kind, pos, dlen, dtgt, olop, orop, rank,
     cols = (kind, pos, dlen, dtgt, olop, orop, rank, ilen, start)
     _check_columns(cols, S, dev)
     _check_columns((oll, orl, rkl), OTL, dev)
-    _require(8 <= K <= KMAX_KERNEL,
-             f"block_k must lie in [8, {KMAX_KERNEL}] for the kernel")
-    smem = kernel_smem_bytes(CAP, NBp)
+    _require(8 <= K <= KMAX_WARP_KERNEL,
+             f"block_k must lie in [8, {KMAX_WARP_KERNEL}] for the kernel")
+    _require(stats is None or (stats.device == dev and stats.dtype == I32
+                               and stats.is_contiguous()
+                               and stats.shape == (2, B)),
+             f"stats must be a contiguous int32 [2, {B}] on the card")
+    smem, view_in_smem = kernel_smem_bytes(CAP, NBp, NB, OTL)
     _require(smem <= SMEM_LIMIT, (
         f"the blocked-mixed kernel keeps a document in shared memory: "
-        f"capacity {CAP} needs {smem} B (limit {SMEM_LIMIT})"))
+        f"capacity {CAP} needs {smem} B, past the {SMEM_LIMIT} B of shared "
+        f"memory a thread block may use"))
     ol = torch.zeros(S, B, dtype=I32, device=dev)
     orr = torch.zeros_like(ol)
     signed = torch.empty(CAP, B, dtype=I32, device=dev)
     rows = torch.empty(NBp, B, dtype=I32, device=dev)
     err = torch.zeros(8, B, dtype=I32, device=dev)
     tmp = torch.empty(B, CAP, dtype=I32, device=dev)  # rebalance scratch
-    # Each lane's own mutable tables: ordblk, oll, orl.
-    tables = torch.empty(3, B, OTL, dtype=I32, device=dev)
+    # Each lane's own mutable tables (oll, orl), and the view's 16-bit
+    # tables when they do not fit in shared memory.
+    tables = torch.empty(2, B, OTL, dtype=I32, device=dev)
+    view = (None if view_in_smem
+            else torch.empty(B, OTL + CAP, dtype=torch.int16, device=dev))
     fn = _kernels.function(_KERNEL, _LAUNCH, _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     tensors = (*cols, oll, orl, rkl, ol, orr, signed, rows, err, tmp,
                *tables)
-    code = fn(*(t.data_ptr() for t in tensors), S, B, CAP, K, NB, NBp, lmax,
-              DMAX, OTL, smem, stream)
+    code = fn(*(t.data_ptr() for t in tensors),
+              None if view is None else view.data_ptr(),
+              None if stats is None else stats.data_ptr(), S, B, CAP, K, NB,
+              NBp, lmax, DMAX, OTL, smem, stream)
     _kernels.check(_KERNEL, code)
     _kernels.count_launch(_KERNEL)
     return ol, orr, signed, rows, err

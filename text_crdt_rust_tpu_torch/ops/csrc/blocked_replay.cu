@@ -15,23 +15,22 @@
 // emits origin_left / origin_right. err row 0: the rebalance found
 // fill > K - lmax; row 1: a delete ran past the end.
 //
-// Mapping. One thread block per lane (document) of threads_for(K) threads
-// (2K/8 rounded to whole warps: 128 at K = 512); the TPU grid's
-// sequential chunk axis becomes a loop over all steps inside the thread
-// block. As the TPU kernel keeps the document in VMEM, the lane's CAP rows
-// live in shared memory (capacity 32,768 at 128 KB; the wrapper refuses a
-// document that does not fit and names the device-memory engine), with
-// the block tables. The rebalance goes through a lane-private scratch
-// in device memory. The rows are written to the [CAP, B] output once, at
-// the end.
+// Mapping. One thread block per lane (document) of kWarps warps; the TPU
+// grid's sequential chunk axis becomes a loop over all steps inside warp 0
+// (blocked_ops.cuh), the other warps helping only with the rebalance. As
+// the TPU kernel keeps the document in VMEM, the lane's CAP rows live in
+// shared memory (capacity 32,768 at 128 KB; the wrapper refuses a document
+// that does not fit and names the device-memory engine), with the block
+// tables. The rebalance goes through a lane-private scratch in device
+// memory. The rows are written to the [CAP, B] output once, at the end.
 //
 // What bounds it. Not bytes: the output and the origins are written once
 // (33 MB at the 19,149-patch prefix over 128 documents). The floor is the
-// serial chain of dependent steps, each a few block-wide scans and
-// reductions over one K-row block or one 2K-row window in shared memory,
-// and the O(capacity) rebalances. The design keeps each step inside one
-// thread block (no launches, no grid-wide synchronisation), keeps the rows
-// a step touches in shared memory, and runs all B chains at once.
+// serial chain of dependent steps, each a few warp-wide scans over a block
+// table and one or two K-row blocks in shared memory, and the O(capacity)
+// rebalances. The design keeps each step inside one warp (no barriers, no
+// launches), keeps the rows a step touches in shared memory, and runs all
+// B chains at once.
 
 #include <cuda_runtime.h>
 
@@ -41,7 +40,13 @@ namespace {
 
 using namespace blocked_ops;
 
-__global__ void __launch_bounds__(kThreads) blocked_replay_kernel(
+constexpr int kWarps = 8;
+
+struct Local : Blocked {
+  __device__ void do_job(int) { rebalance_pass(); }
+};
+
+__global__ void __launch_bounds__(kMaxThreads) blocked_replay_kernel(
     const int* __restrict__ pos, const int* __restrict__ dlen,
     const int* __restrict__ ilen, const int* __restrict__ start,  // [S]
     int* ol, int* orr,    // [S, B] u32 bits, zeroed by the caller
@@ -52,9 +57,8 @@ __global__ void __launch_bounds__(kThreads) blocked_replay_kernel(
     int S, int B, int CAP, int K, int NB, int NBp, int LMAX) {
   extern __shared__ int smem[];
   const int lane = blockIdx.x;
-  Blocked X;
-  X.t = threadIdx.x;
-  X.T = blockDim.x;
+  Local X;
+  X.init(threadIdx.x);
   X.B = B;
   X.lane = lane;
   X.K = K;
@@ -64,23 +68,32 @@ __global__ void __launch_bounds__(kThreads) blocked_replay_kernel(
   X.LMAX = LMAX;
   X.CAP = CAP;
   X.two_level = false;
+  X.cached = false;
   X.sig = smem;
-  X.rws = X.sig + CAP;
-  X.liv = X.rws + NBp;
-  X.red = X.liv + NBp;
-  X.supliv = nullptr;
+  place_tables(X, smem + CAP, 0);
   X.tmp = tmp + (size_t)lane * CAP;
   X.err = err;
-  zero(smem, CAP + 2 * NBp);
+  zero(smem, CAP + table_ints(NBp, 0));
   __syncthreads();
 
-  for (int k = 0; k < S; ++k) {
-    const int p = pos[k], d = dlen[k], il = ilen[k];
-    if (d > 0) X.local_delete(p, d);
-    if (il > 0) {
-      const size_t o = (size_t)k * B + lane;
-      X.local_insert(p, il, start[k], ol + o, orr + o);
+  if (X.warp == 0) {
+    Columns<4> cols{{pos, dlen, ilen, start}};
+    for (int k0 = 0; k0 < S; k0 += 32) {
+      cols.load(k0, S, 0);
+      const int n = min(32, S - k0);
+      for (int j = 0; j < n; ++j) {
+        const int p = cols.get(0, j), d = cols.get(1, j), il = cols.get(2, j);
+        const int st = cols.get(3, j);
+        if (d > 0) X.local_delete(p, d);
+        if (il > 0) {
+          const size_t o = (size_t)(k0 + j) * B + lane;
+          X.local_insert(X, p, il, st, ol + o, orr + o);
+        }
+      }
     }
+    X.end_jobs();
+  } else {
+    X.serve(X);
   }
   __syncthreads();
   for (int r = X.t; r < CAP; r += X.T)
@@ -104,7 +117,7 @@ extern "C" int blocked_replay_launch(
         smem);
     if (e != cudaSuccess) return (int)e;
   }
-  blocked_replay_kernel<<<B, threads_for(K), smem, (cudaStream_t)stream>>>(
+  blocked_replay_kernel<<<B, kWarps * 32, smem, (cudaStream_t)stream>>>(
       pos, dlen, ilen, start, ol, orr, signed_out, rows_out, err, tmp, S, B,
       CAP, K, NB, NBp, LMAX);
   return (int)cudaGetLastError();
