@@ -18,12 +18,15 @@
 5. At the main path's shapes: kernel against plain version once more,
    the plain version's time, and the kernel's median time over 3 runs
    after 1 warm-up (CUDA events), with ops/s and device steps.
-6. The mixed run replay (``rle_mixed_replay``) against its plain version
-   on the card, bit for bit on all eight outputs: a small delete storm
-   (K = 8), a mid storm (16 peers x 20 rounds, K = 32) with the fast
+6. The mixed run replay (``rle_mixed_replay``, A3) against its plain
+   version on the card, bit for bit on all eight outputs: a small delete
+   storm (K = 8), a mid storm (16 peers x 20 rounds, K = 32) with the fast
    YATA scan and with the serial walk alone, a two-peer merge with
-   splits and mid-run cursors, a local-only stream, and a capacity
-   overflow that must raise ``err[0]``.
+   splits and mid-run cursors, a local-only stream, a capacity
+   overflow that must raise ``err[0]``, a storm whose fast-scan windows
+   span many 8-row blocks, and the mid storm at K = 2,048 with the planes
+   in shared memory and in device memory; each case prints its windows'
+   blocks and its hint misses.
 7. Drives the storm path through its entry point, ``storm.run_storm()``:
    the config-4 insert storm and its delete-heavy variant (16 peers x
    200 rounds, 128 documents, K = 128), launch counts set to 0 just
@@ -33,7 +36,11 @@
 8. At the storm shapes, per variant: host set-up (generation and
    compile), kernel against plain version once more, the plain
    version's time, the kernel's median over 3 runs after 1 warm-up
-   (CUDA events), char-ops/s, device steps and the bound.
+   (CUDA events), char-ops/s, device steps, µs a step and the bound by
+   bytes and by operations; then the kernel's order lookups, hint misses,
+   fast-scan windows (blocks spanned, mean and most) and shares of its
+   cycles (``clock64``), its median at 128, 256 and 512 threads a thread
+   block, and the wrapper's choice with its reason.
 9. The per-lane mixed replays, un-blocked (``rle_lanes_mixed``) and
    blocked (``rle_lanes_mixed_blocked``), against their plain versions on
    the card, bit for bit on all 8 and 14 outputs: divergent tiebreaks,
@@ -90,7 +97,10 @@
    and three divergent groups at K = 8, fused prepend bursts at K = 64, a
    far-jump stream beside a raw random one at K = 512 (window misses), 20k
    prepends fused W = 64 at K = 2,048 (splits) with and without origins,
-   and both error rows.
+   both error rows, and the window ring's edge cases: splices and delete
+   splits on both sides of a block's middle (K = 64), and full tables
+   whose W = 3 and W = 7 prepends splice on past K rows with err row 0
+   raised; each case prints its splits and window loads.
 19. Drives kevin through its entry point, ``kevin.run_kevin()``:
    5,000,000 single-char prepends fused to 78,125 W = 64 steps, 128
    documents, K = 2,048, capacity 10,500,096 run rows (10.75 GB of
@@ -99,8 +109,11 @@
    flags are clear, lane 0 expands to orders ``n .. 1`` and every lane
    equals lane 0 over the used blocks. Host set-up (``compile_kevin``)
    apart; the kernel's median over 3 runs after 1 warm-up (CUDA events),
-   prepends/s, device steps, blocks in use, peak device memory above what
-   was held before, the bound. The planes are freed after it.
+   prepends/s, device steps, µs a step, blocks in use, peak device memory
+   above what was held before, the bound by bytes and by operations; its
+   splits, window loads and share of cycles in splits (``clock64``), its
+   median at 1, 2, 4, 8 and 16 warps a thread block and the wrapper's
+   choice with its reason. The planes are freed after it.
 20. The plain check at kevin's geometry: kernel against plain version, bit
    for bit, on all 5,000,000 prepends (78,125 steps, K = 2,048, W = 64,
    128 documents, origins kept so they are checked too), the plain
@@ -110,7 +123,8 @@
    way: it fails unless doc 0 reproduces ``endContent`` and every lane
    equals lane 0; then, at the same shapes, the kernel against its plain
    version and against A1's kernel on the same stream (lane 0's expanded
-   runs and origins), times and the bound.
+   runs and origins), times, µs a step and the bound, and the same warp
+   sweep as kevin's.
 22. The per-character block replay with the document in shared memory
    (``blocked_replay``, A8) against its plain version on the card (random
    streams with rebalances at K = 16 and 32, prepends, a delete across
@@ -291,6 +305,7 @@ def mixed_compare_cases(B, storm, randedit, TestPatch, np):
     txns, recv = randedit.make_storm(16, 20, 4, seed=7, del_prob=0.35)
     mid = storm.compile_storm_txns(txns, 4, 0.35)
     mid_cap = storm.storm_capacity(mid, 32)
+    recv_mid = recv.to_string()
     for fast in (True, False):
         cases.append((f"mid storm 16x20, {'fast' if fast else 'serial'} "
                       f"scan, B=32, K=32", mid,
@@ -311,7 +326,53 @@ def mixed_compare_cases(B, storm, randedit, TestPatch, np):
     full, _ = B.compile_local_patches([TestPatch(0, 0, "ab")] * 40, lmax=2)
     cases.append(("block table full -> err[0]", full,
                   dict(capacity=16, batch=8, block_k=8, chunk=64), None, 0))
+    # Fast-scan windows spanning many 8-row blocks, splits between them.
+    txns, recv = randedit.make_storm(16, 40, 4, seed=11, del_prob=0.35)
+    multi = storm.compile_storm_txns(txns, 4, 0.35)
+    cases.append(("multi-block windows, storm 16x40, B=32, K=8", multi,
+                  dict(capacity=storm.storm_capacity(multi, 8), batch=32,
+                       block_k=8, chunk=128), recv.to_string(), None))
+    # K = 2,048: the planes in shared memory (two of them), then in device
+    # memory (a capacity too large for it).
+    for cap, where in ((2048 * 8, "run planes in shared memory"),
+                       (2048 * 16, "planes in device memory")):
+        cases.append((f"mid storm 16x20, K=2048, {where}, B=32", mid,
+                      dict(capacity=cap, batch=32, block_k=2048, chunk=128),
+                      recv_mid, None))
     return cases
+
+
+def mixed_warps(torch, dev, RM, staged, shape, name, steps):
+    """A3 at a storm's shape: its order lookups, hint misses, fast-scan
+    windows and shares of cycles (``stats``), its median at 4, 8 and 16
+    warps a thread block and the wrapper's choice."""
+    Bn = shape["batch"]
+    stats = torch.zeros(Bn, RM.STATS, dtype=torch.int64, device=dev)
+    RM.rle_mixed_replay_cuda(*staged, **shape, stats=stats)
+    torch.cuda.synchronize()
+    v = [int(x) for x in stats[0]]
+    tot = max(v[9], 1)
+    log(f"{name}: {v[0]} order lookups, {v[1]} hint misses, {v[2]} fast "
+        f"scans whose windows span {v[3] / max(v[2], 1):.3f} blocks on "
+        f"average and {v[4]} at most, {v[5]} serial walks a lane; shares "
+        f"of the chain's {v[9]} cycles (clock64): window passes "
+        f"{v[6] / tot:.4f}, order lookups {v[7] / tot:.4f}, splices "
+        f"{v[8] / tot:.4f}")
+    times = {}
+    for warps in (4, 8, 16):
+        times[warps] = cuda_ms(torch, lambda: RM.rle_mixed_replay_cuda(
+            *staged, **shape, warps=warps), reps=3)
+        log(f"{name}: {warps * 32} threads a thread block, median "
+            f"{times[warps]:.3f} ms, {times[warps] / steps * 1e3:.3f} us a "
+            f"step")
+    choice = RM.pick_warps(Bn, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"{name}: the wrapper picks {choice * 32} threads: {Bn} lanes on "
+        f"{sms} SMs ({'one lane an SM, the helper warps cost no residency' if Bn <= sms else 'lanes share SMs'}); "
+        f"fastest measured {min(times, key=times.get) * 32} threads")
+    return {"threads": choice * 32, "ms_by_threads": {
+        w * 32: t for w, t in times.items()}, "hint_misses": v[1],
+        "window_blocks_mean": v[3] / max(v[2], 1), "window_blocks_max": v[4]}
 
 
 def all_lanes_equal(res) -> bool:
@@ -905,6 +966,16 @@ def hbm_compare_cases(B, randedit, TestPatch, np):
          [B.compile_local_patches([TestPatch(0, 0, "abc"),
                                    TestPatch(0, 10, "")], lmax=4)[0]],
          dict(capacity=32, block_k=8), 1),
+        # The window ring: splices and delete splits on both sides of a
+        # block's middle, and full tables whose W-row prepends splice on
+        # past K rows (the rows wrap) with err row 0 raised.
+        ("ring: mid-block splices on both sides, K=64",
+         [merged(randedit.random_patches(rng(21), 600)[0])],
+         dict(capacity=64 * 64, block_k=64), None),
+        ("ring: full table, W=3 prepends wrap, K=8 -> err[0]",
+         [prepends(300, 3)], dict(capacity=16, block_k=8), 0),
+        ("ring: full table, W=7 prepends wrap, K=16 -> err[0]",
+         [prepends(700, 7)], dict(capacity=32, block_k=16), 0),
     ]
 
 
@@ -939,7 +1010,9 @@ def hbm_phase(torch, dev, card, B, R, TH, kevin, northstar, randedit,
         kw.setdefault("batch", 32)
         rep = TH.make_replayer_rle_hbm(streams, device=dev, chunk=128, **kw)
         plain = TH.rle_hbm_replay_plain(*rep.staged, **rep.shape)
-        kern = TH.rle_hbm_replay_cuda(*rep.staged, **rep.shape)
+        G, Bn = rep.shape["groups"], rep.shape["batch"]
+        stats = torch.zeros(G, Bn, TH.STATS, dtype=torch.int64, device=dev)
+        kern = TH.rle_hbm_replay_cuda(*rep.staged, **rep.shape, stats=stats)
         torch.cuda.synchronize()
         err = max_abs_err(kern, plain)
         worst = max(worst, err)
@@ -947,7 +1020,9 @@ def hbm_phase(torch, dev, card, B, R, TH, kevin, northstar, randedit,
         flags_ok = flags == [0, 0] if expect is None else flags[expect] == 1
         ok = err == 0 and flags_ok
         log(f"compare hbm {label}: {[s.num_steps for s in streams]} steps, "
-            f"blocks in use {kern[6][:, 0, 0].tolist()}, max_abs_err {err}, "
+            f"blocks in use {kern[6][:, 0, 0].tolist()}, splits and window "
+            f"loads per group {stats[:, 0, :2].tolist()}, "
+            f"{TH.pick_warps(G * Bn, dev)} warps, max_abs_err {err}, "
             f"err flags {flags}, {'ok' if ok else 'FAILED'}")
         if not ok:
             raise AssertionError(f"hbm kernel disagrees on: {label}")
@@ -999,7 +1074,9 @@ def hbm_phase(torch, dev, card, B, R, TH, kevin, northstar, randedit,
         f"included); "
         f"{rate:.4g} prepends/s over 128 docs ({ks.n / (ms / 1e3):.4g} a "
         f"doc); {active} device steps, {ms / active * 1e3:.3f} us a step; "
-        f"bound {max(bb, bo):.4f} ms ({nbytes} B, {nops} ops); on {card}")
+        f"bound {max(bb, bo):.4f} ms ({nbytes} B, {nops} ops: "
+        f"{bb:.4f} ms by bytes, {bo:.4f} ms by operations); on {card}")
+    kwarps = hbm_warps(torch, dev, TH, rep, "kevin", active)
     del rep
 
     # -- the plain check at kevin's geometry ----------------------------------
@@ -1071,8 +1148,11 @@ def hbm_phase(torch, dev, card, B, R, TH, kevin, northstar, randedit,
     nrate = nrun.stream.n_patches * 1024 / (nms / 1e3)
     log(f"north star on A2 replay: median {nms:.3f} ms over 3 reps after 1 "
         f"warm-up (CUDA events); {nrate:.4g} patches/s ({nrun.stream.n_patches} x 1024 docs); {nact} device "
-        f"steps; plain version {nplain_ms:.1f} ms; bound "
-        f"{max(nbb, nbo):.4f} ms ({nb2} B, {no2} ops); on {card}")
+        f"steps, {nms / nact * 1e3:.3f} us a step; plain version "
+        f"{nplain_ms:.1f} ms; bound {max(nbb, nbo):.4f} ms ({nb2} B, {no2} "
+        f"ops: {nbb:.4f} ms by bytes, {nbo:.4f} ms by operations); on "
+        f"{card}")
+    nwarps = hbm_warps(torch, dev, TH, nrep, "north star on A2", nact)
     return {
         "name": "rle_hbm_replay",
         "route": "cuda",
@@ -1101,7 +1181,36 @@ def hbm_phase(torch, dev, card, B, R, TH, kevin, northstar, randedit,
         "northstar_ms": nms,
         "northstar_plain_ms": nplain_ms,
         "northstar_bound_ms": max(nbb, nbo),
+        "warps": {"kevin": kwarps, "northstar": nwarps},
     }
+
+
+def hbm_warps(torch, dev, TH, rep, label, steps):
+    """A2 at ``label``'s shape: its splits, window loads and share of
+    cycles in splits (``stats``), its median at 1, 2, 4, 8 and 16 warps a
+    thread block and the wrapper's choice. Returns the choice and times."""
+    G, Bn = rep.shape["groups"], rep.shape["batch"]
+    stats = torch.zeros(G, Bn, TH.STATS, dtype=torch.int64, device=dev)
+    TH.rle_hbm_replay_cuda(*rep.staged, **rep.shape, stats=stats)
+    torch.cuda.synchronize()
+    splits, loads, sc, tc = (int(v) for v in stats[0, 0])
+    log(f"{label}: {splits} splits and {loads} window loads a lane; "
+        f"{sc / max(tc, 1):.4f} of the chain's {tc} cycles in splits "
+        f"({sc / max(splits, 1):.0f} cycles a split, clock64)")
+    times = {}
+    for warps in (1, 2, 4, 8, 16):
+        times[warps] = cuda_ms(torch, lambda: TH.rle_hbm_replay_cuda(
+            *rep.staged, **rep.shape, warps=warps), reps=3)
+        log(f"{label}: {warps} warps ({32 * warps} threads) a thread block, "
+            f"median {times[warps]:.3f} ms, "
+            f"{times[warps] / steps * 1e3:.3f} us a step")
+    choice = TH.pick_warps(G * Bn, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"{label}: the wrapper picks {choice} warps: {G * Bn} chains on "
+        f"{sms} SMs ({'one chain an SM, the helper warps cost no residency' if G * Bn <= sms else 'chains share SMs, one warp each'}); "
+        f"fastest measured {min(times, key=times.get)} warps")
+    return {"choice": choice, "ms_by_warps": times, "splits": splits,
+            "window_loads": loads, "split_cycle_share": sc / max(tc, 1)}
 
 
 # -- the per-character block replays: A8, A9 and A10 -------------------------
@@ -1908,7 +2017,10 @@ def main() -> int:
             B, storm, randedit, TestPatch, np):
         rep = RM.make_replayer_rle_mixed(ops, device=dev, **kw)
         plain = RM.rle_mixed_replay_plain(*rep.staged, **rep.shape)
-        kern = RM.rle_mixed_replay_cuda(*rep.staged, **rep.shape)
+        mstats = torch.zeros(rep.shape["batch"], RM.STATS,
+                             dtype=torch.int64, device=dev)
+        kern = RM.rle_mixed_replay_cuda(*rep.staged, **rep.shape,
+                                        stats=mstats)
         torch.cuda.synchronize()
         err = max_abs_err(kern, plain)
         mworst = max(mworst, err)
@@ -1918,7 +2030,15 @@ def main() -> int:
                 R.rle_to_flat(ops, rep())) == want
         else:
             text_ok = flags[expect_err] == 1
-        log(f"compare mixed {label}: {ops.num_steps} steps, max_abs_err "
+        sv = mstats[0].tolist()
+        _, nsm = RM.kernel_smem_bytes(
+            rep.shape["block_k"], rep.shape["capacity"] // rep.shape["block_k"],
+            max(8, rep.shape["capacity"] // rep.shape["block_k"]),
+            rep.shape["capacity"])
+        log(f"compare mixed {label}: {ops.num_steps} steps, {nsm} of 5 "
+            f"planes in shared memory, fast scans {sv[2]} spanning "
+            f"{sv[3] / max(sv[2], 1):.2f} blocks on average and {sv[4]} at "
+            f"most, hint misses {sv[1]} of {sv[0]}, max_abs_err "
             f"{err}, err flags {flags}, "
             f"{'ok' if err == 0 and text_ok else 'FAILED'}")
         if err != 0 or not text_ok:
@@ -1985,14 +2105,16 @@ def main() -> int:
             f"{sst.steps} device steps "
             f"({mms * 1e3 / sst.steps:.2f} us each); plain version "
             f"{mplain_ms:.1f} ms; bound {max(b_ms, o_ms):.4f} ms "
-            f"({mbytes} B, {mops} ops); on {card}")
+            f"({mbytes} B, {mops} ops: {b_ms:.4f} ms by bytes, "
+            f"{o_ms:.4f} ms by operations); on {card}")
+        sweep = mixed_warps(torch, dev, RM, staged, shape, name, sst.steps)
         per_variant.append(dict(
             variant=name, steps=sst.steps, char_ops=sst.char_ops,
             batch=shape["batch"], capacity=shape["capacity"], ms=mms,
             plain_ms=mplain_ms, bound_ms=max(b_ms, o_ms),
             bound_by="bytes" if b_ms >= o_ms else "operations",
             bytes=mbytes, ops_lower_bound=mops, char_ops_per_s=rate,
-            setup_s=setup_s))
+            setup_s=setup_s, **sweep))
 
     m_bytes_ms = sum(v["bytes"] for v in per_variant) / PEAK_BYTES_PER_S * 1e3
     m_ops_ms = (sum(v["ops_lower_bound"] for v in per_variant)

@@ -81,6 +81,12 @@ def _storm(n_peers, rounds, run_len, del_prob):
     return storm.compile_storm_txns(txns, run_len, del_prob)
 
 
+def _storm_seed(n_peers, rounds, run_len, del_prob, seed):
+    txns, _ = randedit.make_storm(n_peers, rounds, run_len, seed=seed,
+                                  del_prob=del_prob)
+    return storm.compile_storm_txns(txns, run_len, del_prob)
+
+
 def _two_peer():
     txns, _ = randedit.make_two_peer_merge(400)
     table = TB.AgentTable(sorted({t.id.agent for t in txns}))
@@ -101,6 +107,14 @@ MIXED_CASES = {
                               dict(capacity=512, block_k=8)),
     "capacity-overflow": lambda: (
         _compile([TestPatch(0, 0, "ab")] * 40), dict(capacity=16, block_k=8)),
+    # Windows spanning many blocks of 8 rows, splits between lookups.
+    "storm-k8-multiblock": lambda: (
+        _storm_seed(16, 40, 4, 0.35, 11), dict(capacity=2224, block_k=8)),
+    # K = 2,048: the run planes in shared memory, then in device memory.
+    "mid-storm-k2048": lambda: (_storm(16, 20, 4, 0.35),
+                                dict(capacity=2048 * 8, block_k=2048)),
+    "mid-storm-k2048-device-planes": lambda: (
+        _storm(16, 20, 4, 0.35), dict(capacity=2048 * 16, block_k=2048)),
 }
 
 
@@ -292,6 +306,15 @@ HBM_CASES = {
     "bad-delete": lambda: (
         [_compile([TestPatch(0, 0, "abc"), TestPatch(0, 10, "")])],
         dict(capacity=32, block_k=8)),
+    # The window ring: inserts and deletes on both sides of a block's
+    # middle (each side's move is the shorter one), and full tables whose
+    # W-row prepends splice on past K rows with err row 0 raised.
+    "mid-block-k64": lambda: ([_random(21, 600)],
+                              dict(capacity=64 * 64, block_k=64)),
+    "full-table-w3-k8": lambda: ([_kevin(300, 3)],
+                                 dict(capacity=16, block_k=8)),
+    "full-table-w7-k16": lambda: ([_kevin(700, 7)],
+                                  dict(capacity=32, block_k=16)),
 }
 
 
@@ -311,8 +334,9 @@ def test_hbm_kernel_matches_plain(card, name):
         assert k.dtype == p.dtype and k.shape == p.shape
         assert torch.equal(k, p)
     flags = kern[7][:2].amax(dim=1).tolist()
-    assert flags == {"capacity-overflow": [1, 0],
-                     "bad-delete": [0, 1]}.get(name, [0, 0])
+    assert flags == {"capacity-overflow": [1, 0], "bad-delete": [0, 1],
+                     "full-table-w3-k8": [1, 0],
+                     "full-table-w7-k16": [1, 0]}.get(name, [0, 0])
 
 
 # -- the per-character blocked replays (A8, A9, A10) --------------------------

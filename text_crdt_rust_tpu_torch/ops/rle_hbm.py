@@ -27,8 +27,8 @@ Two implementations of the replay, held against each other bit for bit:
   write-back window (``ensure``), its next-slot peek read from the planes
   and its lane-max control scalars;
 - ``ops/csrc/rle_hbm_replay.cu``: the hand-written CUDA kernel, one thread
-  block per (group, lane), the cached block and the slot tables in shared
-  memory.
+  block per (group, lane), the cached block (a ring) and the slot tables
+  in shared memory, one warp running the step chain.
 
 ``rle_hbm_replay`` picks between them by the device of its inputs.
 
@@ -46,6 +46,7 @@ result; ``expand_runs`` needs none.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -69,8 +70,11 @@ I32 = torch.int32
 
 SUP = 64  # logical slots per super-segment (level-2 live index fan-out)
 
-#: Most rows a thread block of the kernel holds (512 threads x 4 rows).
+#: Most rows of the kernel's window.
 KMAX_KERNEL = 2048
+#: Per (group, lane) counters of ``stats``: splits, window loads, cycles in
+#: splits, cycles of the whole chain (``clock64``).
+STATS = 4
 #: Shared memory one thread block may use on an H100 (232,448 bytes).
 SMEM_LIMIT = 232448
 #: Plane rows compared at a time by ``lanes_equal`` (bounds its temporary).
@@ -323,22 +327,37 @@ def rle_hbm_replay_plain(pos, dlen, ilen, start, wcol, *, groups: int,
 
 _KERNEL = "rle_hbm_replay"
 _LAUNCH = "rle_hbm_replay_launch"
-_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+
+
+def pick_warps(chains: int, dev) -> int:
+    """Warps of a thread block: warp 0 runs the step chain, the others help
+    with the passes over whole blocks (a split's copy, the window's
+    reload). 16 while the (group, lane) chains fit one to an SM, where the
+    helpers cost no residency; else 1, so that many chains share an SM
+    (``chip_smoke.py`` times 1-16 warps: kevin's 128 chains run fastest at
+    16, the north star's 1,024 at 1)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return 16 if chains <= sms else 1
 
 
 def kernel_smem_bytes(block_k: int, nbl: int, nsupp: int) -> int:
     """Shared memory of one thread block, passed to the launcher: the
     window and two scratch rows (K each, twice), the three slot tables,
-    ``supliv`` and 40 ints of reduction and broadcast scratch (the layout
-    of ``rle_hbm_replay_kernel``'s ``smem``)."""
+    ``supliv`` and 40 ints of job arguments and results (the layout of
+    ``rle_hbm_replay_kernel``'s ``smem``)."""
     return 4 * (4 * block_k + 3 * nbl + nsupp + 40)
 
 
 def rle_hbm_replay_cuda(pos, dlen, ilen, start, wcol, *, groups: int,
                         steps: int, batch: int, capacity: int, block_k: int,
-                        wmax: int, store_origins: bool = True):
+                        wmax: int, store_origins: bool = True,
+                        warps: Optional[int] = None, stats=None):
     """Launch ``ops/csrc/rle_hbm_replay.cu`` on PyTorch's current stream.
-    Same arguments and results as ``rle_hbm_replay_plain``."""
+    Same arguments and results as ``rle_hbm_replay_plain``. ``warps``
+    sizes the thread block (1-16; by default ``pick_warps``);
+    ``stats``, an int64 ``[groups, batch, STATS]`` tensor on the card,
+    receives each chain's counters."""
     G, S, B, CAP, K = groups, steps, batch, capacity, block_k
     NB, NSUP, NBL, NSUPp = table_geometry(CAP, K)
     dev = pos.device
@@ -348,6 +367,15 @@ def rle_hbm_replay_cuda(pos, dlen, ilen, start, wcol, *, groups: int,
                  "op columns must be contiguous int32 [G*S] on one device")
     _require(8 <= K <= KMAX_KERNEL,
              f"block_k must lie in [8, {KMAX_KERNEL}] for the kernel")
+    if warps is None:
+        warps = pick_warps(G * B, dev)
+    _require(1 <= warps <= 16, "warps must lie in [1, 16]")
+    _require(stats is None or (stats.device == dev
+                               and stats.dtype == torch.int64
+                               and stats.is_contiguous()
+                               and stats.shape == (G, B, STATS)),
+             f"stats must be a contiguous int64 [{G}, {B}, {STATS}] on the "
+             f"card")
     smem = kernel_smem_bytes(K, NBL, NSUPp)
     _require(smem <= SMEM_LIMIT,
              f"the slot tables of {NB} blocks and a {K}-row window need "
@@ -356,8 +384,9 @@ def rle_hbm_replay_cuda(pos, dlen, ilen, start, wcol, *, groups: int,
     fn = _kernels.function(_KERNEL, _LAUNCH, _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(*(t.data_ptr() for t in (pos, dlen, ilen, start, wcol)),
-              *(t.data_ptr() for t in outs), G, S, B, CAP, K, NB, NBL, NSUP,
-              wmax, int(store_origins), smem, stream)
+              *(t.data_ptr() for t in outs),
+              None if stats is None else stats.data_ptr(), G, S, B, CAP, K,
+              NB, NBL, NSUP, wmax, int(store_origins), warps, smem, stream)
     _kernels.check(_KERNEL, code)
     _kernels.count_launch(_KERNEL)
     return outs

@@ -32,7 +32,7 @@ Two implementations, held against each other bit for bit:
   ``[CAP, B]`` planes with lane-max control scalars, as the Pallas body
   ``_mixed_rle_kernel`` is;
 - ``ops/csrc/rle_mixed_replay.cu``: the hand-written CUDA kernel, one
-  thread block per lane.
+  thread block per lane, one warp running the step chain.
 
 ``rle_mixed_replay`` picks between them by the device of its inputs (the
 plain version for CPU tensors, the kernel for CUDA tensors; it never
@@ -45,6 +45,7 @@ miss), all int32.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -685,16 +686,53 @@ def rle_mixed_replay_plain(kind, pos, dlen, dtgt, olop, orop, rank, ilen,
 
 _KERNEL = "rle_mixed_replay"
 _LAUNCH = "rle_mixed_replay_launch"
-_ARGTYPES = ([ctypes.c_void_p] * 29 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 11
              + [ctypes.c_void_p])
+#: Most rows a block of the kernel holds.
+KMAX_KERNEL = 2048
+#: Shared memory one thread block may use on an H100 (232,448 bytes).
+SMEM_LIMIT = 232448
+#: Per-lane counters of ``stats``: order lookups, hint misses, fast scans,
+#: window blocks summed over the scans, the most blocks of one window,
+#: serial walks, and the cycles (``clock64``) in the fast scans' window
+#: passes, in order lookups, in splices and in the whole chain.
+STATS = 10
+
+
+def pick_warps(lanes: int, dev) -> int:
+    """Warps of a thread block: warp 0 runs the step chain, the others help
+    with the passes over a whole plane (a hint miss's search, the remote
+    delete's flip). 16 while the lanes fit one to an SM, where the helpers
+    cost no residency; else 4 (``chip_smoke.py`` times 4, 8 and 16 warps
+    on both config-4 storms, 128 lanes: 16 is fastest)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return 16 if lanes <= sms else 4
+
+
+def kernel_smem_bytes(block_k: int, nb: int, nbl: int, capacity: int):
+    """``(bytes, planes)`` of one thread block: the six slot tables, two
+    K-row delete scratch rows, the per-block flip counts and 40 ints of
+    job arguments and results, plus as many of the five planes a splice
+    moves as fit beside them: all five, else the run planes (``ordp``,
+    ``lenp``), else none (the layout of ``rle_mixed_replay_kernel``'s
+    ``smem``)."""
+    tables = 4 * (6 * nbl + 2 * block_k + nb + 40)
+    for planes in (5, 2, 0):
+        if tables + 4 * planes * capacity <= SMEM_LIMIT:
+            return tables + 4 * planes * capacity, planes
+    return tables, 0
 
 
 def rle_mixed_replay_cuda(kind, pos, dlen, dtgt, olop, orop, rank, ilen,
                           start, oll, orl, rkl, *, steps: int, batch: int,
                           capacity: int, block_k: int, order_rows: int,
-                          fast: bool):
+                          fast: bool, warps: Optional[int] = None,
+                          stats=None):
     """Launch ``ops/csrc/rle_mixed_replay.cu`` on PyTorch's current
-    stream. Same arguments and results as ``rle_mixed_replay_plain``."""
+    stream. Same arguments and results as ``rle_mixed_replay_plain``.
+    ``warps`` sizes the thread block (1-16; by default ``pick_warps``);
+    ``stats``, an int64 ``[batch, STATS]`` tensor on the card, receives
+    each lane's counters."""
     S, B, CAP, K = steps, batch, capacity, block_k
     NB = CAP // K
     NBL = max(8, NB)
@@ -709,7 +747,20 @@ def rle_mixed_replay_cuda(kind, pos, dlen, dtgt, olop, orop, rank, ilen,
         _require(t.device == dev and t.dtype == I32 and t.is_contiguous()
                  and t.shape == (OTL,),
                  "order tables must be contiguous int32 [OT*128]")
-    _require(8 <= K <= 1024, "block_k must lie in [8, 1024] for the kernel")
+    _require(8 <= K <= KMAX_KERNEL,
+             f"block_k must lie in [8, {KMAX_KERNEL}] for the kernel")
+    if warps is None:
+        warps = pick_warps(B, dev)
+    _require(1 <= warps <= 16, "warps must lie in [1, 16]")
+    _require(stats is None or (stats.device == dev
+                               and stats.dtype == torch.int64
+                               and stats.is_contiguous()
+                               and stats.shape == (B, STATS)),
+             f"stats must be a contiguous int64 [{B}, {STATS}] on the card")
+    smem, nsm = kernel_smem_bytes(K, NB, NBL, CAP)
+    _require(smem <= SMEM_LIMIT,
+             f"the slot tables of {NB} blocks need {smem} B of shared "
+             f"memory (limit {SMEM_LIMIT}); raise block_k")
     ol = torch.zeros(S, B, dtype=I32, device=dev)
     orr = torch.zeros_like(ol)
     ordp = torch.empty(CAP, B, dtype=I32, device=dev)
@@ -718,16 +769,19 @@ def rle_mixed_replay_cuda(kind, pos, dlen, dtgt, olop, orop, rank, ilen,
     rows_out = torch.empty_like(blk_out)
     meta_out = torch.empty(1, 8, B, dtype=I32, device=dev)
     err = torch.zeros(8, B, dtype=I32, device=dev)
-    # Lane-major working planes (ordp, lenp, olp, orp, rkp, lpp) and the
-    # lane-private mutable order tables (ordblk, oll, orl).
-    planes = torch.empty(6, B, CAP, dtype=I32, device=dev)
+    # Lane-major working planes in device memory (those of ordp, lenp,
+    # olp, orp, rkp that do not fit in shared memory; at least one, so
+    # that the pointer is valid) and the lane-private mutable order tables
+    # (ordblk, oll, orl).
+    planes = torch.empty(max(5 - nsm, 1), B, CAP, dtype=I32, device=dev)
     tables = torch.empty(3, B, OTL, dtype=I32, device=dev)
     fn = _kernels.function(_KERNEL, _LAUNCH, _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     tensors = (*cols, oll, orl, rkl, ol, orr, ordp, lenp, blk_out, rows_out,
-               meta_out, err, *planes, *tables)
-    code = fn(*(t.data_ptr() for t in tensors), S, B, CAP, K, NB, NBL, OTL,
-              int(fast), stream)
+               meta_out, err, planes, tables)
+    code = fn(*(t.data_ptr() for t in tensors),
+              None if stats is None else stats.data_ptr(), S, B, CAP, K, NB,
+              NBL, OTL, int(fast), nsm, warps, smem, stream)
     _kernels.check(_KERNEL, code)
     _kernels.count_launch(_KERNEL)
     return ol, orr, ordp, lenp, blk_out, rows_out, meta_out, err
