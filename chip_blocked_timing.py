@@ -1,15 +1,15 @@
-"""Time the redesigned kernels (A2, A3, A8, A9, A10) on one NVIDIA card.
+"""Time the redesigned kernels (A2-A4, A6, A8-A10) on one NVIDIA card.
 
-    python3 chip_blocked_timing.py [tests] [a10] [a8] [a9] [a2] [a3]
-        [--reps N]
+    python3 chip_blocked_timing.py [tests] [a10] [a8] [a9] [a2] [a3] [a4]
+        [a6] [--reps N]
 
 A quicker loop than ``chip_smoke.py`` while redesigning those kernels:
 it builds them (printing ptxas's registers and spills), then runs the
 named phases, all by default:
 
-- ``tests``: the card tests of the five kernels
-  (``tests/test_torch_cuda.py -k "blocked or hbm or mixed_kernel"``,
-  against their plain versions);
+- ``tests``: the card tests of the seven kernels
+  (``tests/test_torch_cuda.py -k "blocked or hbm or mixed_kernel or
+  lanes"``, against their plain versions);
 - ``a10``: the config-4 insert storm (16 peers x 200 rounds, 128
   documents) through ``run_storm(engine="blocked-mixed")``, its scan
   steps and windows, and the kernel's median time;
@@ -24,7 +24,18 @@ named phases, all by default:
 - ``a3``: both config-4 storms (128 documents, K = 128) through
   ``run_storm()``, then each replay's median time at 4, 8 and 16 warps
   (128, 256, 512 threads), its hint misses and the blocks its fast-scan
-  windows span.
+  windows span;
+- ``a4``: config 5 (2,048 documents x 8 chunks x 100 local patches)
+  through ``run_stream_5(engine="unblocked")``, the chain of 8 A4
+  launches against its plain chain on all documents, then the chain's
+  median time at 1, 2, 4 and 8 documents (warps) a thread block, with
+  each launch geometry (layout, blocks an SM holds, waves) and the
+  columns' extents;
+- ``a6``: config 5r (2,048 documents x 8 chunks x 100 patches) through
+  ``run_stream(engine="unblocked")``, the chain of 8 A6 launches against
+  its plain chain on every 64th document, then the chain's median time
+  at 1, 2, 4 and 8 warps, the geometry, the extents and the YATA probes
+  per remote insert (mean and most).
 
 Times are medians of ``--reps`` runs (3) after 1 warm-up, CUDA events.
 The plain versions are not timed here; ``chip_smoke.py`` holds every
@@ -166,8 +177,148 @@ def phase_a3(torch, dev, reps):
                    run.stream.steps, (4, 8, 16), reps)
 
 
+def run_chain(fn, runners, **kw):
+    """The chunk launches of a stream, the state grown between them.
+    Returns every chunk's outputs."""
+    outs, state = [], None
+    for run in runners:
+        ini = run.initial() if state is None else run.grow(state)
+        out = fn(*run.staged, *ini, *getattr(run, "deltas", ()), **run.shape,
+                 **kw)
+        outs.append(out)
+        state = out[2:-1]
+    return outs
+
+
+def chain_equal(torch, kern, plain, stride=1) -> bool:
+    return all(torch.equal(k[:, ::stride].cpu(), p.cpu())
+               for ko, po in zip(kern, plain) for k, p in zip(ko, po))
+
+
+def doc_subset(stream, s5, stride: int):
+    """A config-5 or 5r stream cut to every ``stride``-th document."""
+    from text_crdt_rust_tpu_torch.ops import batch as B
+
+    return type(s5)(**{
+        **vars(s5), "n_docs": len(range(0, s5.n_docs, stride)),
+        "stacked": [B.OpTensors(**{k: v[:, ::stride]
+                                   for k, v in vars(st).items()})
+                    for st in s5.stacked]})
+
+
+def lanes_sweep(torch, dev, wrapper, runners, label, real_steps, reps,
+                kernel, n_docs, sub_runners):
+    """Time a chain of un-blocked lane launches at 1, 2, 4 and 8 warps, with
+    each launch geometry of its last chunk, and on every 16th document
+    alone (``sub_runners``: how fast one document's chain runs with an SM
+    nearly to itself), and print its counters."""
+    from text_crdt_rust_tpu_torch.ops import rle_lanes as RL
+
+    ms = cuda_ms(torch, lambda: run_chain(wrapper, runners), reps)
+    print(f"{label}: {ms:.3f} ms, {ms * 1e3 / real_steps:.3f} us a real "
+          f"step", flush=True)
+    ms = cuda_ms(torch, lambda: run_chain(wrapper, sub_runners), reps)
+    print(f"{label}: every 16th document alone ({len(range(0, n_docs, 16))} "
+          f"documents, about one an SM): {ms:.3f} ms, "
+          f"{ms * 1e3 / real_steps:.3f} us a real step", flush=True)
+    if not takes(wrapper, "warps"):
+        return
+    last = runners[-1]
+    n_stats = sys.modules[wrapper.__module__].STATS
+    stats = torch.zeros(n_docs, n_stats, dtype=torch.int64, device=dev)
+    state = None
+    for run in runners:
+        ini = run.initial() if state is None else run.grow(state)
+        kw = dict(stats=stats) if run is last else {}
+        out = wrapper(*run.staged, *ini, *getattr(run, "deltas", ()),
+                      **run.shape, **kw)
+        state = out[2:-1]
+    torch.cuda.synchronize()
+    ext = stats[:, 1].float()
+    print(f"{label}: last chunk (capacity {last.capacity}): extent at its "
+          f"end mean {ext.mean():.1f}, most {int(ext.max())} rows; at its "
+          f"start mean {stats[:, 0].float().mean():.1f}; "
+          f"{int(stats[:, -1].sum())} of {n_docs} columns end in shared "
+          f"memory", flush=True)
+    if n_stats >= 5:
+        ins, probes = int(stats[:, 2].sum()), int(stats[:, 3].sum())
+        print(f"{label}: last chunk: {ins} remote inserts, "
+              f"{probes / max(ins, 1):.3f} YATA probes an insert on "
+              f"average, {int(stats[:, 4].max())} at most", flush=True)
+    for warps in (1, 2, 4, 8):
+        geo = RL.launch_geometry(kernel, n_docs, last.capacity, warps, dev)
+        ms = cuda_ms(torch, lambda: run_chain(wrapper, runners, warps=warps),
+                     reps)
+        print(f"{label}: {warps} warps, {ms:.3f} ms, "
+              f"{ms * 1e3 / real_steps:.3f} us a real step; last chunk "
+              f"{geo}", flush=True)
+    print(f"{label}: the wrapper's choice: {RL.WARPS} warps, "
+          f"{RL.launch_geometry(kernel, n_docs, last.capacity, RL.WARPS, dev)}"
+          , flush=True)
+
+
+def phase_a4(torch, dev, reps):
+    from text_crdt_rust_tpu_torch import stream
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    from text_crdt_rust_tpu_torch.ops import rle_lanes as RL
+
+    s5 = stream.make_stream_5()
+    _kernels.reset_launches()
+    run = stream.run_stream_5(stream=s5, device=dev, engine="unblocked")
+    torch.cuda.synchronize()
+    print(f"A4 config 5: launches {dict(_kernels.launches)}, texts ok "
+          f"{run.ok}", flush=True)
+    del run
+    runners = stream.stream_replayers_5(s5, engine="unblocked", device=dev)
+    kern = run_chain(RL.lanes_replay_cuda, runners)
+    plain = run_chain(RL.lanes_replay_plain, runners)
+    ok = chain_equal(torch, kern, plain)
+    print(f"A4 config 5: the chain equals its plain chain on all "
+          f"{s5.n_docs} documents: {ok}", flush=True)
+    del kern, plain
+    lanes_sweep(torch, dev, RL.lanes_replay_cuda, runners, "A4 config 5",
+                sum(s5.real_steps), reps, "rle_lanes", s5.n_docs,
+                stream.stream_replayers_5(doc_subset(stream, s5, 16),
+                                          engine="unblocked", device=dev))
+    if not ok:
+        raise AssertionError("A4 disagrees with its plain version")
+
+
+def phase_a6(torch, dev, reps):
+    from text_crdt_rust_tpu_torch import stream
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as RLM
+
+    s5 = stream.make_stream_5r()
+    _kernels.reset_launches()
+    run = stream.run_stream(stream=s5, device=dev, engine="unblocked")
+    torch.cuda.synchronize()
+    print(f"A6 5r: launches {dict(_kernels.launches)}, sampled docs ok "
+          f"{run.ok}", flush=True)
+    del run
+    runners = stream.make_stream_replayers(s5, engine="unblocked",
+                                           device=dev)
+    stride = 64
+    sub = doc_subset(stream, s5, stride)
+    kern = run_chain(RLM.lanes_mixed_replay_cuda, runners)
+    plain = run_chain(RLM.lanes_mixed_replay_plain,
+                      stream.make_stream_replayers(sub, engine="unblocked",
+                                                   device=dev))
+    ok = chain_equal(torch, kern, plain, stride)
+    print(f"A6 5r: the chain equals its plain chain on every {stride}th "
+          f"document ({sub.n_docs}): {ok}", flush=True)
+    del kern, plain
+    lanes_sweep(torch, dev, RLM.lanes_mixed_replay_cuda, runners, "A6 5r",
+                sum(s5.real_steps), reps, "rle_lanes_mixed", s5.n_docs,
+                stream.make_stream_replayers(doc_subset(stream, s5, 16),
+                                             engine="unblocked",
+                                             device=dev))
+    if not ok:
+        raise AssertionError("A6 disagrees with its plain version")
+
+
 def main(argv=None) -> int:
-    phases = ("tests", "a10", "a8", "a9", "a2", "a3")
+    phases = ("tests", "a10", "a8", "a9", "a2", "a3", "a4", "a6")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="*", help=f"any of {phases} (all)")
     ap.add_argument("--reps", type=int, default=3)
@@ -194,17 +345,20 @@ def main(argv=None) -> int:
         flush=True)
     reports = _kernels.build(["blocked_replay", "blocked_hbm_replay",
                               "blocked_mixed_replay", "rle_hbm_replay",
-                              "rle_mixed_replay"])
+                              "rle_mixed_replay", "rle_lanes",
+                              "rle_lanes_mixed"])
     for name, report in reports.items():
         print(name, [line.strip() for line in report.splitlines()
-                     if "registers" in line or "spill" in line], flush=True)
+                     if "registers" in line or "spill" in line
+                     or "entry function" in line], flush=True)
     dev = torch.device("cuda")
 
     if "tests" in args.phases:
         r = subprocess.run(
             [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
              "-q", "-x", "tests/test_torch_cuda.py", "-k",
-             "blocked or hbm or mixed_kernel", "-p", "no:cacheprovider"],
+             "blocked or hbm or mixed_kernel or lanes", "-p",
+             "no:cacheprovider"],
             capture_output=True, text=True)
         print(r.stdout[-3000:], r.stderr[-2000:], flush=True)
         if r.returncode != 0:
@@ -271,6 +425,10 @@ def main(argv=None) -> int:
         phase_a2(torch, dev, args.reps)
     if "a3" in args.phases:
         phase_a3(torch, dev, args.reps)
+    if "a4" in args.phases:
+        phase_a4(torch, dev, args.reps)
+    if "a6" in args.phases:
+        phase_a6(torch, dev, args.reps)
     return 0
 
 

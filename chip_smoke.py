@@ -46,7 +46,16 @@
    the card, bit for bit on all 8 and 14 outputs: divergent tiebreaks,
    two-peer merges, fragmented and double deletes, local and remote ops in
    one step, K = 8 storms (splits, stale hints, forward hops, the plane
-   fallback), a warm-start chain growing its capacity, the error rows.
+   fallback), a warm-start chain growing its capacity, the error rows,
+   W = 5 bursts whose splices wrap a 16-row column (err[0], ``rows`` past
+   the capacity) and 32,768-row columns, of which the un-blocked kernel
+   keeps the first 29,056 rows in shared memory (all a thread block
+   may hold). Then the un-blocked kernel's own cases: warm starts whose
+   documents keep their last two rows past ``rows`` (a 5r stream and a
+   local one), and 11 documents at 1, 2, 4 and 8 documents a thread
+   block, with the columns in shared memory, in device memory from the
+   start and in a window of rows that half of them outgrow mid-launch,
+   each with its launch geometry (rows on chip, blocks an SM, waves).
 10. Drives the config-5r path through its entry point,
    ``stream.run_stream()``: 2,048 documents x 8 chunks x 100 patches,
    K = 64, a checkpoint every 4 chunks, launch counts set to 0 just before
@@ -64,16 +73,27 @@
    of all 2,048 takes about 20 minutes.
 12. The un-blocked kernel on the same stream: against its plain version
    on every 8th document (256) and against the blocked kernel on all
-   2,048 (expanded lanes, origins, tables).
+   2,048 (expanded lanes, origins, tables); its chain's median, µs a
+   real step and bound (by bytes and by operations); on the last chunk
+   the columns' extent and the YATA probes per remote insert (mean,
+   most); the chain's median at 1, 2, 4 and 8 documents a thread block
+   with each launch geometry, and the wrapper's choice with its reason;
+   then ``stream.run_stream(engine="unblocked")`` with the launch counts
+   set to 0 just before and read just after (once per chunk, every
+   chunk's flags clear, the sampled documents equal the oracle).
 13. ``examples/sync_stream`` through the un-blocked kernel (128 documents
-   x 3 chunks x 15 patches per peer, every chunk oracle-checked).
+   x 3 chunks x 15 patches per peer, every chunk oracle-checked), counted;
+   its three launches are kept and timed again (CUDA events).
 14. The per-lane local replays, un-blocked (``rle_lanes``) and blocked
    (``rle_lanes_blocked``), against their plain versions on the card, bit
    for bit on all 6 and 9 outputs: divergent documents (the CPU tests'
    seeds 7 and 42, K = 16 and 8, splits), pure inserts and deletes with
    the SHARED_CUM hoist, fused W-row bursts, both error rows with their
-   post-error state, and a warm-start chain growing its capacity 64 ->
-   128 -> 192 at K = 8.
+   post-error state, W = 5 bursts wrapping a 16-row column, 32,768-row
+   columns, and a warm-start chain growing its capacity 64 -> 128 -> 192
+   at K = 8; then the un-blocked kernel's own cases as in phase 9 (rows
+   past ``rows`` on a config-5 stream, 1-8 documents a thread block in
+   the three layouts).
 15. Drives the config-5 path through its entry point,
    ``stream.run_stream_5()``: 2,048 documents x 8 chunks x 100 local
    patches, K = 64, capacity growing to 1,664 run rows, a checkpoint every
@@ -91,7 +111,10 @@
    ``run_stream_5(engine="unblocked")`` with the launch counts set to 0
    just before and read just after, against its plain version on all
    2,048 documents, and against the blocked kernel (origins every chunk,
-   every document); its chain's median time and bound.
+   every document); its chain's median time, µs a real step and bound
+   (by bytes and by operations), the columns' extent on the last chunk,
+   and the chain's median at 1, 2, 4 and 8 documents a thread block with
+   each launch geometry and the wrapper's choice.
 18. The HBM-plane run replay (``rle_hbm_replay``, A2) against its plain
    version on the card, bit for bit on all eight outputs: random streams
    and three divergent groups at K = 8, fused prepend bursts at K = 64, a
@@ -421,7 +444,17 @@ def worst_err(got, want, names) -> int:
     return worst
 
 
-def lanes_cases(B, randedit, common, Patch, ListCRDT, export):
+def burst_ops(B, randedit, np):
+    """Backwards insert bursts of two documents, fused W = 5 rows a step."""
+    bursts = B.stack_ops([B.compile_local_patches(
+        randedit.prepend_bursts(np.random.default_rng(s), 12)[0], lmax=16,
+        dmax=None, fuse_w=5)[0] for s in (3, 4)])
+    if B.fused_width(bursts) <= 2:
+        raise AssertionError("the burst streams must fuse wider than 2")
+    return bursts
+
+
+def lanes_cases(B, randedit, common, Patch, ListCRDT, export, np):
     """(label, stacked per-lane ops, un-blocked capacity, blocked shape,
     expected error row or None) of the per-lane kernels' small phase,
     built by the port alone."""
@@ -533,6 +566,14 @@ def lanes_cases(B, randedit, common, Patch, ListCRDT, export):
         ("bad local delete -> err[1]", bad, 16, tiny, 1),
         ("missing delete target -> err[1]", missing_target, 16, tiny, 1),
         ("missing origin -> err[2]", missing_origin, 16, tiny, 2),
+        # The splices of W = 5 bursts wrap past 16 rows: err[0], the
+        # inserts still land, `rows` passes the capacity.
+        ("W = 5 bursts wrap 16 rows -> err[0]", burst_ops(B, randedit, np),
+         16, dict(capacity=16, block_k=16), 0),
+        # 32,768 rows a document do not fit a thread block's shared
+        # memory: the un-blocked kernel keeps the first 29,056 there.
+        ("32,768-row columns (29,056 rows in shared memory), K = 1,024",
+         mixed, 32768, dict(capacity=32768, block_k=1024), None),
     ], two_peer
 
 
@@ -611,10 +652,7 @@ def local_lanes_cases(B, randedit, Patch, np):
 
     pure = stack([randedit.continue_patches(random.Random(1000 + d), "", 120,
                                             0.45)[0] for d in range(8)])
-    bursts = stack([randedit.prepend_bursts(np.random.default_rng(s), 12)[0]
-                    for s in (3, 4)], lmax=16, fuse_w=5)
-    if B.fused_width(bursts) <= 2:
-        raise AssertionError("the burst streams must fuse wider than 2")
+    bursts = burst_ops(B, randedit, np)
     busy = []
     for k in range(24):
         busy.append(Patch(0, 0, "ab"))
@@ -635,6 +673,11 @@ def local_lanes_cases(B, randedit, Patch, np):
          dict(capacity=16, block_k=8), 0),
         ("delete off the end -> err[1]", bad, 16,
          dict(capacity=16, block_k=8), 1),
+        ("W = 5 bursts wrap 16 rows -> err[0]", bursts, 16,
+         dict(capacity=16, block_k=16), 0),
+        ("32,768-row columns (29,056 rows in shared memory), K = 1,024",
+         divergent(7, docs=4), 32768, dict(capacity=32768, block_k=1024),
+         None),
     ]
 
 
@@ -655,6 +698,162 @@ def local_bound(staged, capacity, blocked, K, NBT):
         words += 2 * Bn                  # rows in and out
     active = int(((dlen > 0) | (ilen > 0)).sum())
     return 4 * words, active * (K + NBT), active
+
+
+def unblocked_edges(torch, dev, mixed, RL, RLM, stream):
+    """The un-blocked kernel's own edge cases against its plain version,
+    bit for bit: chunk 2 of a small stream from a warm start whose
+    documents keep their last two rows past ``rows`` (nonzero rows past
+    the rows in use; for A6 a 5r stream and a local one), and 11
+    documents at 1, 2, 4 and 8 documents a thread block, with the columns
+    in shared memory (the wrapper's choice), in device memory from the
+    start (``rows_on_chip=0``) and in a window of rows that half of them
+    outgrow mid-launch. Returns the worst difference."""
+    name = "A6" if mixed else "A4"
+    kern = RLM.lanes_mixed_replay_cuda if mixed else RL.lanes_replay_cuda
+    plain = RLM.lanes_mixed_replay_plain if mixed else RL.lanes_replay_plain
+    names = A6_OUTPUTS if mixed else A4_OUTPUTS
+    n_stats = RLM.STATS if mixed else RL.STATS
+    s5 = stream.make_stream_5(n_docs=4, chunks=2, steps_per_chunk=50,
+                              seed_base=500)
+    local = (stream.stream_replayers_5(s5, engine="unblocked", device=dev)
+             if not mixed else
+             [RLM.make_replayer_lanes_mixed(st, capacity=cap, chunk=16,
+                                            order_capacity=2048, device=dev)
+              for st, cap in zip(s5.stacked,
+                                 stream.stream_capacities_5(s5))])
+    streams = [("config-5 stream", local)]
+    if mixed:
+        streams.append(("5r stream", stream.make_stream_replayers(
+            stream.make_stream_5r(n_docs=3, chunks=2, steps_per_chunk=40,
+                                  seed_base=900),
+            engine="unblocked", device=dev)))
+    worst = 0
+    for label, (warm, run) in streams:
+        state = list(plain(*warm.staged, *warm.initial(),
+                           *getattr(warm, "deltas", ()),
+                           **warm.shape)[2:-1])
+        state[2] = torch.clamp(state[2] - 2, min=0)
+        ini = run.grow(tuple(state))
+        args = (*run.staged, *ini, *getattr(run, "deltas", ()))
+        stats = torch.zeros(ini[0].shape[1], n_stats, dtype=torch.int64,
+                            device=dev)
+        k = kern(*args, **run.shape, stats=stats)
+        torch.cuda.synchronize()
+        e = worst_err(k, plain(*args, **run.shape), names)
+        stale = int((stats[:, 0] > ini[2][0].long()).sum())
+        worst = max(worst, e)
+        log(f"compare {name} rows past rows ({label}, chunk 2 of 2): "
+            f"{stale} of {ini[0].shape[1]} documents start with nonzero "
+            f"rows past rows; extents {stats[:, 0].tolist()} -> "
+            f"{stats[:, 1].tolist()}; max_abs_err {e}, "
+            f"{'ok' if e == 0 and stale > 0 else 'FAILED'}")
+        if e != 0 or stale == 0:
+            raise AssertionError(f"{name} disagrees with rows past rows")
+    if mixed:
+        ops = stream.make_stream_5r(n_docs=11, chunks=1, steps_per_chunk=40,
+                                    seed_base=920).stacked[0]
+        run = RLM.make_replayer_lanes_mixed(ops, capacity=512, chunk=16,
+                                            device=dev)
+    else:
+        ops = stream.make_stream_5(n_docs=11, chunks=1, steps_per_chunk=50,
+                                   seed_base=520).stacked[0]
+        run = RL.make_replayer_lanes(ops, capacity=512, chunk=16, device=dev)
+    args = (*run.staged, *run.initial(), *getattr(run, "deltas", ()))
+    want = plain(*args, **run.shape)
+    stats = torch.zeros(11, n_stats, dtype=torch.int64, device=dev)
+    kern(*args, **run.shape, stats=stats)
+    torch.cuda.synchronize()
+    # A window of rows that half the columns outgrow mid-launch.
+    window = sorted(stats[:, 1].tolist())[5]
+    for warps in (1, 2, 4, 8):
+        for rows in (None, 0, window):
+            stats.zero_()
+            k = kern(*args, **run.shape, warps=warps, rows_on_chip=rows,
+                     stats=stats)
+            torch.cuda.synchronize()
+            e = worst_err(k, want, names)
+            worst = max(worst, e)
+            ends = stats[:, 1].tolist()
+            flags = stats[:, -1].tolist()
+            on_chip = sum(flags)
+            geo = RL.launch_geometry("rle_lanes_mixed" if mixed
+                                     else "rle_lanes", 11, run.capacity,
+                                     warps, dev, rows)
+            # A column moves before a step that could pass the window, so
+            # one that ends in shared memory ends within it.
+            ok = e == 0 and (
+                on_chip == 11 if rows is None else
+                on_chip == 0 if rows == 0 else
+                on_chip < 11 and all(x <= rows for x, f in zip(ends, flags)
+                                     if f))
+            log(f"compare {name} at {warps} documents a thread block, "
+                f"{geo}: extents {sorted(ends)}, {on_chip} of 11 columns "
+                f"end in shared memory; max_abs_err {e}, "
+                f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees at {warps} warps, "
+                                     f"{rows} rows on chip")
+    return worst
+
+
+def lanes_sweep(torch, dev, RL, kern, runners, kernel, n_docs, label):
+    """At a main path's shapes: each document's counters on the chain's
+    last chunk (the column's extent; for A6 the YATA probes per remote
+    insert), the chain's median at 1, 2, 4 and 8 documents a thread
+    block with the last chunk's launch geometry, and the wrapper's
+    choice. Returns them for the kernels line."""
+    import sys as _sys
+
+    n_stats = _sys.modules[kern.__module__].STATS
+    stats = torch.zeros(n_docs, n_stats, dtype=torch.int64, device=dev)
+    last = runners[-1]
+    state = None
+    for run in runners:
+        ini = run.initial() if state is None else run.grow(state)
+        kw = dict(stats=stats) if run is last else {}
+        state = kern(*run.staged, *ini, *getattr(run, "deltas", ()),
+                     **run.shape, **kw)[2:-1]
+    torch.cuda.synchronize()
+    out = dict(extent_mean=float(stats[:, 1].float().mean()),
+               extent_most=int(stats[:, 1].max()),
+               capacity=last.capacity,
+               columns_on_chip=int(stats[:, -1].sum()))
+    msg = (f"{label}: last chunk (capacity {last.capacity}): the columns' "
+           f"extent at its end mean {out['extent_mean']:.1f}, most "
+           f"{out['extent_most']} rows; {out['columns_on_chip']} of "
+           f"{n_docs} columns end in shared memory")
+    if n_stats >= 5:
+        ins, probes = int(stats[:, 2].sum()), int(stats[:, 3].sum())
+        out.update(remote_inserts=ins,
+                   probes_mean=probes / max(ins, 1),
+                   probes_most=int(stats[:, 4].max()))
+        msg += (f"; {ins} remote inserts, {out['probes_mean']:.3f} YATA "
+                f"probes an insert on average, {out['probes_most']} at most")
+    log(msg)
+    times = {}
+    for warps in (1, 2, 4, 8):
+        times[warps] = cuda_ms(torch, lambda: chain(
+            lambda *a, **k: kern(*a, **k, warps=warps), runners,
+            lambda o: o[2:-1]), reps=3)
+        geo = RL.launch_geometry(kernel, n_docs, last.capacity, warps, dev)
+        log(f"{label}: {warps} documents a thread block: median "
+            f"{times[warps]:.3f} ms; last chunk {geo}")
+    choice = RL.WARPS
+    geo = RL.launch_geometry(kernel, n_docs, last.capacity, choice, dev)
+    log(f"{label}: the wrapper's choice: {choice} document a thread block "
+        f"(rle_lanes.WARPS: residency per SM is set by the columns' "
+        f"shared memory whatever their grouping) and "
+        f"{geo['rows_on_chip']} rows of each column in shared memory "
+        f"(rle_lanes.pick_rows_on_chip: all rows where every document "
+        f"then fits the card at once, else the share that does), "
+        f"{geo['waves']} wave(s) of {geo['blocks_per_sm']} blocks an SM "
+        f"at the last chunk")
+    out.update(warps_ms={str(w): t for w, t in times.items()},
+               warps=choice, waves=geo["waves"],
+               blocks_per_sm=geo["blocks_per_sm"],
+               rows_on_chip=geo["rows_on_chip"])
+    return out
 
 
 def local_lanes_phase(torch, dev, B, RL, randedit, Patch, np):
@@ -863,8 +1062,11 @@ def config5_phase(torch, dev, card, stream, RL, _kernels, a4_worst,
     bb4, bo4 = bytes4 / PEAK_BYTES_PER_S * 1e3, ops4 / PEAK_OPS_PER_S * 1e3
     log(f"5 un-blocked chain: median {ms4:.3f} ms over 3 reps after 1 "
         f"warm-up (CUDA events); {s5.n_patches / (ms4 / 1e3):.4g} "
-        f"patches/s; plain chain {plain4_ms:.1f} ms; bound "
-        f"{max(bb4, bo4):.4f} ms; on {card}")
+        f"patches/s; {ms4 * 1e3 / sum(s5.real_steps):.3f} us a real step; "
+        f"plain chain {plain4_ms:.1f} ms; bound {max(bb4, bo4):.4f} ms "
+        f"({bb4:.4f} ms by bytes, {bo4:.4f} ms by operations); on {card}")
+    sweep4 = lanes_sweep(torch, dev, RL, RL.lanes_replay_cuda, runners4,
+                         "rle_lanes", s5.n_docs, "5 un-blocked chain")
 
     a4_line = {
         "name": "rle_lanes",
@@ -883,9 +1085,12 @@ def config5_phase(torch, dev, card, stream, RL, _kernels, a4_worst,
         "plain_docs": s5.n_docs,
         "bound_ms": max(bb4, bo4),
         "bound_by": "bytes" if bb4 >= bo4 else "operations",
+        "bound_bytes_ms": bb4,
+        "bound_ops_ms": bo4,
         "library_ms": None,
         "bytes": bytes4,
         "ops_lower_bound": ops4,
+        **sweep4,
     }
     a5_line = {
         "name": "rle_lanes_blocked",
@@ -1908,7 +2113,8 @@ def main() -> int:
         f"{sorted(_kernels.sources())}")
     for name, rep in sorted(reports.items()):
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 log(f"  ptxas {name}: {line.strip()}")
 
     # -- kernel vs plain version on the card, small shapes ----------------
@@ -2140,7 +2346,7 @@ def main() -> int:
     # -- the per-lane mixed replays against their plain versions, small --
     a6_worst = a7_worst = 0
     cases, two_peer = lanes_cases(B, randedit, common, TestPatch, ListCRDT,
-                                  export_txns_since)
+                                  export_txns_since, np)
     for label, ops, cap6, shape7, expect in cases:
         r6 = RLM.make_replayer_lanes_mixed(ops, capacity=cap6, chunk=16,
                                            order_capacity=256, device=dev)
@@ -2210,6 +2416,8 @@ def main() -> int:
             f"{'ok' if e == 0 and flags == [0, 0, 0] else 'FAILED'}")
         if e != 0 or flags != [0, 0, 0]:
             raise AssertionError(f"{name} kernel disagrees on the chain")
+    a6_worst = max(a6_worst, unblocked_edges(torch, dev, True, RL, RLM,
+                                             stream))
 
     # -- the 5r path, counted ------------------------------------------------
     t0 = time.perf_counter()
@@ -2346,22 +2554,57 @@ def main() -> int:
     bb6, bo6 = bytes6 / PEAK_BYTES_PER_S * 1e3, ops6 / PEAK_OPS_PER_S * 1e3
     log(f"5r un-blocked chain: median {ms6:.3f} ms over 3 reps after 1 "
         f"warm-up (CUDA events); {s5.char_ops / (ms6 / 1e3):.4g} "
-        f"char-ops/s; bound {max(bb6, bo6):.4f} ms; on {card}")
+        f"char-ops/s; {ms6 * 1e3 / sum(s5.real_steps):.3f} us a real step; "
+        f"bound {max(bb6, bo6):.4f} ms ({bb6:.4f} ms by bytes, {bo6:.4f} ms "
+        f"by operations); on {card}")
     del k6, k7
+    sweep6 = lanes_sweep(torch, dev, RL, RLM.lanes_mixed_replay_cuda,
+                         runners6, "rle_lanes_mixed", s5.n_docs,
+                         "5r un-blocked chain")
+    _kernels.reset_launches()
+    run6 = stream.run_stream(stream=s5, device=dev, engine="unblocked")
+    torch.cuda.synchronize()
+    l6_5r = _kernels.launches.get("rle_lanes_mixed", 0)
+    log(f"5r path, un-blocked engine: run_stream(engine='unblocked') "
+        f"launches {dict(_kernels.launches)}, chunks checked "
+        f"{run6.stats.checked}, sampled docs == oracle {run6.ok}")
+    if l6_5r != s5.chunks or run6.stats.checked != s5.chunks or not run6.ok:
+        raise AssertionError(f"5r path (un-blocked) failed: launches "
+                             f"{l6_5r}, oracle {run6.ok}")
+    del run6
 
     # -- the sync_stream example through the un-blocked kernel ---------------
+    # Each launch's inputs are kept (the kernel writes only new tensors) so
+    # that the same launches can be timed after the counted run.
+    launched = []
+    a6_kernel = RLM.lanes_mixed_replay_cuda
+
+    def keep(*a, **k):
+        launched.append((a, k))
+        return a6_kernel(*a, **k)
+
+    RLM.lanes_mixed_replay_cuda = keep
     _kernels.reset_launches()
     t0 = time.perf_counter()
-    counts = sync_stream.run(docs=128, chunks=3, ops_per_chunk=15,
-                             device=dev, log=lambda m: log("  " + m))
-    torch.cuda.synchronize()
+    try:
+        counts = sync_stream.run(docs=128, chunks=3, ops_per_chunk=15,
+                                 device=dev, log=lambda m: log("  " + m))
+        torch.cuda.synchronize()
+    finally:
+        RLM.lanes_mixed_replay_cuda = a6_kernel
     sync_wall = time.perf_counter() - t0
     l6 = _kernels.launches.get("rle_lanes_mixed", 0)
-    log(f"sync_stream: {counts}, launches {dict(_kernels.launches)}, host "
-        f"wall {sync_wall:.2f} s")
-    if l6 < counts["chunks"]:
+    sync_launches = dict(_kernels.launches)
+    sync_ms = cuda_ms(torch, lambda: [a6_kernel(*a, **k)
+                                      for a, k in launched], reps=3)
+    log(f"sync_stream: {counts}, launches {sync_launches}, host "
+        f"wall {sync_wall:.2f} s; its {len(launched)} A6 launches again: "
+        f"median {sync_ms:.3f} ms over 3 reps after 1 warm-up (CUDA "
+        f"events); on {card}")
+    if l6 < counts["chunks"] or len(launched) != l6:
         raise AssertionError(f"sync_stream ran the un-blocked kernel {l6} "
                              f"times for {counts['chunks']} chunks")
+    del launched
 
     a6_line = {
         "name": "rle_lanes_mixed",
@@ -2370,8 +2613,12 @@ def main() -> int:
         "replaces": "text_crdt_rust_tpu/ops/rle_lanes_mixed.py:105",
         "jax_counterpart":
             "text_crdt_rust_tpu/ops/rle_lanes_mixed.py::_mixed_lanes_kernel",
-        "launches": l6,
-        "launches_path": "examples/sync_stream (128 docs x 3 chunks)",
+        "launches": l6_5r,
+        "launches_path": "stream.run_stream(engine='unblocked') (config "
+                         "5r, one per chunk, where it is timed); "
+                         "examples/sync_stream (128 docs x 3 chunks)",
+        "launches_sync_stream": l6,
+        "sync_stream_ms": sync_ms,
         "matches_plain": a6_worst == 0,
         "max_abs_err": a6_worst,
         # Timed at the 5r shapes: the chain of 8 chunk launches.
@@ -2380,9 +2627,12 @@ def main() -> int:
         "plain_docs": sub6.n_docs,
         "bound_ms": max(bb6, bo6),
         "bound_by": "bytes" if bb6 >= bo6 else "operations",
+        "bound_bytes_ms": bb6,
+        "bound_ops_ms": bo6,
         "library_ms": None,
         "bytes": bytes6,
         "ops_lower_bound": ops6,
+        **sweep6,
     }
     a7_line = {
         "name": "rle_lanes_mixed_blocked",
@@ -2417,6 +2667,8 @@ def main() -> int:
     # -- the per-lane local replays and the config-5 path ----------------------
     a4_worst, a5_worst = local_lanes_phase(torch, dev, B, RL, randedit,
                                            TestPatch, np)
+    a4_worst = max(a4_worst, unblocked_edges(torch, dev, False, RL, RLM,
+                                             stream))
     a4_line, a5_line = config5_phase(torch, dev, card, stream, RL, _kernels,
                                      a4_worst, a5_worst)
     # -- the HBM-plane replay: kevin and the north star on A2 ----------------

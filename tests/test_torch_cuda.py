@@ -162,6 +162,35 @@ def _out_of_blocks():
         TB.compile_local_patches(busy, lmax=2)[0]])
 
 
+def _stream5(n_docs=4, chunks=2, steps=60):
+    """Two chunks of config-5 local streams: the first is the warm start."""
+    from text_crdt_rust_tpu_torch import stream
+
+    return stream.make_stream_5(n_docs=n_docs, chunks=chunks,
+                                steps_per_chunk=steps).stacked
+
+
+def _stream5r():
+    """Two chunks of config-5r remote streams (three documents)."""
+    from text_crdt_rust_tpu_torch import stream
+
+    return stream.make_stream_5r(n_docs=3, chunks=2, steps_per_chunk=40,
+                                 seed_base=900).stacked
+
+
+def _warm_state(make, plain_fn, warm_ops, card, stale, **kw):
+    """The state after ``warm_ops`` (plain version on the card), as a
+    warm start; ``stale`` leaves each un-blocked document's last two rows
+    past ``rows`` (nonzero rows past the rows in use)."""
+    rep = make(warm_ops, chunk=16, device=card, **kw)
+    state = list(plain_fn(*rep.staged, *rep.initial(),
+                          *getattr(rep, "deltas", ()), **rep.shape)[2:-1])
+    if stale:
+        state[2] = torch.clamp(state[2] - 2, min=0)
+    return tuple(state)
+
+
+# name -> (stacked streams, shapes[, the warm-start stream, stale rows])
 LANES_CASES = {
     "storms-k8": lambda: (_lanes([randedit.make_storm(
         3, 5, 2, seed=50 + k, del_prob=0.35)[0] for k in range(3)]),
@@ -172,6 +201,20 @@ LANES_CASES = {
     "local-k8": lambda: (_local_lanes(), dict(capacity=512, block_k=8)),
     "out-of-blocks": lambda: (_out_of_blocks(),
                               dict(capacity=8, block_k=8)),
+    # W = 5 bursts overflow 16 rows: the splices wrap, err[0] is raised
+    # and the inserts still land.
+    "overflow-wrap": lambda: (_bursts(), dict(capacity=16, block_k=16)),
+    # 32,768 rows a document do not fit a thread block's shared memory:
+    # the un-blocked kernel keeps the first 29,056 there.
+    "capacity-past-shared-memory": lambda: (
+        _local_lanes(), dict(capacity=32768, block_k=1024)),
+    "stale-rows": lambda: (_stream5()[1], dict(capacity=256, block_k=8),
+                           _stream5()[0], True),
+    # Remote ops on rows past `rows` (a stream whose walks all end: the
+    # CPU tests check that it never stalls).
+    "stale-rows-remote": lambda: (_stream5r()[1],
+                                  dict(capacity=256, block_k=8),
+                                  _stream5r()[0], True),
 }
 
 
@@ -180,19 +223,24 @@ LANES_CASES = {
 def test_lanes_kernel_matches_plain(card, name, blocked):
     from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as RLM
 
-    ops, shape = LANES_CASES[name]()
+    ops, shape, *warm = LANES_CASES[name]()
     if blocked:
-        rep = RLM.make_replayer_lanes_mixed_blocked(
-            ops, chunk=16, device=card, **shape)
+        make = RLM.make_replayer_lanes_mixed_blocked
+        kw = dict(shape)
         kern_fn, plain_fn = (RLM.lanes_mixed_blocked_replay_cuda,
                              RLM.lanes_mixed_blocked_replay_plain)
         kname = "rle_lanes_mixed_blocked"
     else:
-        rep = RLM.make_replayer_lanes_mixed(
-            ops, capacity=shape["capacity"], chunk=16, device=card)
+        make = RLM.make_replayer_lanes_mixed
+        kw = dict(capacity=shape["capacity"])
         kern_fn, plain_fn = (RLM.lanes_mixed_replay_cuda,
                              RLM.lanes_mixed_replay_plain)
         kname = "rle_lanes_mixed"
+    init = None
+    if warm:
+        init = _warm_state(make, plain_fn, warm[0], card,
+                           warm[1] and not blocked, **kw)
+    rep = make(ops, chunk=16, device=card, init=init, **kw)
     args = (*rep.staged, *rep.initial(), *rep.deltas)
     plain = plain_fn(*args, **rep.shape)
     before = _kernels.launches.get(kname, 0)
@@ -231,13 +279,18 @@ def _bad_deletes():
                                   TestPatch(2, 3, "")], lmax=8)[0]])
 
 
-# name -> (stacked local streams, capacity, block_k)
+# name -> (stacked local streams, capacity, block_k[, the warm-start
+# stream, stale rows])
 LOCAL_LANES_CASES = {
     "random-k8": lambda: (_local_streams((1, 2, 3, 4, 5)), 512, 8),
     "random-k16": lambda: (_local_streams((6, 7, 8), 120), 512, 16),
     "bursts-k16": lambda: (_bursts(), 256, 16),
     "out-of-blocks": lambda: (_out_of_blocks(), 8, 8),
     "bad-delete": lambda: (_bad_deletes(), 16, 8),
+    "overflow-wrap": lambda: (_bursts(), 16, 16),
+    "capacity-past-shared-memory": lambda: (_local_streams((1, 2, 3)),
+                                            32768, 1024),
+    "stale-rows": lambda: (_stream5()[1], 256, 8, _stream5()[0], True),
 }
 
 
@@ -246,18 +299,22 @@ LOCAL_LANES_CASES = {
 def test_local_lanes_kernel_matches_plain(card, name, blocked):
     from text_crdt_rust_tpu_torch.ops import rle_lanes as TL
 
-    ops, capacity, block_k = LOCAL_LANES_CASES[name]()
+    ops, capacity, block_k, *warm = LOCAL_LANES_CASES[name]()
     if blocked:
-        rep = TL.make_replayer_lanes_blocked(
-            ops, capacity=capacity, block_k=block_k, chunk=16, device=card)
+        make, kw = TL.make_replayer_lanes_blocked, dict(block_k=block_k)
         kern_fn, plain_fn = (TL.lanes_blocked_replay_cuda,
                              TL.lanes_blocked_replay_plain)
         kname = "rle_lanes_blocked"
     else:
-        rep = TL.make_replayer_lanes(ops, capacity=capacity, chunk=16,
-                                     device=card)
+        make, kw = TL.make_replayer_lanes, {}
         kern_fn, plain_fn = TL.lanes_replay_cuda, TL.lanes_replay_plain
         kname = "rle_lanes"
+    init = None
+    if warm:
+        init = _warm_state(make, plain_fn, warm[0], card,
+                           warm[1] and not blocked, capacity=capacity, **kw)
+    rep = make(ops, capacity=capacity, chunk=16, device=card, init=init,
+               **kw)
     args = (*rep.staged, *rep.initial())
     plain = plain_fn(*args, **rep.shape)
     before = _kernels.launches.get(kname, 0)
@@ -267,6 +324,58 @@ def test_local_lanes_kernel_matches_plain(card, name, blocked):
     for k, p in zip(kern, plain):
         assert k.dtype == p.dtype and k.shape == p.shape
         assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_unblocked_lanes_kernel_warps(card, warps, mixed):
+    """The un-blocked kernels at 1-8 documents a thread block against their
+    plain versions, with each column in shared memory (the wrapper's
+    choice), in device memory from the start (``rows_on_chip=0``) and in
+    a window of rows that the larger columns outgrow mid-launch (their
+    extents end at 11-16 rows and at 59-75 rows)."""
+    from text_crdt_rust_tpu_torch.ops import rle_lanes as TL
+    from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as RLM
+
+    if mixed:
+        ops = _lanes([randedit.make_storm(3, 5, 2, seed=60 + k,
+                                          del_prob=0.35)[0]
+                      for k in range(11)])
+        rep = RLM.make_replayer_lanes_mixed(ops, capacity=256, chunk=16,
+                                            device=card)
+        args = (*rep.staged, *rep.initial(), *rep.deltas)
+        kern_fn, plain_fn = (RLM.lanes_mixed_replay_cuda,
+                             RLM.lanes_mixed_replay_plain)
+        n_stats, window = RLM.STATS, 14
+    else:
+        ops = _local_streams(range(20, 31))
+        rep = TL.make_replayer_lanes(ops, capacity=256, chunk=16,
+                                     device=card)
+        args = (*rep.staged, *rep.initial())
+        kern_fn, plain_fn = TL.lanes_replay_cuda, TL.lanes_replay_plain
+        n_stats, window = TL.STATS, 68
+    plain = plain_fn(*args, **rep.shape)
+    B = ops.kind.shape[1]
+    for rows in (None, 0, window):
+        stats = torch.zeros(B, n_stats, dtype=torch.int64, device=card)
+        kern = kern_fn(*args, **rep.shape, warps=warps, rows_on_chip=rows,
+                       stats=stats)
+        torch.cuda.synchronize()
+        for k, p in zip(kern, plain):
+            assert k.dtype == p.dtype and k.shape == p.shape
+            assert torch.equal(k, p)
+        on_chip = stats[:, -1].tolist()
+        ends = stats[:, 1].tolist()
+        assert bool((stats[:, 1] >= stats[:, 0]).all())
+        if rows is None:
+            assert all(on_chip)
+        elif rows == 0:
+            assert not any(on_chip)
+        else:
+            # A column moves before a step that could pass the window, so
+            # one that ends in shared memory ends within it, and some move.
+            assert all(e <= window for e, on in zip(ends, on_chip) if on)
+            assert sum(on_chip) < B
 
 
 def _kevin(n, fuse_w):

@@ -3,7 +3,7 @@
 Each ``ops/csrc/<name>.cu`` exposes a plain C interface and is compiled
 by ``nvcc`` into its own shared library under the package's ``_build/``
 directory, named by a hash of the source and of the shared headers
-(``ops/csrc/*.cuh``) so an edited kernel is rebuilt.
+(``ops/csrc/*.cuh``) it includes, so an edited kernel is rebuilt.
 The libraries are loaded with ``ctypes``; pointers and the CUDA stream
 pass as ``c_void_p``. Nothing is built when this module is imported: a
 kernel is built at its first launch, or by ``build()`` (all sources at
@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -51,11 +52,25 @@ def nvcc() -> str:
     return path
 
 
+def _headers(src: Path):
+    """The shared headers (``csrc/*.cuh``) that ``src`` includes, directly
+    or through another header, sorted."""
+    seen, todo = set(), [src]
+    while todo:
+        text = todo.pop().read_text()
+        for name in re.findall(r'^#include\s+"([^"]+\.cuh)"', text, re.M):
+            hdr = CSRC / name
+            if hdr not in seen and hdr.exists():
+                seen.add(hdr)
+                todo.append(hdr)
+    return sorted(seen)
+
+
 def _lib_path(src: Path) -> Path:
     """The library of ``src``, named by a hash of the source and of the
-    shared headers (``csrc/*.cuh``) it may include."""
+    shared headers it includes."""
     h = hashlib.sha256(src.read_bytes())
-    for hdr in sorted(CSRC.glob("*.cuh")):
+    for hdr in _headers(src):
         h.update(hdr.read_bytes())
     return BUILD / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 

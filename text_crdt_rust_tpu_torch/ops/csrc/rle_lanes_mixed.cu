@@ -12,248 +12,170 @@
 // What it computes. B different documents each replay their own op stream
 // (kind LOCAL, REMOTE_INS or REMOTE_DEL, one op per document per step).
 // A document is one column of RLE runs, ordp = ±(start_order+1) and lenp =
-// length, packed at the front (rows in use: `rows`). Every op works on the
-// whole column: order lookups are one range test over all rows, positions
-// come from a prefix sum, splices shift the rows past the edit by a
-// circular roll (as pltpu.roll does: a column that overflows its capacity
-// wraps, and the capacity flag says so). By-order tables oll/orl are
-// carried across launches (the prefill delta merges in at step 0), rkl is
-// read-only. Remote inserts integrate by the run-level YATA walk; remote
-// deletes are one interval pass that flips full covers and splits the at
-// most two partial ends. err row 0: capacity; row 1: a bad delete; row 2:
-// an order miss.
+// length, packed at the front (rows in use: `rows`). Order lookups are a
+// range test over the rows, positions come from prefix sums, splices shift
+// the rows past the edit as a circular roll does (pltpu.roll: a column
+// that overflows its capacity wraps, and the capacity flag says so). By-
+// order tables oll/orl are carried across launches (the prefill delta
+// merges in at step 0), rkl is read-only. Remote inserts integrate by the
+// run-level YATA walk; remote deletes are one interval pass that flips
+// full covers and splits the at most two partial ends. err row 0:
+// capacity; row 1: a bad delete; row 2: an order miss.
 //
-// Mapping. One warp per document, four documents per thread block. The
+// Mapping. One warp per document, `warps` documents per thread block. The
 // TPU kernel's jnp.any gates over a tile of documents only skip work whose
 // effect on a document is masked off, so each document run alone gives the
 // same bits (the CPU tests hold a B-lane replay against B one-lane
 // replays); its SHARED_CUM hoist is a cost gate that changes no result and
-// is not needed here. The columns and their per-row temporaries (live
-// counts, prefix sums, covered ranges, shift copies) live in device memory
-// as lane-major working planes; the public [CAP, B] planes are transposed
-// in and out around the replay. By-order tables are read by direct index,
-// clamped into [0, OCAP) as t_read clamps.
+// is not needed here. The public [CAP, B] planes are transposed into
+// lane-major planes around the replay; each warp keeps the first sh rows
+// of its document's column in shared memory for the whole launch
+// (lanes_column.cuh: no per-row temporaries, passes over the column's
+// extent, splices in place); a column whose extent passes sh works in the
+// lane-major planes, with the same passes. The YATA walk moves
+// forward from one probe's run to the next instead of counting the column
+// again, and finds each probe's origin-left row by a ballot search that
+// stops at the first hit. By-order tables stay [OCAP, B] in device memory,
+// read by direct index, clamped into [0, OCAP) as t_read clamps.
 //
-// What bounds it. The serial chain of steps per document, each a few
-// passes over the document's whole column (CAP rows, 32 per warp
-// instruction). This engine is the cross-check of the blocked one and the
-// engine of the sync demo; the blocked kernel is the one sized for speed.
+// What bounds it. The serial chain of steps per document: passes over the
+// document's extent in shared memory and, per YATA probe, the origin
+// tables' reads from device memory and the search for the probe's left
+// origin.
 
 #include <cuda_runtime.h>
 
-#include "lanes_mixed.cuh"
+#include "lanes_column.cuh"
 
 namespace {
 
-using namespace lanes;
+using namespace lanecol;
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kMaxWarps = 8;
+// extent at the start and at the end, remote inserts, YATA probes, the most
+// probes of one insert, 1 if the column ended in shared memory
+constexpr int kStats = 6;
 
-struct Col {
-  int *O, *L, *XO, *XL, *LV, *CUM, *CS, *CE;  // [CAP] each, lane-major
+struct Tables {
   Tab oll, orl, rkl;
-  int CAP, WMAX;
-  int rows;
-  int e0, e1, e2;
 };
 
-// flag_capacity: err[0] where the column lacks `need` spare rows.
-__device__ __forceinline__ void flag_capacity(Col& c, int need) {
-  if (c.rows + need > c.CAP) c.e0 = 1;
-}
-
-// _live_prefix: LV = live chars per row, CUM = their inclusive prefix.
-__device__ void live_prefix(Col& c) {
-  __syncwarp();
-  for (int i = lane_id(); i < c.CAP; i += 32)
-    c.LV[i] = c.O[i] > 0 ? c.L[i] : 0;
-  __syncwarp();
-  wprefix(c.LV, c.CUM, c.CAP);
-}
-
-// find_run_of_order: (row, found) of the run holding order o; err[2] when
-// none does. The row is 0 when not found.
-__device__ int find_run_of_order(Col& c, int o) {
-  int n = 0, row = c.CAP;
-  for (int i = lane_id(); i < c.CAP; i += 32) {
-    const int bo = c.O[i], so = iabs(bo) - 1;
-    if (bo != 0 && so <= o && o < so + c.L[i]) {
-      ++n;
-      row = imin(row, i);
-    }
-  }
-  const bool found = wsum(n) > 0;
-  row = wmin(row);
-  if (!found) c.e2 = 1;
-  return found ? row : 0;
-}
-
-// raw_pos_of_order: RAW document position of order o.
-__device__ int raw_pos_of_order(Col& c, int o) {
-  const int row = find_run_of_order(c, o);
+// Sum of every row's length over [0, hi): the document's raw length.
+__device__ __forceinline__ int raw_total(const Col& c) {
   int s = 0;
-  for (int i = lane_id(); i < c.CAP; i += 32) s += i < row ? c.L[i] : 0;
-  const int raw_before = wsum(s);
-  const int so_hit = iabs(row_or0(c.O, row, c.CAP)) - 1;
-  return raw_before + (o - so_hit);
+  for (int i = lane_id(); i < c.hi; i += 32) s += c.L[i];
+  return wsum(s);
 }
 
-// cursor_after for a lane that needs it.
-__device__ int cursor_after(Col& c, int o) {
+// Where an order lies: the RAW position after it (cursor_after), the row
+// holding it and the raw length of the rows before that row.
+struct Hit {
+  int cursor, row, pre;
+};
+
+// cursor_after (find_run_of_order + raw_pos_of_order): a ballot search over
+// [0, hi), 128 rows a round, for the first row whose run holds order o,
+// summing the lengths of the rows before it on the way. err[2] when o is
+// unknown or no run holds it (then the row is 0).
+__device__ __forceinline__ Hit cursor_after(Col& c, int o) {
   if (o == kUnknown) c.e2 = 1;
-  if (o == kRoot) return 0;
-  return raw_pos_of_order(c, imax(o, 0)) + 1;
-}
-
-// apply_partial: split row i around its covered range (CS, CE).
-__device__ int apply_partial(Col& c, int i) {
-  const Pieces p = split_pieces(row_or0(c.O, i, c.CAP),
-                                row_or0(c.L, i, c.CAP),
-                                row_or0(c.CS, i, c.CAP),
-                                row_or0(c.CE, i, c.CAP));
-  apply_pieces(c.O, c.L, c.XO, c.XL, c.CAP, i, p);
-  return p.amt;
-}
-
-// Full covers flip; returns (tot, npart, i1, i2) of the covered ranges in
-// CS/CE. `live_only` restricts full and partial covers to live runs (the
-// remote delete); `flip` applies the flips.
-struct Cover {
-  int tot, np, i1, i2;
-};
-
-__device__ Cover scan_cover(Col& c, bool live_only, bool flip) {
-  Cover r = {0, 0, c.CAP, -1};
-  for (int i = lane_id(); i < c.CAP; i += 32) {
-    const int bo = c.O[i], bl = c.L[i], cov = c.CE[i] - c.CS[i];
-    r.tot += cov;
-    const bool ok = !live_only || bo > 0;
-    const bool full = ok && cov > 0 && cov == bl;
-    const bool part = ok && cov > 0 && cov != bl;
-    if (part) {
-      ++r.np;
-      r.i1 = imin(r.i1, i);
-      r.i2 = imax(r.i2, i);
+  if (o == kRoot) return Hit{0, 0, 0};
+  const int oo = imax(o, 0), lane = lane_id(), hi = c.hi;
+  int pre = 0, row = -1;
+  for (int g = 0; g < hi && row < 0; g += 128) {
+    int bl[4];
+    unsigned m[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = g + 32 * u + lane;
+      const int bo = i < hi ? c.O[i] : 0;
+      bl[u] = i < hi ? c.L[i] : 0;
+      const int so = iabs(bo) - 1;
+      m[u] = __ballot_sync(kFull, bo != 0 && so <= oo && oo < so + bl[u]);
     }
-    if (full && flip) c.O[i] = -bo;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (row >= 0) break;
+      if (m[u]) {
+        const int f = __ffs(m[u]) - 1;
+        row = g + 32 * u + f;
+        if (lane < f) pre += bl[u];
+      } else {
+        pre += bl[u];
+      }
+    }
   }
-  r.tot = wsum(r.tot);
-  r.np = wsum(r.np);
-  r.i1 = wmin(r.i1);
-  r.i2 = wmax(r.i2);
-  __syncwarp();
-  return r;
+  pre = wsum(pre);
+  if (row < 0) {
+    c.e2 = 1;
+    row = 0;
+    pre = 0;
+  }
+  const int so_hit = iabs(at(c.O, row, hi)) - 1;
+  return Hit{pre + (oo - so_hit) + 1, row, pre};
 }
 
-// do_local_delete: tombstone d live chars after live rank p in one pass.
-__device__ void do_local_delete(Col& c, int p, int d) {
-  flag_capacity(c, 2);
-  live_prefix(c);
-  __syncwarp();
-  for (int i = lane_id(); i < c.CAP; i += 32) {
-    const int lv = c.LV[i], before = c.CUM[i] - lv;
-    c.CS[i] = imin(imax(p - before, 0), lv);
-    c.CE[i] = imin(imax(p + d - before, 0), lv);
+// Move the walk's row k (with pre, the raw length before it) forward to the
+// first row whose raw prefix passes `cursor`, 32 rows a round.
+__device__ __forceinline__ void advance(const Col& c, int& k, int& pre,
+                                        int cursor) {
+  const int lane = lane_id();
+  for (;;) {
+    const int j = k + lane;
+    const int v = j < c.hi ? c.L[j] : 0;
+    const int x = pre + wscan(v);
+    const unsigned m = __ballot_sync(kFull, x > cursor || j >= c.hi);
+    if (m) {
+      const int f = __ffs(m) - 1;
+      pre = __shfl_sync(kFull, x - v, f);
+      k += f;
+      return;
+    }
+    pre = __shfl_sync(kFull, x, 31);
+    k += 32;
   }
-  __syncwarp();
-  const Cover cv = scan_cover(c, false, true);
-  if (cv.tot < d) c.e1 = 1;
-  int a2 = 0, a1 = 0;
-  if (cv.np >= 1) a2 = apply_partial(c, cv.i2);
-  if (cv.np == 2) a1 = apply_partial(c, cv.i1);
-  c.rows += a1 + a2;
 }
 
-// do_local_insert: the fused W-row splice at live rank p plus the by-order
-// table upkeep; returns the op's origins.
-__device__ void do_local_insert(Col& c, int p, int il, int st, int w,
-                                int& ol_out, int& or_out) {
-  const int CAP = c.CAP, lane = lane_id();
-  const int rows = c.rows;
-  flag_capacity(c, w + 1);
-  live_prefix(c);
-  int n = 0;
-  for (int i = lane; i < CAP; i += 32) n += (c.CUM[i] < p && i < rows);
-  const int i_r = wsum(n);
-  const int o_r = row_or0(c.O, i_r, CAP), l_r = row_or0(c.L, i_r, CAP);
-  const int off = p - (row_or0(c.CUM, i_r, CAP) - row_or0(c.LV, i_r, CAP));
-  const int left = p == 0 ? kRoot : (o_r - 1) + (off - 1);
-  const int lrun = floordiv(il, imax(w, 1));
-  const bool mrg = w == 1 && p > 0 && off == l_r && st + 1 == o_r + l_r;
-  const bool is_split = p > 0 && off < l_r;
-  const int ins_at = p == 0 ? 0 : i_r + 1;
-  const int amt = mrg ? 0 : w + (int)is_split;
-  const int nxt = row_or0(c.O, i_r + 1, CAP), first_o = c.O[0];
-  const int ra = roll_amount(amt, c.WMAX + 1, CAP);
-  __syncwarp();
-  for (int i = lane; i < CAP; i += 32) {
-    c.XO[i] = c.O[i];
-    c.XL[i] = c.L[i];
-  }
-  __syncwarp();
-  for (int j = lane; j < CAP; j += 32) {
-    int no = c.XO[j], nl = c.XL[j];
-    if (j >= ins_at) {
-      const int s = roll_src(j, ra, CAP);
-      no = c.XO[s];
-      nl = c.XL[s];
-    }
-    if (is_split && j == i_r) nl = off;
-    if (!mrg && j >= ins_at && j < ins_at + w) {
-      no = st + il - (j - ins_at + 1) * lrun + 1;
-      nl = lrun;
-    }
-    if (is_split && j == ins_at + w) {
-      no = o_r + off;
-      nl = l_r - off;
-    }
-    if (mrg && j == i_r) nl = l_r + il;
-    c.O[j] = no;
-    c.L[j] = nl;
-  }
-  __syncwarp();
-  const int succ_p0 = rows > 0 ? first_o : 0;
-  const int succ_after = i_r + 1 < rows ? nxt : 0;
-  const int succ = p == 0 ? succ_p0 : (is_split ? o_r + off : succ_after);
-  const int right = succ == 0 ? kRoot : iabs(succ) - 1;
-  c.rows = rows + amt;
-  const int ls = imax(lrun, 1), OCAP = c.oll.OCAP;
-  for (int q = lane; q < il; q += 32) {
-    const int o = st + q;
-    if (o < 0 || o >= OCAP) continue;
-    if (q % ls == 0) c.oll.put(o, left);
-    c.orl.put(o, q < ls ? right : st + (q / ls - 1) * ls);
-  }
-  __syncwarp();
-  ol_out = left;
-  or_out = right;
-}
-
-// integrate_cursor: the run-level YATA scan; the raw prefix CUM (of L) is
-// hoisted, as the scan mutates nothing.
-__device__ int integrate_cursor(Col& c, int my_rank, int o_left,
-                                int o_right) {
-  const int CAP = c.CAP;
-  wprefix(c.L, c.CUM, CAP);  // cumraw
-  int s = 0;
-  for (int i = lane_id(); i < CAP; i += 32) s += c.L[i];
-  const int n = wsum(s);
+// integrate_cursor: the run-level YATA scan. Each probe's run is the first
+// row whose raw prefix passes the cursor, capped at `rows` as the TPU
+// kernel's count is; the cursor only moves forward, so the walk goes on
+// from the previous probe's row (from the left origin's row at the start).
+__device__ __forceinline__ int integrate_cursor(Col& c, const Tables& t,
+                                                int my_rank, int o_left,
+                                                int o_right, int& probes) {
+  const int CAP = c.CAP, rows_c = clampi(c.rows, 0, CAP);
+  const int n = raw_total(c);
+  const Hit h = cursor_after(c, o_left);
   Yata y;
-  y.cursor = cursor_after(c, o_left);
+  y.cursor = h.cursor;
   y.left_cursor = y.cursor;
   y.scanning = 0;
   y.scan_start = y.cursor;
+  int k = h.row, pre = h.pre;
+  int cum_rows = 0;
+  bool have_cum_rows = false;
   while (y.cursor < n) {
-    int cnt = 0;
-    for (int i = lane_id(); i < CAP; i += 32)
-      cnt += (c.CUM[i] <= y.cursor && i < c.rows);
-    const int i_r = wsum(cnt);
-    const int o_r = row_or0(c.O, i_r, CAP), l_r = row_or0(c.L, i_r, CAP);
-    const int off = y.cursor - (row_or0(c.CUM, i_r, CAP) - l_r);
+    advance(c, k, pre, y.cursor);
+    int i_r, cum;
+    if (k <= rows_c) {
+      i_r = k;
+      cum = k < CAP ? pre + at(c.L, k, c.hi) : 0;
+    } else {  // stale rows past `rows`: the raw prefix at row `rows`
+      if (!have_cum_rows) {
+        cum_rows = rows_c >= c.hi ? (rows_c < CAP ? n : 0)
+                                  : prefix_to<false>(c, rows_c + 1);
+        have_cum_rows = true;
+      }
+      i_r = rows_c;
+      cum = cum_rows;
+    }
+    const int o_r = at(c.O, i_r, c.hi), l_r = at(c.L, i_r, c.hi);
+    const int off = y.cursor - (cum - l_r);
     const int so = iabs(o_r) - 1, other = so + off;
-    const int other_left = c.oll.get(other), other_right = c.orl.get(other);
-    const int other_rank = c.rkl.get(other);
-    const int olc = cursor_after(c, other_left);
+    const int other_left = t.oll.get(other), other_right = t.orl.get(other);
+    const int other_rank = t.rkl.get(other);
+    const int olc = cursor_after(c, other_left).cursor;
+    ++probes;
     bool stuck;
     if (yata_probe(y, my_rank, o_right, so, l_r, off, olc, other_right,
                    other_rank, stuck))
@@ -268,81 +190,177 @@ __device__ int integrate_cursor(Col& c, int my_rank, int o_left,
 
 // do_remote_insert: YATA integrate, then the raw-position splice (the split
 // run may be a tombstone; merging needs a live, chained predecessor).
-__device__ void do_remote_insert(Col& c, int my_rank, int o_left,
-                                 int o_right, int il, int st) {
+__device__ __forceinline__ void remote_insert(Col& c, const Tables& t,
+                                              int my_rank, int o_left,
+                                              int o_right, int il, int st,
+                                              int& probes) {
   const int CAP = c.CAP, lane = lane_id();
-  flag_capacity(c, 2);
-  const int cc = integrate_cursor(c, my_rank, o_left, o_right);
+  if (c.rows + 2 > CAP) c.e0 = 1;
+  const int cc = integrate_cursor(c, t, my_rank, o_left, o_right, probes);
   const int rows = c.rows;
-  int n = 0;
-  for (int i = lane; i < CAP; i += 32) n += (c.CUM[i] < cc && i < rows);
-  const int i_r = wsum(n);
-  const int o_r = row_or0(c.O, i_r, CAP), l_r = row_or0(c.L, i_r, CAP);
-  const int off = cc - (row_or0(c.CUM, i_r, CAP) - l_r);
+  const Loc lc = locate<false, true>(c, cc);
+  const int i_r = lc.i_r;
+  const int o_r = at(c.O, i_r, c.hi), l_r = at(c.L, i_r, c.hi);
+  const int off = cc - (lc.cum - l_r);
   const bool mrg = cc > 0 && o_r > 0 && off == l_r && st + 1 == o_r + l_r &&
                    o_left == o_r + l_r - 2;
   const bool is_split = cc > 0 && off < l_r;
   const int ins_at = cc == 0 ? 0 : i_r + 1;
   const int amt = mrg ? 0 : (is_split ? 2 : 1);
-  const int ra = roll_amount(amt, 2, CAP);
-  __syncwarp();
-  for (int i = lane; i < CAP; i += 32) {
-    c.XO[i] = c.O[i];
-    c.XL[i] = c.L[i];
+  shift_down(c, ins_at, amt, roll_amount(amt, 2, CAP));
+  if (lane == 0) {
+    if (i_r < CAP && is_split) c.L[i_r] = off;
+    if (i_r < CAP && mrg) c.L[i_r] = l_r + il;
+    if (!mrg && ins_at < CAP) {
+      c.O[ins_at] = st + 1;
+      c.L[ins_at] = il;
+    }
+    if (is_split && ins_at + 1 < CAP) {
+      c.O[ins_at + 1] = o_r > 0 ? o_r + off : o_r - off;
+      c.L[ins_at + 1] = l_r - off;
+    }
   }
   __syncwarp();
-  for (int j = lane; j < CAP; j += 32) {
-    int no = c.XO[j], nl = c.XL[j];
-    if (j >= ins_at) {
-      const int s = roll_src(j, ra, CAP);
-      no = c.XO[s];
-      nl = c.XL[s];
-    }
-    if (is_split && j == i_r) nl = off;
-    if (!mrg && j == ins_at) {
-      no = st + 1;
-      nl = il;
-    }
-    if (is_split && j == ins_at + 1) {
-      no = o_r > 0 ? o_r + off : o_r - off;
-      nl = l_r - off;
-    }
-    if (mrg && j == i_r) nl = l_r + il;
-    c.O[j] = no;
-    c.L[j] = nl;
-  }
-  __syncwarp();
+  if ((is_split || mrg) && i_r < CAP) c.hi = imax(c.hi, i_r + 1);
   c.rows = rows + amt;
 }
 
 // do_remote_delete: the one-pass order-interval tombstone; covered dead
 // runs count toward the total without flipping (`double_delete.rs:6-9`).
-// A delete whose splits would overflow the column flags and does nothing.
-__device__ void do_remote_delete(Col& c, int t, int dlen) {
-  const int CAP = c.CAP;
+// A delete whose splits would overflow the column flags and does nothing,
+// so its flips wait for the pass's verdict only when the column is that
+// full.
+__device__ __forceinline__ void remote_delete(Col& c, int t, int dlen) {
+  const int CAP = c.CAP, lane = lane_id(), hi = c.hi;
+  const bool roomy = c.rows + 2 <= CAP;
+  int tot = 0;
+  Partial part;
+  part.init(CAP);
   __syncwarp();
-  for (int i = lane_id(); i < CAP; i += 32) {
+  for (int i = lane; i < hi; i += 32) {
     const int bo = c.O[i], bl = c.L[i], so = iabs(bo) - 1;
-    const int cs = imin(imax(t - so, 0), bl);
-    const int ce = imin(imax(t + dlen - so, 0), bl);
-    c.CS[i] = bo != 0 ? cs : 0;
-    c.CE[i] = bo != 0 ? ce : 0;
+    const int cs = bo != 0 ? imin(imax(t - so, 0), bl) : 0;
+    const int ce = bo != 0 ? imin(imax(t + dlen - so, 0), bl) : 0;
+    const int cov = ce - cs;
+    tot += cov;
+    if (bo > 0 && cov > 0) {
+      if (cov != bl)
+        part.add(i, cs, ce);
+      else if (roomy)
+        c.O[i] = -bo;
+    }
   }
+  tot = wsum(tot);
+  part.join();
   __syncwarp();
-  const Cover probe = scan_cover(c, true, false);
-  if (probe.tot < dlen) c.e1 = 1;
-  if (probe.np > 0 && c.rows + 2 > CAP) {
-    c.e0 = 1;
-    return;
+  if (tot < dlen) c.e1 = 1;
+  if (!roomy) {
+    if (part.n > 0) {
+      c.e0 = 1;
+      return;
+    }
+    for (int i = lane; i < hi; i += 32) {
+      const int bo = c.O[i], bl = c.L[i], so = iabs(bo) - 1;
+      const int cs = imin(imax(t - so, 0), bl);
+      const int ce = imin(imax(t + dlen - so, 0), bl);
+      if (bo > 0 && ce - cs > 0 && ce - cs == bl) c.O[i] = -bo;
+    }
+    __syncwarp();
   }
-  const Cover cv = scan_cover(c, true, true);
-  int a2 = 0, a1 = 0;
-  if (cv.np >= 1) a2 = apply_partial(c, cv.i2);
-  if (cv.np == 2) a1 = apply_partial(c, cv.i1);
-  c.rows += a1 + a2;
+  c.rows += part.apply(c);
 }
 
-__global__ void __launch_bounds__(32 * kWarpsPerBlock) lanes_mixed_kernel(
+// The op columns of one document, its origins and its counters.
+struct Stream {
+  const int *kind, *pos, *dlen, *dtgt, *olop, *orop, *rank, *ilen, *start,
+      *wcol;
+  int *ol, *orr;
+  Tables t;
+  int S, B, b, OCAP;
+  int inserts, probes, most;
+};
+
+// Steps [k, S) of one document. With SMEM the column is the warp's rows
+// of shared memory (so that its reads and writes are shared-memory ones),
+// and the replay stops before a step whose writes could pass them,
+// returning that step; else the column is in device memory. Returns S
+// when every step is done.
+template <bool SMEM>
+__device__ int replay(Col& c, Stream& s, int k) {
+  extern __shared__ int smem[];
+  if (SMEM) {
+    c.O = smem + 2 * (threadIdx.x >> 5) * c.lim;
+    c.L = c.O + c.lim;
+  }
+  const int lane = lane_id();
+  int stop = s.S;
+  for (int k0 = k & ~31; k0 < stop; k0 += 32) {
+    const int kk = k0 + lane;
+    int rk = 0, rp = 0, rd = 0, rt = 0, rl = 0, rr = 0, rn = 0, ri = 0,
+        rs = 0, rw = 0;
+    if (kk < s.S) {
+      const long long g = (long long)kk * s.B + s.b;
+      rk = s.kind[g];
+      rp = s.pos[g];
+      rd = s.dlen[g];
+      rt = s.dtgt[g];
+      rl = s.olop[g];
+      rr = s.orop[g];
+      rn = s.rank[g];
+      ri = s.ilen[g];
+      rs = s.start[g];
+      rw = s.wcol[g];
+    }
+    int my_ol = 0, my_or = 0;
+    const int nk = imin(32, s.S - k0);
+    for (int u = imax(k - k0, 0); u < nk; ++u) {
+      const int kd = bcast(rk, u), dl = bcast(rd, u), il = bcast(ri, u);
+      if (dl <= 0 && il <= 0) continue;  // a pad row or an idle document
+      const int w = imax(bcast(rw, u), 1);  // pad rows carry 0
+      if (SMEM && step_room(c, w) > c.lim) {
+        stop = k0 + u;
+        break;
+      }
+      int ol_v = 0, or_v = 0;
+      if (kd == kLocal && dl > 0) local_delete(c, bcast(rp, u), dl);
+      if (kd == kLocal && il > 0) {
+        const int p = bcast(rp, u), st = bcast(rs, u);
+        const LocalIns r = local_insert(c, p, il, st, w);
+        const int ls = imax(r.lrun, 1);
+        for (int q = lane; q < il; q += 32) {
+          const int o = st + q;
+          if (o < 0 || o >= s.OCAP) continue;
+          if (q % ls == 0) s.t.oll.put(o, r.left);
+          s.t.orl.put(o, q < ls ? r.right : st + (q / ls - 1) * ls);
+        }
+        __syncwarp();
+        ol_v = r.left;
+        or_v = r.right;
+      }
+      if (kd == kRemoteIns && il > 0) {
+        ol_v = bcast(rl, u);
+        or_v = bcast(rr, u);
+        const int before = s.probes;
+        remote_insert(c, s.t, bcast(rn, u), ol_v, or_v, il, bcast(rs, u),
+                      s.probes);
+        ++s.inserts;
+        s.most = imax(s.most, s.probes - before);
+      }
+      if (kd == kRemoteDel && dl > 0) remote_delete(c, bcast(rt, u), dl);
+      if (lane == u) {
+        my_ol = ol_v;
+        my_or = or_v;
+      }
+    }
+    if (kk >= k && kk < stop) {
+      s.ol[(long long)kk * s.B + s.b] = my_ol;
+      s.orr[(long long)kk * s.B + s.b] = my_or;
+    }
+  }
+  return stop;
+}
+
+__global__ void __launch_bounds__(32 * kMaxWarps, 2) lanes_mixed_kernel(
     const int* __restrict__ kind, const int* __restrict__ pos,
     const int* __restrict__ dlen, const int* __restrict__ dtgt,
     const int* __restrict__ olop, const int* __restrict__ orop,
@@ -351,79 +369,95 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) lanes_mixed_kernel(
     const int* __restrict__ rows0, const int* __restrict__ rkl,
     int* __restrict__ ol, int* __restrict__ orr, int* __restrict__ rows_out,
     int* __restrict__ oll, int* __restrict__ orl, int* __restrict__ err,
-    int* __restrict__ scratch, int S, int B, int CAP, int OCAP, int WMAX) {
+    int* __restrict__ planes, long long* __restrict__ stats, int S, int B,
+    int CAP, int OCAP, int WMAX, int sh) {
+  extern __shared__ int smem[];
   const int warp = threadIdx.x >> 5, lane = lane_id();
-  const int b = blockIdx.x * kWarpsPerBlock + warp;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // whole warps only: no collective is split
-  const long long plane = (long long)B * CAP;
-  int* base = scratch + (long long)b * CAP;
+  int* gO = planes + (long long)b * CAP;
   Col c;
-  c.O = base;
-  c.L = base + plane;
-  c.XO = base + 2 * plane;
-  c.XL = base + 3 * plane;
-  c.LV = base + 4 * plane;
-  c.CUM = base + 5 * plane;
-  c.CS = base + 6 * plane;
-  c.CE = base + 7 * plane;
-  c.oll = Tab{oll + b, B, OCAP};
-  c.orl = Tab{orl + b, B, OCAP};
-  c.rkl = Tab{const_cast<int*>(rkl) + b, B, OCAP};
   c.CAP = CAP;
   c.WMAX = WMAX;
   c.rows = rows0[b];
   c.e0 = c.e1 = c.e2 = 0;
-
-  for (int k = 0; k < S; ++k) {
-    const long long g = (long long)k * B + b;
-    const int kd = kind[g], p = pos[g], dl = dlen[g], il = ilen[g];
-    const int st = start[g], w = imax(wcol[g], 1);
-    int ol_v = 0, or_v = 0;
-    if (kd == kLocal && dl > 0) do_local_delete(c, p, dl);
-    if (kd == kLocal && il > 0) do_local_insert(c, p, il, st, w, ol_v, or_v);
-    if (kd == kRemoteIns && il > 0) {
-      ol_v = olop[g];
-      or_v = orop[g];
-      do_remote_insert(c, rank[g], ol_v, or_v, il, st);
-    }
-    if (kd == kRemoteDel && dl > 0) do_remote_delete(c, dtgt[g], dl);
-    if (lane == 0) {
-      ol[g] = ol_v;
-      orr[g] = or_v;
-    }
+  const bool on_chip =
+      open_column(c, gO, gO + (long long)B * CAP, smem + 2 * warp * sh, sh);
+  const int hi0 = c.hi;
+  Stream s{kind,  pos,   dlen, dtgt, olop, orop, rank, ilen, start, wcol,
+           ol,    orr,   Tables{Tab{oll + b, B, OCAP}, Tab{orl + b, B, OCAP},
+                                Tab{const_cast<int*>(rkl) + b, B, OCAP}},
+           S,     B,     b,    OCAP, 0,    0,    0};
+  int k = 0;
+  if (on_chip) {
+    k = replay<true>(c, s, 0);
+    if (k < S) move_to_device(c);
   }
+  if (k < S) replay<false>(c, s, k);
+  close_column(c);
   if (lane == 0) {
     rows_out[b] = c.rows;
     const int e[8] = {c.e0, c.e1, c.e2, 0, 0, 0, 0, 0};
     for (int r = 0; r < 8; ++r) err[(long long)r * B + b] = e[r];
+    if (stats) {
+      long long* st = stats + (long long)b * kStats;
+      st[0] = hi0;
+      st[1] = c.hi;
+      st[2] = s.inserts;
+      st[3] = s.probes;
+      st[4] = s.most;
+      st[5] = c.O != c.gO;
+    }
   }
 }
 
 }  // namespace
 
+// `sh` is the rows of each column kept in shared memory (0: the columns
+// stay in the lane-major planes); a thread block takes 8 * sh bytes a warp.
+// `stats` may be null.
 extern "C" int rle_lanes_mixed_launch(
     const int* kind, const int* pos, const int* dlen, const int* dtgt,
     const int* olop, const int* orop, const int* rank, const int* ilen,
     const int* start, const int* wcol, const int* ord0, const int* len0,
     const int* rows0, const int* oll0, const int* orl0, const int* olld,
     const int* orld, const int* rkl, int* ol, int* orr, int* ordp,
-    int* lenp, int* rows, int* oll, int* orl, int* err, int* scratch, int S,
-    int B, int CAP, int OCAP, int WMAX, void* stream) {
+    int* lenp, int* rows, int* oll, int* orl, int* err, int* planes,
+    long long* stats, int S, int B, int CAP, int OCAP, int WMAX, int warps,
+    int sh, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (warps < 1 || warps > kMaxWarps || sh < 0 || sh > CAP)
+    return (int)cudaErrorInvalidValue;
   const long long plane = (long long)B * CAP;
-  lanes::launch_transpose(ord0, scratch, CAP, B, st);
-  lanes::launch_transpose(len0, scratch + plane, CAP, B, st);
+  const int smem = 8 * sh * warps;
+  lanes::launch_transpose(ord0, planes, CAP, B, st);
+  lanes::launch_transpose(len0, planes + plane, CAP, B, st);
   lanes::launch_merge(olld, oll0, orld, orl0, oll, orl, (long long)OCAP * B,
                       st);
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  lanes_mixed_kernel<<<blocks, 32 * kWarpsPerBlock, 0, st>>>(
-      kind, pos, dlen, dtgt, olop, orop, rank, ilen, start, wcol, rows0, rkl,
-      ol, orr, rows, oll, orl, err, scratch, S, B, CAP, OCAP, WMAX);
-  const cudaError_t e = cudaGetLastError();
+  cudaError_t e = cudaFuncSetAttribute(
+      lanes_mixed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  lanes::launch_transpose(scratch, ordp, B, CAP, st);
-  lanes::launch_transpose(scratch + plane, lenp, B, CAP, st);
+  lanes_mixed_kernel<<<(B + warps - 1) / warps, 32 * warps, smem, st>>>(
+      kind, pos, dlen, dtgt, olop, orop, rank, ilen, start, wcol, rows0, rkl,
+      ol, orr, rows, oll, orl, err, planes, stats, S, B, CAP, OCAP, WMAX, sh);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  lanes::launch_transpose(planes, ordp, B, CAP, st);
+  lanes::launch_transpose(planes + plane, lenp, B, CAP, st);
   return (int)cudaGetLastError();
+}
+
+// Thread blocks of `warps` warps with `sh` rows a column in shared memory
+// that one SM holds at once (0 on error).
+extern "C" int rle_lanes_mixed_blocks_per_sm(int warps, int sh) {
+  const int smem = 8 * sh * warps;
+  int n = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      lanes_mixed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, lanes_mixed_kernel, 32 * warps, smem);
+  return e == cudaSuccess ? n : 0;
 }
 
 extern "C" const char* cuda_error_string(int code) {

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -467,10 +468,30 @@ def lanes_blocked_replay_plain(pos, dlen, ilen, start, wcol, ord0, len0,
 
 _KERNEL = "rle_lanes"
 _LAUNCH = "rle_lanes_launch"
-# 5 op columns, 3 inputs, 6 outputs, the scratch planes; S, B, CAP, WMAX;
-# the stream.
-_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_SCRATCH_PLANES = 8  # lane-major [B, CAP]: ordp, lenp, 2 shift copies, 4 temps
+# 5 op columns, 3 inputs, 6 outputs, the lane-major planes, stats; S, B,
+# CAP, WMAX, warps, shared memory; the stream.
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_SCRATCH_PLANES = 2  # lane-major [B, CAP]: ordp, lenp
+#: Per-document counters of ``stats``: the column's extent (1 + its last
+#: nonzero row) at the start and at the end of the launch, and 1 if the
+#: column ended the launch in shared memory.
+STATS = 3
+#: Shared memory one thread block may use on an H100 (232,448 bytes), one
+#: SM's (233,472 bytes) and what the card keeps of an SM's for each
+#: resident thread block (1,024 bytes).
+SMEM_LIMIT = 232448
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK_RESERVED = 1024
+#: Most documents (one warp each) in a thread block of the un-blocked
+#: kernels (``rle_lanes.cu``, ``rle_lanes_mixed.cu``), and their default:
+#: residency per SM is set by the columns' shared memory whatever their
+#: grouping, and ``chip_smoke.py``'s sweep of 1, 2, 4 and 8 at config 5
+#: and 5r finds no grouping faster by more than the runs' spread.
+MAX_WARPS = 8
+WARPS = 1
+#: Fewest rows of a column the un-blocked kernels keep in shared memory
+#: when a launch has too many documents for the card to hold at once.
+MIN_ROWS_ON_CHIP = 512
 
 _BKERNEL = "rle_lanes_blocked"
 _BLAUNCH = "rle_lanes_blocked_launch"
@@ -487,11 +508,81 @@ def _check_cols(cols, dev, S, B, what="op columns"):
                  f"{what} must be contiguous int32 [{S}, {B}] on {dev}")
 
 
+def pick_rows_on_chip(capacity: int, batch: int, warps: int,
+                      sms: int) -> int:
+    """Rows of each document's column that the un-blocked kernels keep in
+    shared memory (8 bytes a row): all ``capacity`` rows where every
+    document of the launch then fits the card's ``sms`` SMs at once;
+    else, in whole 32-row groups, the largest count that does (at least
+    ``MIN_ROWS_ON_CHIP``); never more than a thread block may hold. A
+    column whose extent (1 + its last nonzero row) passes them, at the
+    start or after a splice, works in the lane-major planes in device
+    memory for the rest of the launch, with the same passes. A capacity
+    is the stream's bound on rows; the extents at config 5 and 5r stay
+    under a third of it (``chip_smoke.py`` prints them), so a bound sized
+    for the worst case need not halve the documents an SM holds."""
+    fit = SMEM_LIMIT // (8 * warps)
+    blocks = -(-batch // warps)
+    per_sm = -(-blocks // sms)
+    share = (SMEM_PER_SM // per_sm - SMEM_PER_BLOCK_RESERVED) // (8 * warps)
+    return min(capacity, fit, max(share // 32 * 32, MIN_ROWS_ON_CHIP))
+
+
+def launch_geometry(kernel: str, batch: int, capacity: int, warps: int,
+                    dev, rows_on_chip: Optional[int] = None) -> dict:
+    """How un-blocked kernel ``kernel`` (``"rle_lanes"`` or
+    ``"rle_lanes_mixed"``) lays out ``batch`` documents of ``capacity``
+    rows at ``warps`` documents a thread block: the rows of each column
+    in shared memory (by default ``pick_rows_on_chip``), a block's shared
+    memory, the blocks an SM holds at once (the CUDA occupancy
+    calculator) and the waves of blocks the launch takes."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if rows_on_chip is None:
+        rows_on_chip = pick_rows_on_chip(capacity, batch, warps, sms)
+    fn = getattr(_kernels.library(kernel), f"{kernel}_blocks_per_sm")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    per_sm = fn(warps, rows_on_chip)
+    blocks = (batch + warps - 1) // warps
+    waves = -(-blocks // (per_sm * sms)) if per_sm > 0 else None
+    return dict(rows_on_chip=rows_on_chip, warps=warps,
+                smem=8 * rows_on_chip * warps, blocks_per_sm=per_sm,
+                waves=waves)
+
+
+def _launch_shape(warps, rows_on_chip, stats, B, CAP, n_stats, dev):
+    """``(warps, rows_on_chip)`` of an un-blocked launch, checked, with
+    the defaults filled in."""
+    if warps is None:
+        warps = WARPS
+    _require(1 <= warps <= MAX_WARPS, f"warps must lie in [1, {MAX_WARPS}]")
+    if rows_on_chip is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rows_on_chip = pick_rows_on_chip(CAP, B, warps, sms)
+    _require(0 <= rows_on_chip <= CAP
+             and 8 * rows_on_chip * warps <= SMEM_LIMIT,
+             f"rows_on_chip must lie in [0, {CAP}] and fit "
+             f"{SMEM_LIMIT} B of shared memory at {warps} warps")
+    _require(stats is None or (stats.device == dev
+                               and stats.dtype == torch.int64
+                               and stats.is_contiguous()
+                               and tuple(stats.shape) == (B, n_stats)),
+             f"stats must be a contiguous int64 [{B}, {n_stats}] on the "
+             f"card")
+    return warps, rows_on_chip
+
+
 def lanes_replay_cuda(pos, dlen, ilen, start, wcol, ord0, len0, rows0, *,
-                      wmax: int, shared_cum: bool):
+                      wmax: int, shared_cum: bool,
+                      warps: Optional[int] = None,
+                      rows_on_chip: Optional[int] = None, stats=None):
     """Launch ``ops/csrc/rle_lanes.cu`` on PyTorch's current stream. Same
     arguments and results as ``lanes_replay_plain`` (``shared_cum`` is the
-    TPU's cost gate and changes no result)."""
+    TPU's cost gate and changes no result). ``warps`` sets the documents
+    of a thread block (1-8; by default ``WARPS``), ``rows_on_chip``
+    the rows of each column kept in shared memory (0: none; by default
+    ``pick_rows_on_chip``); ``stats``, an int64 ``[B, STATS]`` tensor on
+    the card, receives each document's counters."""
     del shared_cum
     S, B = pos.shape
     CAP = ord0.shape[0]
@@ -501,16 +592,20 @@ def lanes_replay_cuda(pos, dlen, ilen, start, wcol, ord0, len0, rows0, *,
     _check_cols((ord0, len0), dev, CAP, B, "run planes")
     _check_cols((rows0,), dev, 1, B, "rows")
     _require(S >= 1 and CAP >= 8 and wmax >= 1, "bad replay shape")
+    warps, rows_on_chip = _launch_shape(warps, rows_on_chip, stats, B, CAP,
+                                        STATS, dev)
 
     def out(r):
         return torch.empty(r, B, dtype=I32, device=dev)
 
     outs = (out(S), out(S), out(CAP), out(CAP), out(1), out(8))
-    scratch = torch.empty(_SCRATCH_PLANES, B, CAP, dtype=I32, device=dev)
+    planes = torch.empty(_SCRATCH_PLANES, B, CAP, dtype=I32, device=dev)
     fn = _kernels.function(_KERNEL, _LAUNCH, _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tensors = (*cols, ord0, len0, rows0, *outs, scratch)
-    code = fn(*(t.data_ptr() for t in tensors), S, B, CAP, wmax, stream)
+    tensors = (*cols, ord0, len0, rows0, *outs, planes)
+    code = fn(*(t.data_ptr() for t in tensors),
+              None if stats is None else stats.data_ptr(), S, B, CAP, wmax,
+              warps, rows_on_chip, stream)
     _kernels.check(_KERNEL, code)
     _kernels.count_launch(_KERNEL)
     return outs

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -70,6 +71,7 @@ from .rle_lanes import (
     _fused_splice_lanes,
     _grow_blocked_state,
     _grow_planes,
+    _launch_shape,
     _live_prefix,
     _lmax,
     _lmin,
@@ -866,10 +868,15 @@ def lanes_mixed_blocked_replay_plain(
 
 _KERNEL = "rle_lanes_mixed"
 _LAUNCH = "rle_lanes_mixed_launch"
-# 10 op columns, 8 inputs, 8 outputs, the scratch planes; S, B, CAP, OCAP,
-# WMAX; the stream.
-_ARGTYPES = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_SCRATCH_PLANES = 8  # lane-major [B, CAP]: ordp, lenp, 2 shift copies, 4 temps
+# 10 op columns, 8 inputs, 8 outputs, the lane-major planes, stats; S, B,
+# CAP, OCAP, WMAX, warps, shared memory; the stream.
+_ARGTYPES = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SCRATCH_PLANES = 2  # lane-major [B, CAP]: ordp, lenp
+#: Per-document counters of ``stats``: the column's extent (1 + its last
+#: nonzero row) at the start and at the end of the launch, the remote
+#: inserts, their YATA probes, the most probes of one insert, and 1 if the
+#: column ended the launch in shared memory.
+STATS = 6
 
 _BKERNEL = "rle_lanes_mixed_blocked"
 _BLAUNCH = "rle_lanes_mixed_blocked_launch"
@@ -882,10 +889,16 @@ _BSCRATCH_PLANES = 2  # lane-major [B, CAP]: ordp, lenp
 def lanes_mixed_replay_cuda(kind, pos, dlen, dtgt, olop, orop, rank, ilen,
                             start, wcol, ord0, len0, rows0, oll0, orl0,
                             olld, orld, rkl, *, wmax: int,
-                            shared_cum: bool):
+                            shared_cum: bool, warps: Optional[int] = None,
+                            rows_on_chip: Optional[int] = None, stats=None):
     """Launch ``ops/csrc/rle_lanes_mixed.cu`` on PyTorch's current stream.
     Same arguments and results as ``lanes_mixed_replay_plain``
-    (``shared_cum`` is the TPU's cost gate and changes no result)."""
+    (``shared_cum`` is the TPU's cost gate and changes no result).
+    ``warps`` sets the documents of a thread block (1-8; by default
+    ``rle_lanes.WARPS``), ``rows_on_chip`` the rows of each column
+    kept in shared memory (0: none; by default
+    ``rle_lanes.pick_rows_on_chip``); ``stats``, an int64 ``[B, STATS]``
+    tensor on the card, receives each document's counters."""
     del shared_cum
     S, B = kind.shape
     CAP, OCAP = ord0.shape[0], oll0.shape[0]
@@ -896,18 +909,22 @@ def lanes_mixed_replay_cuda(kind, pos, dlen, dtgt, olop, orop, rank, ilen,
     _check_cols((rows0,), dev, 1, B, "rows")
     _check_cols((oll0, orl0, olld, orld, rkl), dev, OCAP, B, "order tables")
     _require(S >= 1 and CAP >= 8 and wmax >= 1, "bad replay shape")
+    warps, rows_on_chip = _launch_shape(warps, rows_on_chip, stats, B, CAP,
+                                        STATS, dev)
 
     def out(r):
         return torch.empty(r, B, dtype=I32, device=dev)
 
     outs = (out(S), out(S), out(CAP), out(CAP), out(1), out(OCAP),
             out(OCAP), out(8))
-    scratch = torch.empty(_SCRATCH_PLANES, B, CAP, dtype=I32, device=dev)
+    planes = torch.empty(_SCRATCH_PLANES, B, CAP, dtype=I32, device=dev)
     fn = _kernels.function(_KERNEL, _LAUNCH, _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     tensors = (*cols, ord0, len0, rows0, oll0, orl0, olld, orld, rkl, *outs,
-               scratch)
-    code = fn(*(t.data_ptr() for t in tensors), S, B, CAP, OCAP, wmax, stream)
+               planes)
+    code = fn(*(t.data_ptr() for t in tensors),
+              None if stats is None else stats.data_ptr(), S, B, CAP, OCAP,
+              wmax, warps, rows_on_chip, stream)
     _kernels.check(_KERNEL, code)
     _kernels.count_launch(_KERNEL)
     return outs
