@@ -1,7 +1,7 @@
-"""Time the redesigned kernels (A2-A4, A6, A8-A10) on one NVIDIA card.
+"""Time the redesigned kernels (A1-A4, A6-A10) on one NVIDIA card.
 
     python3 chip_blocked_timing.py [tests] [a10] [a8] [a9] [a2] [a3] [a4]
-        [a6] [--reps N]
+        [a6] [a1] [a7] [--reps N]
 
 A quicker loop than ``chip_smoke.py`` while redesigning those kernels:
 it builds them (printing ptxas's registers and spills), then runs the
@@ -35,7 +35,13 @@ named phases, all by default:
   ``run_stream(engine="unblocked")``, the chain of 8 A6 launches against
   its plain chain on every 64th document, then the chain's median time
   at 1, 2, 4 and 8 warps, the geometry, the extents and the YATA probes
-  per remote insert (mean and most).
+  per remote insert (mean and most);
+- ``a1``: the north star on A1 (512 documents, K = 128) against its plain
+  version, its counters, and its median time at 1, 2 and 4 warps;
+- ``a7``: config 5r through ``run_stream()``, the chain of 8 A7 launches
+  against its plain chain on every 256th document, its counters summed
+  over the chain, and its median time at 1-4 documents a thread block
+  and on every 16th document alone.
 
 Times are medians of ``--reps`` runs (3) after 1 warm-up, CUDA events.
 The plain versions are not timed here; ``chip_smoke.py`` holds every
@@ -317,8 +323,136 @@ def phase_a6(torch, dev, reps):
         raise AssertionError("A6 disagrees with its plain version")
 
 
+def phase_a1(torch, dev, reps):
+    """The north star on A1 (512 documents, K = 128) through its entry
+    point, then the replay's median time at 1, 2 and 4 warps a lane, with
+    its counters."""
+    from text_crdt_rust_tpu_torch import northstar
+    from text_crdt_rust_tpu_torch.ops import rle as R
+
+    run = northstar.run_northstar(device=dev)
+    torch.cuda.synchronize()
+    print(f"A1 north star: text ok {run.ok}", flush=True)
+    rep = northstar.make_northstar_replayer(run.stream, device=dev)
+    del run
+    steps = int(((rep.staged[1] > 0) | (rep.staged[2] > 0)).sum())
+    kern = R.rle_replay_cuda(*rep.staged, **rep.shape)
+    plain = R.rle_replay_plain(*rep.staged, **rep.shape)
+    ok = all(torch.equal(k, p) for k, p in zip(kern, plain))
+    print(f"A1 north star: the replay equals its plain version on all "
+          f"{rep.shape['batch']} lanes: {ok}", flush=True)
+    del kern, plain
+
+    def fn(**kw):
+        return R.rle_replay_cuda(*rep.staged, **rep.shape, **kw)
+
+    stats = stats_for(torch, R.rle_replay_cuda, fn,
+                      (rep.shape["groups"], rep.shape["batch"]),
+                      getattr(R, "STATS", 0), dev)
+    if stats is not None:
+        print(f"A1 north star: {R.describe_stats(stats[0, 0].tolist())}",
+              flush=True)
+    time_warps(torch, R.rle_replay_cuda, fn, "A1 north star", steps,
+               (1, 2, 4), reps)
+    if not ok:
+        raise AssertionError("A1 disagrees with its plain version")
+
+
+def a7_stats_line(v) -> str:
+    """One line of the blocked kernel's counters ``v`` (summed over the
+    documents and launches of a chain)."""
+    look = max(v[1], 1)
+    ins = max(v[5], 1)
+    tot = max(v[15], 1)
+    return (f"{v[0]} steps with work; {v[1]} order lookups: hint hits "
+            f"{v[2] / look:.4f}, forward-hop hits {v[3] / look:.4f}, "
+            f"whole-plane searches {v[4] / look:.4f}; {v[5]} remote inserts, "
+            f"{v[6] / ins:.3f} YATA probes an insert, {v[7]} at most; "
+            f"{v[8]} splits; {v[9] / max(v[0], 1):.3f} block gathers and "
+            f"{v[10] / max(v[0], 1):.3f} block verifies a step; cycle "
+            f"shares: lookups {v[11] / tot:.4f}, YATA walk (its lookups "
+            f"included) {v[12] / tot:.4f}, inserts' splices "
+            f"{v[13] / tot:.4f}, deletes {v[14] / tot:.4f}; "
+            f"{tot / max(v[0], 1):.0f} cycles a step with work"
+            + ("" if len(v) <= 16 else
+               f"; blocks in use at the ends of the launches {v[16]}, "
+               f"holding a run {v[17]}; whole-plane searches passed "
+               f"{v[18]} blocks ({v[18] / max(v[4], 1):.2f} a search)"))
+
+
+def phase_a7(torch, dev, reps):
+    """Config 5r (2,048 documents x 8 chunks x 100 patches) through
+    ``run_stream()``, the chain of 8 A7 launches against its plain chain
+    on every 256th document, its counters, then the chain's median time
+    at 1-4 documents a thread block and on every 16th document alone."""
+    from text_crdt_rust_tpu_torch import stream
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as RLM
+
+    s5 = stream.make_stream_5r()
+    _kernels.reset_launches()
+    run = stream.run_stream(stream=s5, device=dev)
+    torch.cuda.synchronize()
+    print(f"A7 5r: launches {dict(_kernels.launches)}, sampled docs ok "
+          f"{run.ok}", flush=True)
+    del run
+    runners = stream.make_stream_replayers(s5, device=dev)
+    wrapper = RLM.lanes_mixed_blocked_replay_cuda
+    stride = 256
+    sub = doc_subset(stream, s5, stride)
+    kern = run_chain(wrapper, runners)
+    plain = run_chain(RLM.lanes_mixed_blocked_replay_plain,
+                      stream.make_stream_replayers(sub, device=dev))
+    ok = chain_equal(torch, kern, plain, stride)
+    print(f"A7 5r: the chain equals its plain chain on every {stride}th "
+          f"document ({sub.n_docs}): {ok}", flush=True)
+    del kern, plain
+    real = sum(s5.real_steps)
+    n_stats = getattr(RLM, "BLOCKED_STATS", 0)
+    if takes(wrapper, "stats") and n_stats:
+        total = torch.zeros(n_stats, dtype=torch.int64, device=dev)
+        most, state = 0, None
+        for run in runners:
+            ini = run.initial() if state is None else run.grow(state)
+            st = torch.zeros(s5.n_docs, n_stats, dtype=torch.int64,
+                             device=dev)
+            out = wrapper(*run.staged, *ini, *run.deltas, **run.shape,
+                          stats=st)
+            state = out[2:-1]
+            total += st.sum(dim=0)
+            most = max(most, int(st[:, 7].max()))
+        v = [int(x) for x in total]
+        v[7] = most
+        print(f"A7 5r chain, all documents and launches: "
+              f"{a7_stats_line(v)}", flush=True)
+        if hasattr(RLM, "blocked_geometry"):
+            last = runners[-1]
+            print("A7 5r last chunk: " + str(RLM.blocked_geometry(
+                s5.n_docs, last.capacity, 64, RLM.BLOCKED_WARPS, dev)),
+                flush=True)
+    ms = cuda_ms(torch, lambda: run_chain(wrapper, runners), reps)
+    print(f"A7 5r: {ms:.3f} ms, {ms * 1e3 / real:.3f} us a real step",
+          flush=True)
+    alone = stream.make_stream_replayers(doc_subset(stream, s5, 16),
+                                         device=dev)
+    ms = cuda_ms(torch, lambda: run_chain(wrapper, alone), reps)
+    print(f"A7 5r: every 16th document alone "
+          f"({len(range(0, s5.n_docs, 16))} documents, about one an SM): "
+          f"{ms:.3f} ms, {ms * 1e3 / real:.3f} us a real step", flush=True)
+    if takes(wrapper, "warps"):
+        for warps in (1, 2, 3, 4):
+            ms = cuda_ms(torch, lambda: run_chain(wrapper, runners,
+                                                  warps=warps), reps)
+            print(f"A7 5r: {warps} documents a block, {ms:.3f} ms, "
+                  f"{ms * 1e3 / real:.3f} us a real step", flush=True)
+
+    if not ok:
+        raise AssertionError("A7 disagrees with its plain version")
+
+
 def main(argv=None) -> int:
-    phases = ("tests", "a10", "a8", "a9", "a2", "a3", "a4", "a6")
+    phases = ("tests", "a10", "a8", "a9", "a2", "a3", "a4", "a6", "a1",
+              "a7")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="*", help=f"any of {phases} (all)")
     ap.add_argument("--reps", type=int, default=3)
@@ -343,10 +477,10 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(),
         flush=True)
-    reports = _kernels.build(["blocked_replay", "blocked_hbm_replay",
-                              "blocked_mixed_replay", "rle_hbm_replay",
-                              "rle_mixed_replay", "rle_lanes",
-                              "rle_lanes_mixed"])
+    reports = _kernels.build([n for n in (
+        "blocked_replay", "blocked_hbm_replay", "blocked_mixed_replay",
+        "rle_hbm_replay", "rle_mixed_replay", "rle_lanes", "rle_lanes_mixed",
+        "rle_replay", "rle_lanes_mixed_blocked") if n in _kernels.sources()])
     for name, report in reports.items():
         print(name, [line.strip() for line in report.splitlines()
                      if "registers" in line or "spill" in line
@@ -429,6 +563,10 @@ def main(argv=None) -> int:
         phase_a4(torch, dev, args.reps)
     if "a6" in args.phases:
         phase_a6(torch, dev, args.reps)
+    if "a1" in args.phases:
+        phase_a1(torch, dev, args.reps)
+    if "a7" in args.phases:
+        phase_a7(torch, dev, args.reps)
     return 0
 
 

@@ -306,6 +306,8 @@ def compare_cases(B, northstar, randedit, TestPatch, np):
         wants.append(gc)
     cases.append(("2 divergent groups, B=16, K=8", groups,
                   dict(capacity=1024, batch=16, block_k=8), wants, None))
+    cases.append(("2 divergent groups, B=8, K=2,048", groups,
+                  dict(capacity=4096, batch=8, block_k=2048), wants, None))
     full, _ = B.compile_local_patches([TestPatch(0, 0, "ab")] * 40, lmax=2)
     cases.append(("block table full -> err[0]", [full],
                   dict(capacity=16, batch=8, block_k=8), None, 0))
@@ -556,6 +558,8 @@ def lanes_cases(B, randedit, common, Patch, ListCRDT, export, np):
     return [
         ("divergent tiebreaks", lanes(tiebreaks), 64, k8, None),
         ("two-peer merges", lanes(two_peer(3)), 512, k16, None),
+        ("two-peer merges, K = 2,048", lanes(two_peer(3)), 4096,
+         dict(capacity=4096, block_k=2048), None),
         ("fragmented and double deletes", lanes(fragmented, lmax=16), 128,
          k8, None),
         ("local and remote in one step", mixed, 256, k16, None),
@@ -677,6 +681,9 @@ def local_lanes_cases(B, randedit, Patch, np):
          dict(capacity=16, block_k=16), 0),
         ("32,768-row columns (29,056 rows in shared memory), K = 1,024",
          divergent(7, docs=4), 32768, dict(capacity=32768, block_k=1024),
+         None),
+        ("K = 2,048 (three documents a thread block on A5)",
+         divergent(9, docs=5), 4096, dict(capacity=4096, block_k=2048),
          None),
     ]
 
@@ -1539,6 +1546,8 @@ def char_compare_cases(B, randedit, TestPatch, np):
         ("delete past the end -> err[1]", [chars(
             [TestPatch(0, 0, "abc"), TestPatch(0, 10, "")])], 64, 8,
          [0, 1, 0]),
+        ("random, lmax 16, K=2,048", [chars(randedit.random_patches(
+            random.Random(9), 600)[0], 16)], 8192, 2048, [0, 0, 0]),
     ]
 
 
@@ -2123,9 +2132,11 @@ def main() -> int:
             B, northstar, randedit, TestPatch, np):
         rep = R.make_replayer_rle(streams, device=dev, **shape)
         plain = R.rle_replay_plain(*rep.staged, **rep.shape)
-        kern = R.rle_replay_cuda(*rep.staged, **rep.shape)
-        torch.cuda.synchronize()
-        err = max_abs_err(kern, plain)
+        err = 0
+        for warps in (1, 2, 4):
+            kern = R.rle_replay_cuda(*rep.staged, **rep.shape, warps=warps)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(kern, plain))
         worst = max(worst, err)
         flags = kern[7][:2].amax(dim=1).tolist()
         if expect_err is None:
@@ -2135,8 +2146,8 @@ def main() -> int:
             text_ok = texts == wants
         else:
             text_ok = flags[expect_err] == 1
-        log(f"compare {label}: max_abs_err {err}, err flags {flags}, "
-            f"{'ok' if err == 0 and text_ok else 'FAILED'}")
+        log(f"compare {label} (1, 2 and 4 warps): max_abs_err {err}, err "
+            f"flags {flags}, {'ok' if err == 0 and text_ok else 'FAILED'}")
         if err != 0 or not text_ok:
             raise AssertionError(f"kernel disagrees on: {label}")
 
@@ -2180,6 +2191,23 @@ def main() -> int:
         raise AssertionError("kernel disagrees at the main path's shape")
     ms = cuda_ms(torch, lambda: R.rle_replay_cuda(*staged, **shape), reps=3)
     ops_per_s = run.stream.n_patches * shape["batch"] / (ms / 1e3)
+    a1_stats = torch.zeros(shape["groups"], shape["batch"], R.STATS,
+                           dtype=torch.int64, device=dev)
+    R.rle_replay_cuda(*staged, **shape, stats=a1_stats)
+    torch.cuda.synchronize()
+    a1_stats = a1_stats[0, 0].tolist()
+    a1_warps = {}
+    for warps in (1, 2, 4):
+        a1_warps[warps] = cuda_ms(torch, lambda: R.rle_replay_cuda(
+            *staged, **shape, warps=warps), reps=3)
+    a1_geometry = dict(
+        thread_blocks=shape["groups"] * shape["batch"], warps=R.WARPS,
+        smem=R.kernel_smem_bytes(shape["block_k"],
+                                 max(8, shape["capacity"]
+                                     // shape["block_k"])))
+    log(f"replay counters (lane 0): {R.describe_stats(a1_stats)}; launch "
+        f"geometry {a1_geometry}; median at 1, 2, 4 warps a lane: "
+        + ", ".join(f"{w}: {t:.3f} ms" for w, t in a1_warps.items()))
 
     G, S, Bn, CAP = (shape["groups"], shape["steps"], shape["batch"],
                      shape["capacity"])
@@ -2196,7 +2224,8 @@ def main() -> int:
     log(f"replay: median {ms:.3f} ms over 3 reps after 1 warm-up (CUDA "
         f"events); {ops_per_s:.4g} patches/s ({run.stream.n_patches} x "
         f"{Bn} docs); {active} device steps; plain version {plain_ms:.1f} "
-        f"ms; bound {max(bytes_ms, ops_ms):.4f} ms; on {card}")
+        f"ms; bound {max(bytes_ms, ops_ms):.4f} ms ({bytes_ms:.4f} ms by "
+        f"bytes, {ops_ms:.4f} ms by operations); on {card}")
 
     rle_line = {
         "name": "rle_replay",
@@ -2211,10 +2240,20 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_bytes_ms": bytes_ms,
+        "bound_ops_ms": ops_ms,
         "library_ms": None,
         "bytes": nbytes,
         "ops_lower_bound": nops,
         "serial_steps": active,
+        "stats": dict(zip(("splits", "window_loads", "successor_peeks",
+                           "steps", "cycles_slot_locate",
+                           "cycles_run_locate", "cycles_insert_splice",
+                           "cycles_delete", "cycles_split",
+                           "cycles_window_load", "cycles_write_out",
+                           "cycles_all"), a1_stats)),
+        "geometry": a1_geometry,
+        "ms_by_warps": a1_warps,
     }
 
     # -- the mixed replay against its plain version, small shapes ----------
@@ -2480,6 +2519,37 @@ def main() -> int:
         raise AssertionError("blocked kernel disagrees at the 5r shapes")
     ms7 = cuda_ms(torch, lambda: chain(RLM.lanes_mixed_blocked_replay_cuda,
                                        runners7, lambda o: o[2:-1]), reps=3)
+    # The counters over the whole chain (the most probes: the chain's most).
+    a7_stats = torch.zeros(RLM.BLOCKED_STATS, dtype=torch.int64, device=dev)
+    a7_most, state = 0, None
+    for run in runners7:
+        ini = run.initial() if state is None else run.grow(state)
+        st = torch.zeros(s5.n_docs, RLM.BLOCKED_STATS, dtype=torch.int64,
+                         device=dev)
+        out = RLM.lanes_mixed_blocked_replay_cuda(
+            *run.staged, *ini, *run.deltas, **run.shape, stats=st)
+        a7_stats += st.sum(dim=0)
+        a7_most = max(a7_most, int(st[:, 7].max()))
+        state = out[2:-1]
+    a7_stats = [int(v) for v in a7_stats]
+    a7_stats[7] = a7_most
+    a7_geometry = RLM.blocked_geometry(s5.n_docs, runners7[-1].capacity, 64,
+                                       RLM.BLOCKED_WARPS, dev)
+    look, ins = max(a7_stats[1], 1), max(a7_stats[5], 1)
+    log(f"5r blocked chain counters (all documents and launches): "
+        f"{a7_stats[0]} steps with work; {a7_stats[1]} order lookups "
+        f"(hint hits {a7_stats[2] / look:.4f}, forward hops "
+        f"{a7_stats[3] / look:.4f}, searches over the blocks in use "
+        f"{a7_stats[4] / look:.4f}); {a7_stats[6] / ins:.3f} YATA probes a "
+        f"remote insert ({a7_stats[7]} at most); {a7_stats[8]} splits; "
+        f"{a7_stats[9] / max(a7_stats[0], 1):.3f} block gathers a step; "
+        f"cycle shares: lookups {a7_stats[11] / max(a7_stats[15], 1):.4f}, "
+        f"YATA walk {a7_stats[12] / max(a7_stats[15], 1):.4f}, splices "
+        f"{a7_stats[13] / max(a7_stats[15], 1):.4f}, deletes "
+        f"{a7_stats[14] / max(a7_stats[15], 1):.4f}; "
+        f"whole-plane searches passed {a7_stats[18]} blocks in use "
+        f"({a7_stats[18] / max(a7_stats[4], 1):.2f} a search); last "
+        f"chunk's launch geometry {a7_geometry}")
     samples = []
     state = None
     for run, real in zip(runners7, s5.real_steps):
@@ -2507,7 +2577,8 @@ def main() -> int:
         f"checkpoints {run5.stats.ckpt_ms:.1f} ms ({run5.stats.resyncs}); "
         f"{s5.steps} device steps ({steps7} doc-steps with work); plain "
         f"chain {plain7_ms:.1f} ms; bound {max(bb7, bo7):.4f} ms ({bytes7} "
-        f"B, {ops7} ops); on {card}")
+        f"B, {ops7} ops: {bb7:.4f} ms by bytes, {bo7:.4f} ms by "
+        f"operations); on {card}")
 
     # -- the un-blocked kernel on the same stream ----------------------------
     runners6 = stream.make_stream_replayers(s5, engine="unblocked",
@@ -2651,9 +2722,18 @@ def main() -> int:
         "plain_docs": sub7.n_docs,
         "bound_ms": max(bb7, bo7),
         "bound_by": "bytes" if bb7 >= bo7 else "operations",
+        "bound_bytes_ms": bb7,
+        "bound_ops_ms": bo7,
         "library_ms": None,
         "bytes": bytes7,
         "ops_lower_bound": ops7,
+        "stats": dict(zip((
+            "steps", "lookups", "hint_hits", "hop_hits", "searches",
+            "remote_inserts", "probes", "most_probes", "splits", "gathers",
+            "verifies", "cycles_lookups", "cycles_yata", "cycles_splices",
+            "cycles_deletes", "cycles_all", "blocks_in_use",
+            "blocks_holding_runs", "blocks_searched"), a7_stats)),
+        "geometry": a7_geometry,
         "char_ops_per_s": rate7,
         "p50_step_us": p50,
         "p99_step_us": p99,

@@ -182,8 +182,8 @@ def test_replay_at_k2048_matches_jax():
 
 
 def test_kernel_limits_checked_before_launch():
-    """The kernel takes K up to 2,048 (A8's keeps its 1,024) and 1-16
-    warps; both are refused before anything is built."""
+    """The kernel takes K up to 2,048 (A8's too) and 1-16 warps; both
+    are refused before anything is built."""
     import torch
 
     col = torch.zeros(4, dtype=torch.int32)
@@ -194,9 +194,9 @@ def test_kernel_limits_checked_before_launch():
     with pytest.raises(ValueError, match="warps"):
         TBH.blocked_hbm_replay_cuda(col, col, col, col, block_k=2048,
                                     warps=0, **shape)
-    with pytest.raises(ValueError, match=r"\[8, 1024\]"):
+    with pytest.raises(ValueError, match=r"\[8, 2048\]"):
         TBL.blocked_replay_cuda(col, col, col, col, steps=4, batch=8,
-                                capacity=8192, block_k=2048, lmax=4)
+                                capacity=8192, block_k=4096, lmax=4)
     # Tables, cache tags and four cached blocks.
     assert TBH.kernel_smem_bytes(1024, 16, 512) == 4 * (
         TBL.table_ints(1024, 16) + 2 * TBH.SLOTS + TBH.SLOTS * 512)

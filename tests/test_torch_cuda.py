@@ -57,22 +57,34 @@ CASES = {
     "bad-delete": lambda: (
         [_compile([TestPatch(0, 0, "abc"), TestPatch(0, 10, "")])],
         dict(capacity=32, block_k=8)),
+    "random-k2048": lambda: ([_random(7, 400)],
+                             dict(capacity=4096, block_k=2048)),
+    "groups-k2048": lambda: ([_random(8, 300), _random(9, 200)],
+                             dict(capacity=4096, block_k=2048, batch=3)),
 }
 
 
+@pytest.mark.parametrize("warps", [1, 2, 4])
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_kernel_matches_plain(card, name):
+def test_kernel_matches_plain(card, name, warps):
     streams, shape = CASES[name]()
     shape.setdefault("batch", 8)
     rep = TR.make_replayer_rle(streams, device=card, chunk=128, **shape)
     plain = TR.rle_replay_plain(*rep.staged, **rep.shape)
     before = _kernels.launches.get("rle_replay", 0)
-    kern = TR.rle_replay_cuda(*rep.staged, **rep.shape)
+    stats = torch.zeros(rep.shape["groups"], rep.shape["batch"], TR.STATS,
+                        dtype=torch.int64, device=card)
+    kern = TR.rle_replay_cuda(*rep.staged, **rep.shape, warps=warps,
+                              stats=stats if warps == 2 else None)
     torch.cuda.synchronize()
     assert _kernels.launches["rle_replay"] == before + 1
     for k, p in zip(kern, plain):
         assert k.dtype == p.dtype and k.shape == p.shape
         assert torch.equal(k, p)
+    if warps == 2:  # every chain counts its steps with work
+        steps = int(((rep.staged[1] > 0) | (rep.staged[2] > 0))
+                    .reshape(rep.shape["groups"], -1).sum(dim=1)[0])
+        assert int(stats[0, 0, 3]) == steps
 
 
 def _storm(n_peers, rounds, run_len, del_prob):
@@ -215,7 +227,67 @@ LANES_CASES = {
     "stale-rows-remote": lambda: (_stream5r()[1],
                                   dict(capacity=256, block_k=8),
                                   _stream5r()[0], True),
+    "two-peer-k2048": lambda: (_lanes([randedit.make_two_peer_merge(s)[0]
+                                       for s in (402, 403)]),
+                               dict(capacity=4096, block_k=2048)),
 }
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4])
+@pytest.mark.parametrize("name", ["storms-k8", "two-peer-k16", "local-k8",
+                                  "stale-rows-remote", "overflow-wrap"])
+def test_blocked_lanes_kernel_warps(card, name, warps):
+    """A7 at 1, 2 and 4 documents a thread block, with its counters."""
+    from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as RLM
+
+    ops, shape, *warm = LANES_CASES[name]()
+    make = RLM.make_replayer_lanes_mixed_blocked
+    init = None
+    if warm:
+        init = _warm_state(make, RLM.lanes_mixed_blocked_replay_plain,
+                           warm[0], card, False, **shape)
+    rep = make(ops, chunk=16, device=card, init=init, **shape)
+    args = (*rep.staged, *rep.initial(), *rep.deltas)
+    plain = RLM.lanes_mixed_blocked_replay_plain(*args, **rep.shape)
+    B = ops.kind.shape[1]
+    stats = torch.zeros(B, RLM.BLOCKED_STATS, dtype=torch.int64, device=card)
+    kern = RLM.lanes_mixed_blocked_replay_cuda(*args, **rep.shape,
+                                               warps=warps, stats=stats)
+    torch.cuda.synchronize()
+    for k, p in zip(kern, plain):
+        assert torch.equal(k, p)
+    assert torch.equal(stats[:, 16].cpu(), plain[4][0].long().cpu())
+    assert bool((stats[:, 17] <= plain[2].shape[0] // shape["block_k"])
+                .all())
+
+
+def _stale_past_rws(state):
+    """One row past ``rws`` left in slot 0's block of every lane with two
+    rows there."""
+    st = list(state)
+    st[4] = st[4].clone()
+    st[4][0] = torch.where(st[4][0] >= 2, st[4][0] - 1, st[4][0])
+    return tuple(st)
+
+
+@pytest.mark.parametrize("warps", [1, 4])
+def test_blocked_lanes_kernel_rows_past_rws(card, warps):
+    """A7 from a warm state with nonzero rows past ``rws``: the bounded
+    search must still find what the whole-plane search finds."""
+    from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as RLM
+
+    make = RLM.make_replayer_lanes_mixed_blocked
+    warm = _warm_state(make, RLM.lanes_mixed_blocked_replay_plain,
+                       _stream5r()[0], card, False, capacity=256, block_k=8)
+    rep = make(_stream5r()[1], chunk=16, device=card, capacity=256,
+               block_k=8, init=_stale_past_rws(warm))
+    args = (*rep.staged, *rep.initial(), *rep.deltas)
+    plain = RLM.lanes_mixed_blocked_replay_plain(*args, **rep.shape)
+    kern = RLM.lanes_mixed_blocked_replay_cuda(*args, **rep.shape,
+                                               warps=warps)
+    torch.cuda.synchronize()
+    for k, p in zip(kern, plain):
+        assert torch.equal(k, p)
 
 
 @pytest.mark.parametrize("name", sorted(LANES_CASES))
@@ -291,6 +363,9 @@ LOCAL_LANES_CASES = {
     "capacity-past-shared-memory": lambda: (_local_streams((1, 2, 3)),
                                             32768, 1024),
     "stale-rows": lambda: (_stream5()[1], 256, 8, _stream5()[0], True),
+    # Three documents a thread block at K = 2,048 (7 K ints each).
+    "random-k2048": lambda: (_local_streams((9, 10, 11, 12, 13), 120),
+                             4096, 2048),
 }
 
 
@@ -469,6 +544,7 @@ BLOCKED_CASES = {
     "bad-delete": lambda: (
         [_chars([TestPatch(0, 0, "abc"), TestPatch(0, 10, "")])], 64, 8,
         [0, 1, 0]),
+    "random-k2048": lambda: ([_char_random(9, 600)], 8192, 2048, [0, 0, 0]),
 }
 
 

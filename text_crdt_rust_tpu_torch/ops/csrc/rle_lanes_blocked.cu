@@ -54,7 +54,8 @@ namespace {
 
 using namespace lanes;
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kWarpsPerBlock = 4;  // most documents a thread block
+constexpr int kSmemLimit = 232448;  // shared memory of one thread block
 
 // One document's replay state, held by its warp.
 struct Doc {
@@ -337,7 +338,7 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) lanes_blocked_kernel(
     int* __restrict__ wsL, int S, int B, int CAP, int K, int NBT, int WMAX) {
   extern __shared__ int smem[];
   const int warp = threadIdx.x >> 5, lane = lane_id();
-  const int b = blockIdx.x * kWarpsPerBlock + warp;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // whole warps only: no collective is split
   int* my = smem + warp * (5 * NBT + 7 * K);
   Doc d;
@@ -412,8 +413,14 @@ extern "C" int rle_lanes_blocked_launch(
   int* wsL = scratch + (long long)B * CAP;
   lanes::launch_transpose(ord0, wsO, CAP, B, st);
   lanes::launch_transpose(len0, wsL, CAP, B, st);
-  const size_t smem =
-      (size_t)kWarpsPerBlock * (5 * NBT + 7 * K) * sizeof(int);
+  // A warp's slot tables and block scratch: at large K (7 K ints a warp)
+  // fewer documents share a thread block.
+  const size_t per_warp = (size_t)(5 * NBT + 7 * K) * sizeof(int);
+  const int warps = (int)(kSmemLimit / per_warp) < kWarpsPerBlock
+                        ? (int)(kSmemLimit / per_warp)
+                        : kWarpsPerBlock;
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)warps * per_warp;
   cudaError_t e;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(lanes_blocked_kernel,
@@ -421,8 +428,8 @@ extern "C" int rle_lanes_blocked_launch(
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  lanes_blocked_kernel<<<blocks, 32 * kWarpsPerBlock, smem, st>>>(
+  const int blocks = (B + warps - 1) / warps;
+  lanes_blocked_kernel<<<blocks, 32 * warps, smem, st>>>(
       pos, dlen, ilen, start, wcol, nlog0, blk0, rws0, liv0, ol, orr, nlog,
       blk, rws, liv, err, wsO, wsL, S, B, CAP, K, NBT, WMAX);
   e = cudaGetLastError();

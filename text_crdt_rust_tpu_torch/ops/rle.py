@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -410,14 +411,56 @@ def rle_replay_plain(pos, dlen, ilen, start, wcol, *, groups: int,
 
 _KERNEL = "rle_replay"
 _LAUNCH = "rle_replay_launch"
-_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# 5 op columns, 8 outputs, the two working planes, stats; G, S, B, CAP, K,
+# NB, NBL, WMAX, warps, shared memory; the stream.
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+#: Per-chain counters of ``stats``: splits, window loads (the steps that
+#: edit another block than the one before), successor peeks (an insert's
+#: raw successor read from the next slot's head), steps with work; then
+#: ``clock64`` cycles in the slot locates, the run locates, the insert
+#: splices, the delete passes, the splits, the window loads, the final
+#: write-out in the kernel, and in all.
+STATS = 12
+#: Largest K the kernel takes: its passes loop over a block 32 rows at a
+#: time, the window and scratch rows take 16 KB a K of 1,024.
+KMAX_KERNEL = 2048
+#: Warps of a thread block by default: warp 0 runs the chain, the others
+#: help with whole-block passes (``chip_smoke.py`` times 1, 2 and 4).
+WARPS = 1
+#: Shared memory one thread block may use on an H100 (232,448 bytes).
+SMEM_LIMIT = 232448
+
+
+def kernel_smem_bytes(block_k: int, nbl: int) -> int:
+    """Shared memory of one thread block, passed to the launcher: the
+    window and the delete scratch (K rows each, twice), the four slot
+    tables and the heads table (NBL each), and 40 ints of job arguments
+    and results (the layout of ``rle_replay_kernel``'s ``smem``)."""
+    return 4 * (4 * block_k + 5 * nbl + 40)
+
+
+def describe_stats(v) -> str:
+    """One chain's ``stats`` row as a line of text."""
+    tot = max(int(v[11]), 1)
+    steps = max(int(v[3]), 1)
+    names = ("slot locates", "run locates", "insert splices",
+             "delete passes", "splits", "window loads", "write-out")
+    shares = ", ".join(f"{n} {int(v[4 + i]) / tot:.4f}"
+                       for i, n in enumerate(names))
+    return (f"{int(v[3])} steps with work, {int(v[0])} splits, {int(v[1])} "
+            f"window loads ({int(v[1]) / steps:.4f} a step), {int(v[2])} "
+            f"successor peeks; {tot / steps:.0f} cycles a step; cycle "
+            f"shares: {shares}")
 
 
 def rle_replay_cuda(pos, dlen, ilen, start, wcol, *, groups: int,
                     steps: int, batch: int, capacity: int, block_k: int,
-                    wmax: int):
+                    wmax: int, warps: Optional[int] = None, stats=None):
     """Launch ``ops/csrc/rle_replay.cu`` on PyTorch's current stream.
-    Same arguments and results as ``rle_replay_plain``."""
+    Same arguments and results as ``rle_replay_plain``. ``warps`` sizes
+    the thread block (1-16; by default ``WARPS``); ``stats``, an int64
+    ``[groups, batch, STATS]`` tensor on the card, receives each chain's
+    counters."""
     G, S, B, CAP, K = groups, steps, batch, capacity, block_k
     NB = CAP // K
     NBL = max(8, NB)
@@ -426,7 +469,20 @@ def rle_replay_cuda(pos, dlen, ilen, start, wcol, *, groups: int,
         _require(c.device == dev and c.dtype == I32 and c.is_contiguous()
                  and c.shape == (G * S,),
                  "op columns must be contiguous int32 [G*S] on one device")
-    _require(8 <= K <= 1024, "block_k must lie in [8, 1024] for the kernel")
+    _require(8 <= K <= KMAX_KERNEL,
+             f"block_k must lie in [8, {KMAX_KERNEL}] for the kernel")
+    warps = WARPS if warps is None else warps
+    _require(1 <= warps <= 16, "warps must lie in [1, 16]")
+    _require(stats is None or (stats.device == dev
+                               and stats.dtype == torch.int64
+                               and stats.is_contiguous()
+                               and stats.shape == (G, B, STATS)),
+             f"stats must be a contiguous int64 [{G}, {B}, {STATS}] on the "
+             f"card")
+    smem = kernel_smem_bytes(K, NBL)
+    _require(smem <= SMEM_LIMIT,
+             f"the slot tables of {NB} blocks and a {K}-row window need "
+             f"{smem} B of shared memory (limit {SMEM_LIMIT})")
     ol = torch.zeros(G, S, B, dtype=I32, device=dev)
     orr = torch.zeros_like(ol)
     ordp = torch.empty(G * CAP, B, dtype=I32, device=dev)
@@ -435,16 +491,18 @@ def rle_replay_cuda(pos, dlen, ilen, start, wcol, *, groups: int,
     rows_out = torch.empty_like(blk_out)
     meta_out = torch.empty(G, 8, B, dtype=I32, device=dev)
     err = torch.zeros(8, B, dtype=I32, device=dev)
-    # Lane-major working planes [G, B, CAP]: one thread block's rows are
-    # contiguous; the kernel transposes into ordp/lenp once at the end.
+    # Lane-major working planes [G, B, CAP]: one lane's block is K
+    # contiguous ints; the launcher transposes them into ordp/lenp at the
+    # end. Only the blocks in use are written, block 0 by the kernel.
     work_o = torch.empty(G, B, CAP, dtype=I32, device=dev)
     work_l = torch.empty_like(work_o)
     fn = _kernels.function(_KERNEL, _LAUNCH, _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     tensors = (pos, dlen, ilen, start, wcol, ol, orr, ordp, lenp, blk_out,
                rows_out, meta_out, err, work_o, work_l)
-    code = fn(*(t.data_ptr() for t in tensors), G, S, B, CAP, K, NB, NBL,
-              wmax, stream)
+    code = fn(*(t.data_ptr() for t in tensors),
+              None if stats is None else stats.data_ptr(), G, S, B, CAP, K,
+              NB, NBL, wmax, warps, smem, stream)
     _kernels.check(_KERNEL, code)
     _kernels.count_launch(_KERNEL)
     return ol, orr, ordp, lenp, blk_out, rows_out, meta_out, err

@@ -494,6 +494,10 @@ WARPS = 1
 MIN_ROWS_ON_CHIP = 512
 
 _BKERNEL = "rle_lanes_blocked"
+#: Largest K of the blocked kernel: its passes loop over a block 32 rows a
+#: time; its 7 K ints of block scratch a document leave fewer documents a
+#: thread block at large K (three at 2,048).
+BLOCKED_KMAX = 2048
 _BLAUNCH = "rle_lanes_blocked_launch"
 # 5 op columns, 6 inputs, 9 outputs, the scratch planes; S, B, CAP, K, NBT,
 # WMAX; the stream.
@@ -625,9 +629,12 @@ def lanes_blocked_replay_cuda(pos, dlen, ilen, start, wcol, ord0, len0,
     _check_cols((ord0, len0), dev, CAP, B, "run planes")
     _check_cols((nlog0,), dev, 1, B, "nlog")
     _check_cols((blk0, rws0, liv0), dev, NBT, B, "slot tables")
-    _require(S >= 1 and 8 <= K <= 1024 and CAP % K == 0 and wmax >= 1,
-             "bad replay shape")
+    _require(S >= 1 and 8 <= K <= BLOCKED_KMAX and CAP % K == 0
+             and wmax >= 1, "bad replay shape")
     _require(NBT == max(8, CAP // K), "slot tables must hold max(8, NB) rows")
+    _require(4 * (5 * NBT + 7 * K) <= SMEM_LIMIT,
+             f"a document's slot tables ({NBT} rows) and {K}-row block "
+             f"scratch must fit {SMEM_LIMIT} B of shared memory")
 
     def out(r):
         return torch.empty(r, B, dtype=I32, device=dev)

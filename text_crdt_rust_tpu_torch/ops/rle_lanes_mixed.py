@@ -63,6 +63,7 @@ from .lane_blocks import (
 )
 from .rle_lanes import (
     ROOT_I,
+    SMEM_LIMIT,
     LanesResult,
     _as_i32,
     _check_cols,
@@ -880,10 +881,51 @@ STATS = 6
 
 _BKERNEL = "rle_lanes_mixed_blocked"
 _BLAUNCH = "rle_lanes_mixed_blocked_launch"
-# 10 op columns, 14 inputs, 14 outputs, the scratch planes; S, B, CAP, K,
-# NBT, OCAP, WMAX; the stream.
-_BARGTYPES = [ctypes.c_void_p] * 39 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# 10 op columns, 14 inputs, 14 outputs, the scratch planes, stats; S, B,
+# CAP, K, NBT, OCAP, WMAX, warps; the stream.
+_BARGTYPES = [ctypes.c_void_p] * 40 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _BSCRATCH_PLANES = 2  # lane-major [B, CAP]: ordp, lenp
+#: Per-document counters of the blocked kernel's ``stats``: steps with
+#: work, order lookups, hint hits, forward-hop hits, whole-plane searches,
+#: remote inserts, YATA probes, the most probes of one insert, splits,
+#: block gathers, block verifies; then ``clock64`` cycles in lookups, in
+#: the YATA walk (its lookups included), in inserts' splices, in deletes
+#: (a remote delete's lookups included) and in all steps; then the blocks
+#: in use at the end, the blocks holding a run at the end (the bound of
+#: the whole-plane search) and the blocks the searches passed.
+BLOCKED_STATS = 19
+#: Most documents (one warp each) in a thread block of the blocked kernel,
+#: and the default (``chip_smoke.py`` times 1-4 at 5r).
+BLOCKED_MAX_WARPS = 4
+BLOCKED_WARPS = 4
+#: Largest K the blocked kernel takes (its scratch is 6 K ints a warp, so
+#: at K = 2,048 at most four documents share a thread block).
+BLOCKED_KMAX = 2048
+
+
+def blocked_warp_bytes(block_k: int, nbt: int) -> int:
+    """Shared memory of one document (warp) of the blocked kernel: its
+    counters, the slot tables and the block scratch (``warp_region`` in
+    the kernel)."""
+    return 4 * (2 * BLOCKED_STATS + 8 * nbt + 6 * block_k)
+
+
+def blocked_geometry(batch: int, capacity: int, block_k: int, warps: int,
+                     dev) -> dict:
+    """How the blocked kernel lays out ``batch`` documents of ``capacity``
+    rows at ``warps`` documents a thread block: a thread block's shared
+    memory, the blocks an SM holds at once (the CUDA occupancy
+    calculator) and the waves of thread blocks."""
+    nbt = max(8, capacity // block_k)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fn = _kernels.library(_BKERNEL).rle_lanes_mixed_blocked_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    per_sm = fn(warps, block_k, nbt)
+    n = -(-batch // warps)
+    return dict(warps=warps, smem=warps * blocked_warp_bytes(block_k, nbt),
+                blocks_per_sm=per_sm,
+                waves=-(-n // (per_sm * sms)) if per_sm > 0 else None)
 
 
 def lanes_mixed_replay_cuda(kind, pos, dlen, dtgt, olop, orop, rank, ilen,
@@ -933,10 +975,14 @@ def lanes_mixed_replay_cuda(kind, pos, dlen, dtgt, olop, orop, rank, ilen,
 def lanes_mixed_blocked_replay_cuda(
         kind, pos, dlen, dtgt, olop, orop, rank, ilen, start, wcol,
         ord0, len0, nlog0, blk0, rws0, liv0, raw0, oll0, orl0, ordblk0,
-        fwd0, olld, orld, rkl, *, block_k: int, wmax: int):
+        fwd0, olld, orld, rkl, *, block_k: int, wmax: int,
+        warps: Optional[int] = None, stats=None):
     """Launch ``ops/csrc/rle_lanes_mixed_blocked.cu`` on PyTorch's current
     stream. Same arguments and results as
-    ``lanes_mixed_blocked_replay_plain``."""
+    ``lanes_mixed_blocked_replay_plain``. ``warps`` sets the documents of
+    a thread block (1-4; by default ``BLOCKED_WARPS``, fewer where their
+    scratch would not fit); ``stats``, an int64 ``[B, BLOCKED_STATS]``
+    tensor on the card, receives each document's counters."""
     S, B = kind.shape
     CAP, NBT, OCAP = ord0.shape[0], blk0.shape[0], oll0.shape[0]
     K = block_k
@@ -948,9 +994,16 @@ def lanes_mixed_blocked_replay_cuda(
     _check_cols((blk0, rws0, liv0, raw0, fwd0), dev, NBT, B, "slot tables")
     _check_cols((oll0, orl0, ordblk0, olld, orld, rkl), dev, OCAP, B,
                 "order tables")
-    _require(S >= 1 and 8 <= K <= 1024 and CAP % K == 0 and wmax >= 1,
-             "bad replay shape")
+    _require(S >= 1 and 8 <= K <= BLOCKED_KMAX and CAP % K == 0
+             and wmax >= 1, "bad replay shape")
     _require(NBT == max(8, CAP // K), "slot tables must hold max(8, NB) rows")
+    if warps is None:
+        warps = max(1, min(BLOCKED_WARPS,
+                           SMEM_LIMIT // blocked_warp_bytes(K, NBT)))
+    _require(1 <= warps <= BLOCKED_MAX_WARPS
+             and warps * blocked_warp_bytes(K, NBT) <= SMEM_LIMIT,
+             f"warps must lie in [1, {BLOCKED_MAX_WARPS}] and their "
+             f"documents fit {SMEM_LIMIT} B of shared memory")
 
     def out(r):
         return torch.empty(r, B, dtype=I32, device=dev)
@@ -963,8 +1016,15 @@ def lanes_mixed_blocked_replay_cuda(
     stream = torch.cuda.current_stream(dev).cuda_stream
     tensors = (*cols, ord0, len0, nlog0, blk0, rws0, liv0, raw0, oll0, orl0,
                ordblk0, fwd0, olld, orld, rkl, *outs, scratch)
-    code = fn(*(t.data_ptr() for t in tensors), S, B, CAP, K, NBT, OCAP,
-              wmax, stream)
+    _require(stats is None or (stats.device == dev
+                               and stats.dtype == torch.int64
+                               and stats.is_contiguous()
+                               and tuple(stats.shape) == (B, BLOCKED_STATS)),
+             f"stats must be a contiguous int64 [{B}, {BLOCKED_STATS}] on "
+             f"the card")
+    code = fn(*(t.data_ptr() for t in tensors),
+              None if stats is None else stats.data_ptr(), S, B, CAP, K, NBT,
+              OCAP, wmax, warps, stream)
     _kernels.check(_BKERNEL, code)
     _kernels.count_launch(_BKERNEL)
     return outs
