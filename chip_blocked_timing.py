@@ -1,7 +1,7 @@
-"""Time the redesigned kernels (A1-A4, A6-A10) on one NVIDIA card.
+"""Time the redesigned kernels (A1-A10) on one NVIDIA card.
 
     python3 chip_blocked_timing.py [tests] [a10] [a8] [a9] [a2] [a3] [a4]
-        [a6] [a1] [a7] [--reps N]
+        [a6] [a1] [a7] [a5] [--reps N]
 
 A quicker loop than ``chip_smoke.py`` while redesigning those kernels:
 it builds them (printing ptxas's registers and spills), then runs the
@@ -41,7 +41,15 @@ named phases, all by default:
 - ``a7``: config 5r through ``run_stream()``, the chain of 8 A7 launches
   against its plain chain on every 256th document, its counters summed
   over the chain, and its median time at 1-4 documents a thread block
-  and on every 16th document alone.
+  and on every 16th document alone;
+- ``a5``: config 5 (2,048 documents x 8 chunks x 100 local patches)
+  through ``run_stream_5()``, the chain of 8 A5 launches against its
+  plain chain on all documents, its counters summed over the chain, and
+  its median time at 1-4 documents a thread block, with the rows in
+  shared memory and in device memory, and on every 16th document alone;
+  each chain also timed with its launches queued ahead of the card (a
+  sleep kernel first), which leaves out the gaps in which the card waits
+  for the host between launches.
 
 Times are medians of ``--reps`` runs (3) after 1 warm-up, CUDA events.
 The plain versions are not timed here; ``chip_smoke.py`` holds every
@@ -66,12 +74,19 @@ import subprocess
 import sys
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
+def cuda_ms(torch, fn, reps: int, queued: bool = False) -> float:
+    """Median time of ``fn`` over ``reps`` runs after 1 warm-up, CUDA
+    events. ``queued``: a 50 ms sleep kernel is queued before each run, so
+    that the host has queued all of ``fn``'s launches before the card
+    reaches them: the time is then the card's alone, without the gaps in
+    which it waits for the host between launches."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(100_000_000)
         start.record()
         fn()
         end.record()
@@ -450,9 +465,78 @@ def phase_a7(torch, dev, reps):
         raise AssertionError("A7 disagrees with its plain version")
 
 
+def phase_a5(torch, dev, reps):
+    """Config 5 (2,048 documents x 8 chunks x 100 local patches) through
+    ``run_stream_5()``, the chain of 8 A5 launches against its plain chain
+    on all documents, its counters, then the chain's median time at 1-4
+    documents a thread block (with the rows in shared memory and in
+    device memory, where the wrapper offers both) and on every 16th
+    document alone."""
+    from text_crdt_rust_tpu_torch import stream
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    from text_crdt_rust_tpu_torch.ops import rle_lanes as RL
+
+    s5 = stream.make_stream_5()
+    _kernels.reset_launches()
+    run = stream.run_stream_5(stream=s5, device=dev)
+    torch.cuda.synchronize()
+    print(f"A5 config 5: launches {dict(_kernels.launches)}, texts ok "
+          f"{run.ok}", flush=True)
+    del run
+    runners = stream.stream_replayers_5(s5, device=dev)
+    wrapper = RL.lanes_blocked_replay_cuda
+    kern = run_chain(wrapper, runners)
+    plain = run_chain(RL.lanes_blocked_replay_plain, runners)
+    ok = chain_equal(torch, kern, plain)
+    print(f"A5 config 5: the chain equals its plain chain on all "
+          f"{s5.n_docs} documents: {ok}", flush=True)
+    del kern, plain
+    real = sum(s5.real_steps)
+    n_stats = getattr(RL, "BLOCKED_STATS", 0)
+    if takes(wrapper, "stats") and n_stats:
+        total = torch.zeros(n_stats, dtype=torch.int64, device=dev)
+        state = None
+        for run in runners:
+            ini = run.initial() if state is None else run.grow(state)
+            st = torch.zeros(s5.n_docs, n_stats, dtype=torch.int64,
+                             device=dev)
+            state = wrapper(*run.staged, *ini, **run.shape, stats=st)[2:-1]
+            total += st.sum(dim=0)
+        print(f"A5 config 5 chain, all documents and launches: "
+              f"{RL.describe_blocked_stats(total.tolist())}", flush=True)
+    ms = cuda_ms(torch, lambda: run_chain(wrapper, runners), reps)
+    print(f"A5 config 5: {ms:.3f} ms, {ms * 1e3 / real:.3f} us a real step",
+          flush=True)
+    alone = stream.stream_replayers_5(doc_subset(stream, s5, 16), device=dev)
+    ms = cuda_ms(torch, lambda: run_chain(wrapper, alone), reps)
+    print(f"A5 config 5: every 16th document alone "
+          f"({len(range(0, s5.n_docs, 16))} documents, about one an SM): "
+          f"{ms:.3f} ms, {ms * 1e3 / real:.3f} us a real step", flush=True)
+    ms = cuda_ms(torch, lambda: run_chain(wrapper, runners), reps,
+                 queued=True)
+    print(f"A5 config 5: {ms:.3f} ms with the launches queued ahead (the "
+          f"card's time alone)", flush=True)
+    if takes(wrapper, "warps"):
+        places = (True, False) if takes(wrapper, "on_chip") else (None,)
+        for on_chip in places:
+            kw = {} if on_chip is None else dict(on_chip=on_chip)
+            where = {None: "", True: ", rows in shared memory",
+                     False: ", rows in device memory"}[on_chip]
+            for warps in (1, 2, 3, 4):
+                ms = cuda_ms(torch, lambda: run_chain(
+                    wrapper, runners, warps=warps, **kw), reps)
+                mq = cuda_ms(torch, lambda: run_chain(
+                    wrapper, runners, warps=warps, **kw), reps, queued=True)
+                print(f"A5 config 5: {warps} documents a block{where}, "
+                      f"{ms:.3f} ms, {ms * 1e3 / real:.3f} us a real step; "
+                      f"queued ahead {mq:.3f} ms", flush=True)
+    if not ok:
+        raise AssertionError("A5 disagrees with its plain version")
+
+
 def main(argv=None) -> int:
     phases = ("tests", "a10", "a8", "a9", "a2", "a3", "a4", "a6", "a1",
-              "a7")
+              "a7", "a5")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="*", help=f"any of {phases} (all)")
     ap.add_argument("--reps", type=int, default=3)
@@ -480,7 +564,8 @@ def main(argv=None) -> int:
     reports = _kernels.build([n for n in (
         "blocked_replay", "blocked_hbm_replay", "blocked_mixed_replay",
         "rle_hbm_replay", "rle_mixed_replay", "rle_lanes", "rle_lanes_mixed",
-        "rle_replay", "rle_lanes_mixed_blocked") if n in _kernels.sources()])
+        "rle_replay", "rle_lanes_mixed_blocked", "rle_lanes_blocked")
+        if n in _kernels.sources()])
     for name, report in reports.items():
         print(name, [line.strip() for line in report.splitlines()
                      if "registers" in line or "spill" in line
@@ -567,6 +652,8 @@ def main(argv=None) -> int:
         phase_a1(torch, dev, args.reps)
     if "a7" in args.phases:
         phase_a7(torch, dev, args.reps)
+    if "a5" in args.phases:
+        phase_a5(torch, dev, args.reps)
     return 0
 
 

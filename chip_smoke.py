@@ -4,11 +4,16 @@
 
 1. Prints the card's name and power limit (``nvidia-smi``).
 2. Builds every CUDA kernel of the port from the sources in
-   ``text_crdt_rust_tpu_torch/ops/csrc`` (timed as set-up).
+   ``text_crdt_rust_tpu_torch/ops/csrc`` (timed as set-up), then starts
+   the child processes of the CPU plain checks (``os.cpu_count()`` less
+   one, at most seven, one thread each; printed): A9's, A10's and A8's
+   at once, the 5r plain chains' shards once the 5r stream exists.
 3. Holds each kernel against its plain PyTorch version on the card, on
    the same inputs, bit for bit (the replay state is integers): a fused
-   trace prefix, fused prepend bursts (W > 2), two divergent doc groups,
-   and the two error cases (block table full, delete past the end).
+   trace prefix, fused prepend bursts (W > 2), two divergent doc groups
+   (also at K = 2,048 and 4,096: the small cases of every kernel that
+   takes a K include K = 4,096), and the two error cases (block table
+   full, delete past the end).
 4. Drives the main path through its entry point,
    ``northstar.run_northstar()``: the full automerge-paper trace replayed
    into 512 identical documents (capacity 20,992 run rows, K = 128,
@@ -25,8 +30,8 @@
    splits and mid-run cursors, a local-only stream, a capacity
    overflow that must raise ``err[0]``, a storm whose fast-scan windows
    span many 8-row blocks, and the mid storm at K = 2,048 with the planes
-   in shared memory and in device memory; each case prints its windows'
-   blocks and its hint misses.
+   in shared memory and in device memory, and at K = 4,096; each case
+   prints its windows' blocks and its hint misses.
 7. Drives the storm path through its entry point, ``storm.run_storm()``:
    the config-4 insert storm and its delete-heavy variant (16 peers x
    200 rounds, 128 documents, K = 128), launch counts set to 0 just
@@ -48,7 +53,8 @@
    one step, K = 8 storms (splits, stale hints, forward hops, the plane
    fallback), a warm-start chain growing its capacity, the error rows,
    W = 5 bursts whose splices wrap a 16-row column (err[0], ``rows`` past
-   the capacity) and 32,768-row columns, of which the un-blocked kernel
+   the capacity), two-peer merges at K = 2,048 and 4,096, and 32,768-row
+   columns, of which the un-blocked kernel
    keeps the first 29,056 rows in shared memory (all a thread block
    may hold). Then the un-blocked kernel's own cases: warm starts whose
    documents keep their last two rows past ``rows`` (a 5r stream and a
@@ -62,18 +68,20 @@
    and read just after. It fails unless the blocked kernel launched once
    per chunk, every chunk's flags were clear and every sampled document
    equals the oracle. Host set-up (generation, compile) is timed apart.
-11. At the 5r shapes: the chain of 8 blocked launches against the plain
-   chain, bit for bit after every chunk; the plain chain's time; the
-   kernel chain's median over 3 runs after 1 warm-up (CUDA events);
-   char-ops/s; per-chunk blocking time per real step (p50, p99); the
-   checkpoint time; peak device memory; device steps and the bound. The
-   blocked plain chain runs on every 16th document (128 of 2,048, at the
-   same per-document shapes): documents are independent (the CPU tests
-   hold a B-lane replay against B one-lane replays), and the plain chain
-   of all 2,048 takes about 20 minutes.
+11. At the 5r shapes: the chain of 8 blocked launches, its outputs on
+   every 16th document kept for the plain chain (128 of 2,048, at the
+   same per-document shapes: documents are independent, as the CPU tests
+   hold a B-lane replay against B one-lane replays), which runs in four
+   shards of neighbouring documents in the child processes and is held
+   against them, bit for bit after every chunk, at the end (each shard's
+   time printed); the kernel chain's median over 3 runs after 1 warm-up
+   (CUDA events); char-ops/s; per-chunk blocking time per real step
+   (p50, p99); the checkpoint time; peak device memory; device steps and
+   the bound.
 12. The un-blocked kernel on the same stream: against its plain version
-   on every 8th document (256) and against the blocked kernel on all
-   2,048 (expanded lanes, origins, tables); its chain's median, µs a
+   on every 8th document (256, in four shards likewise) and against the
+   blocked kernel on all 2,048 (expanded lanes, origins, tables); its
+   chain's median, µs a
    real step and bound (by bytes and by operations); on the last chunk
    the columns' extent and the YATA probes per remote insert (mean,
    most); the chain's median at 1, 2, 4 and 8 documents a thread block
@@ -90,10 +98,12 @@
    seeds 7 and 42, K = 16 and 8, splits), pure inserts and deletes with
    the SHARED_CUM hoist, fused W-row bursts, both error rows with their
    post-error state, W = 5 bursts wrapping a 16-row column, 32,768-row
-   columns, and a warm-start chain growing its capacity 64 -> 128 -> 192
-   at K = 8; then the un-blocked kernel's own cases as in phase 9 (rows
-   past ``rows`` on a config-5 stream, 1-8 documents a thread block in
-   the three layouts).
+   columns, K = 2,048 and 4,096 (A5 with each document's rows in shared
+   memory and in device memory, where they fit a thread block), and a
+   warm-start chain growing its capacity 64 -> 128 -> 192 at K = 8;
+   then the un-blocked kernel's own cases as in phase 9 (rows past
+   ``rows`` on a config-5 stream, 1-8 documents a thread block in the
+   three layouts).
 15. Drives the config-5 path through its entry point,
    ``stream.run_stream_5()``: 2,048 documents x 8 chunks x 100 local
    patches, K = 64, capacity growing to 1,664 run rows, a checkpoint every
@@ -106,7 +116,12 @@
    plain chain's time; the kernel chain's median over 3 runs after 1
    warm-up (CUDA events); patches/s; per-chunk blocking time per real step
    (p50, p99); the checkpoint time; peak device memory; device steps and
-   the bound.
+   the bound by bytes and by operations; the kernel's counters over the
+   chain (steps, deletes and their iterations, inserts, splits, block
+   copies, head reads from device memory, ``clock64`` shares of slot
+   locates, delete passes, splices, table upkeep and splits), the last
+   chunk's launch geometry, and the chain's median with the rows in
+   shared memory and in device memory.
 17. The un-blocked kernel on the same stream: through
    ``run_stream_5(engine="unblocked")`` with the launch counts set to 0
    just before and read just after, against its plain version on all
@@ -119,8 +134,8 @@
    version on the card, bit for bit on all eight outputs: random streams
    and three divergent groups at K = 8, fused prepend bursts at K = 64, a
    far-jump stream beside a raw random one at K = 512 (window misses), 20k
-   prepends fused W = 64 at K = 2,048 (splits) with and without origins,
-   both error rows, and the window ring's edge cases: splices and delete
+   prepends fused W = 64 at K = 2,048 (splits) with and without origins
+   and at K = 4,096, both error rows, and the window ring's edge cases: splices and delete
    splits on both sides of a block's middle (K = 64), and full tables
    whose W = 3 and W = 7 prepends splice on past K rows with err row 0
    raised; each case prints its splits and window loads.
@@ -151,7 +166,8 @@
 22. The per-character block replay with the document in shared memory
    (``blocked_replay``, A8) against its plain version on the card (random
    streams with rebalances at K = 16 and 32, prepends, a delete across
-   blocks, a far-jump stream, the delete past the end), then the north
+   blocks, a far-jump stream, the delete past the end, K = 2,048 and
+   4,096, shared with A9), then the north
    star's 19,149-patch
    prefix (16,384 inserted characters, capacity 32,768 rows, K = 512, 128
    documents) through ``northstar.run_northstar(engine="blocked")``,
@@ -180,7 +196,8 @@
    its plain version: small storms, a delete storm, storms of 40 and 48
    peers (more than 32 concurrent inserts at one origin) and tie runs
    that carry a pinned scan_start across the scan's 32-position
-   sub-windows, K = 2,048, a document too large for the scan's view to
+   sub-windows, K = 2,048 and 4,096, a document too large for the scan's
+   view to
    sit beside it in shared memory, an unknown delete target (err rows 1
    and 2), a remote insert after an absent order and origin-left entries
    naming absent orders (err row 2 from the left cursor and from inside
@@ -195,11 +212,12 @@
    windows, then the median over 3 runs after 1 warm-up, char-ops/s, µs a
    scan step, the bound (the scan's comparisons counted as operations).
    The plain versions of phases 22-24 at those shapes run on the CPU in
-   three child processes, one thread each, started when phase 21 ends
-   (so they take no core from the earlier phases' plain checks); the
-   three phases run in the order 24, 22, 23, each doing its card work
-   first and waiting for its plain result last.
-25. Prints ``{"kernels": [...]}`` (all ten kernels) and, as its last
+   the child processes started in phase 2; the three phases run in the
+   order 24, 22, 23, each doing its card work first and waiting for its
+   plain result last.
+25. The 5r plain chains' shards (phases 11 and 12) against the kernel
+   chains' outputs.
+26. Prints ``{"kernels": [...]}`` (all ten kernels) and, as its last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line; so does a host without
@@ -210,6 +228,7 @@ from __future__ import annotations
 import atexit
 import json
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -219,6 +238,7 @@ PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 PLAIN_STRIDE_A7 = 16           # 5r blocked plain chain: every 16th doc
 PLAIN_STRIDE_A6 = 8            # 5r un-blocked plain chain: every 8th doc
+SHARDS_5R = 4                  # child processes a 5r plain chain is cut into
 
 
 def log(msg: str) -> None:
@@ -308,6 +328,8 @@ def compare_cases(B, northstar, randedit, TestPatch, np):
                   dict(capacity=1024, batch=16, block_k=8), wants, None))
     cases.append(("2 divergent groups, B=8, K=2,048", groups,
                   dict(capacity=4096, batch=8, block_k=2048), wants, None))
+    cases.append(("2 divergent groups, B=4, K=4,096", groups,
+                  dict(capacity=8192, batch=4, block_k=4096), wants, None))
     full, _ = B.compile_local_patches([TestPatch(0, 0, "ab")] * 40, lmax=2)
     cases.append(("block table full -> err[0]", [full],
                   dict(capacity=16, batch=8, block_k=8), None, 0))
@@ -364,6 +386,9 @@ def mixed_compare_cases(B, storm, randedit, TestPatch, np):
         cases.append((f"mid storm 16x20, K=2048, {where}, B=32", mid,
                       dict(capacity=cap, batch=32, block_k=2048, chunk=128),
                       recv_mid, None))
+    cases.append(("mid storm 16x20, K=4096, run planes in shared memory, "
+                  "B=8", mid, dict(capacity=4096 * 4, batch=8, block_k=4096,
+                                   chunk=128), recv_mid, None))
     return cases
 
 
@@ -560,6 +585,8 @@ def lanes_cases(B, randedit, common, Patch, ListCRDT, export, np):
         ("two-peer merges", lanes(two_peer(3)), 512, k16, None),
         ("two-peer merges, K = 2,048", lanes(two_peer(3)), 4096,
          dict(capacity=4096, block_k=2048), None),
+        ("two-peer merges, K = 4,096", lanes(two_peer(3)), 8192,
+         dict(capacity=8192, block_k=4096), None),
         ("fragmented and double deletes", lanes(fragmented, lmax=16), 128,
          k8, None),
         ("local and remote in one step", mixed, 256, k16, None),
@@ -606,14 +633,71 @@ def lanes_bound(staged, shape_rows, blocked, K, NBT):
     return 4 * words, active * (K + NBT), active
 
 
-def doc_subset(stream, B, s5, stride: int):
-    """The 5r stream cut to every ``stride``-th document, at the same
-    per-document shapes and steps: what a plain chain runs on."""
+def doc_subset(stream, B, s5, stride: int, lo: int = 0, hi=None):
+    """The 5r stream cut to every ``stride``-th document (the ``lo``-th to
+    the ``hi``-th of those), at the same per-document shapes and steps:
+    what a plain chain runs on. The documents' txns and texts are left
+    out: a child process gets the cut."""
+    n = len(range(0, s5.n_docs, stride)[lo:hi])
     return stream.Stream5r(**{
-        **vars(s5), "n_docs": len(range(0, s5.n_docs, stride)),
-        "stacked": [B.OpTensors(**{k: v[:, ::stride]
+        **vars(s5), "n_docs": n, "all_txns": [], "contents": [],
+        "stacked": [B.OpTensors(**{k: v[:, ::stride][:, lo:hi]
                                    for k, v in vars(st).items()})
                     for st in s5.stacked]})
+
+
+def plain_5r_shard(engine: str, sub):
+    """Runs in a child process, on the CPU: the plain chain of the 5r
+    engine ``engine`` (``"blocked"``: A7, ``"unblocked"``: A6) over the
+    document shard ``sub`` (``doc_subset``), one thread. Returns every
+    chunk's outputs as numpy arrays and the seconds."""
+    import torch
+
+    from text_crdt_rust_tpu_torch import stream
+    from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as RLM
+
+    torch.set_num_threads(1)
+    plain = (RLM.lanes_mixed_blocked_replay_plain if engine == "blocked"
+             else RLM.lanes_mixed_replay_plain)
+    t0 = time.perf_counter()
+    outs = chain(plain, stream.make_stream_replayers(
+        sub, engine=engine, device="cpu"), lambda o: o[2:-1])
+    secs = time.perf_counter() - t0
+    return [[t.numpy() for t in o] for o in outs], secs
+
+
+def start_5r_shards(pool, stream, B, s5, engine: str, stride: int):
+    """The plain chain of ``engine`` on every ``stride``-th document, cut
+    into ``SHARDS_5R`` shards of neighbouring documents, started in
+    ``pool``. Returns ``(documents, [(first, async result), ...])``."""
+    n = len(range(0, s5.n_docs, stride))
+    per = -(-n // SHARDS_5R)
+    return n, [(lo, pool.apply_async(plain_5r_shard, (
+        engine, doc_subset(stream, B, s5, stride, lo, lo + per))))
+        for lo in range(0, n, per)]
+
+
+def check_5r_shards(torch, label, shards, kern_sub, names):
+    """Each shard's plain chain against the kernel chain's outputs on the
+    same documents (``kern_sub``: every chunk's outputs on the strided
+    documents, on the CPU), bit for bit. Returns the worst difference and
+    the shards' seconds."""
+    n, parts = shards
+    worst, secs, covered = 0, [], 0
+    for lo, res in parts:
+        outs, s = res.get()
+        m = outs[0][0].shape[1]
+        e = max(worst_err([t[:, lo:lo + m] for t in k],
+                          [torch.from_numpy(x) for x in p], names)
+                for k, p in zip(kern_sub, outs))
+        log(f"{label}: shard of documents {lo}-{lo + m - 1} (of {n}): "
+            f"plain chain {s:.1f} s in its child process, max_abs_err {e}")
+        worst, covered = max(worst, e), covered + m
+        secs.append(s)
+    if covered != n:
+        raise AssertionError(f"{label}: the shards cover {covered} of {n} "
+                             f"documents")
+    return worst, secs
 
 
 def chain(fn, runners, states_out=None):
@@ -682,9 +766,10 @@ def local_lanes_cases(B, randedit, Patch, np):
         ("32,768-row columns (29,056 rows in shared memory), K = 1,024",
          divergent(7, docs=4), 32768, dict(capacity=32768, block_k=1024),
          None),
-        ("K = 2,048 (three documents a thread block on A5)",
-         divergent(9, docs=5), 4096, dict(capacity=4096, block_k=2048),
-         None),
+        ("K = 2,048", divergent(9, docs=5), 4096,
+         dict(capacity=4096, block_k=2048), None),
+        ("K = 4,096", divergent(10, docs=3), 8192,
+         dict(capacity=8192, block_k=4096), None),
     ]
 
 
@@ -876,13 +961,19 @@ def local_lanes_phase(torch, dev, B, RL, randedit, Patch, np):
         r5 = RL.make_replayer_lanes_blocked(ops, chunk=16, device=dev,
                                             **shape5)
         k4 = RL.lanes_replay_cuda(*r4.staged, *r4.initial(), **r4.shape)
-        k5 = RL.lanes_blocked_replay_cuda(*r5.staged, *r5.initial(),
-                                          **r5.shape)
+        # A5 with each document's rows in shared memory and in device
+        # memory (where they fit a thread block; else device memory only).
+        fits = RL.blocked_on_chip(r5.capacity, r5.nbt)
+        k5s = [RL.lanes_blocked_replay_cuda(*r5.staged, *r5.initial(),
+                                            **r5.shape, on_chip=on)
+               for on in ((True, False) if fits else (False,))]
+        k5 = k5s[-1]
         torch.cuda.synchronize()
         e4 = worst_err(k4, RL.lanes_replay_plain(
             *r4.staged, *r4.initial(), **r4.shape), A4_OUTPUTS)
-        e5 = worst_err(k5, RL.lanes_blocked_replay_plain(
-            *r5.staged, *r5.initial(), **r5.shape), A5_OUTPUTS)
+        p5 = RL.lanes_blocked_replay_plain(*r5.staged, *r5.initial(),
+                                           **r5.shape)
+        e5 = max(worst_err(k, p5, A5_OUTPUTS) for k in k5s)
         a4_worst, a5_worst = max(a4_worst, e4), max(a5_worst, e5)
         f4 = k4[-1][:2].amax(dim=1).tolist()
         f5 = k5[-1][:2].amax(dim=1).tolist()
@@ -892,7 +983,8 @@ def local_lanes_phase(torch, dev, B, RL, randedit, Patch, np):
         log(f"compare local lanes {label}: {ops.num_steps} steps x "
             f"{ops.kind.shape[1]} docs, SHARED_CUM {r4.shape['shared_cum']}, "
             f"blocks in use {int(k5[4].max())}, max_abs_err un-blocked {e4} "
-            f"blocked {e5}, err flags {f4} {f5}, {'ok' if ok else 'FAILED'}")
+            f"blocked {e5} (rows in {'shared and device' if fits else 'device'}"
+            f" memory), err flags {f4} {f5}, {'ok' if ok else 'FAILED'}")
         if not ok:
             raise AssertionError(f"local per-lane kernel disagrees on: "
                                  f"{label}")
@@ -1001,6 +1093,32 @@ def config5_phase(torch, dev, card, stream, RL, _kernels, a4_worst,
                              "shapes")
     ms5 = cuda_ms(torch, lambda: chain(RL.lanes_blocked_replay_cuda,
                                        runners5, lambda o: o[2:-1]), reps=3)
+    # The counters over the chain, the launch geometry, and the chain with
+    # the rows in shared memory and in device memory.
+    a5_stats = torch.zeros(RL.BLOCKED_STATS, dtype=torch.int64, device=dev)
+    state = None
+    for run in runners5:
+        ini = run.initial() if state is None else run.grow(state)
+        st = torch.zeros(s5.n_docs, RL.BLOCKED_STATS, dtype=torch.int64,
+                         device=dev)
+        state = RL.lanes_blocked_replay_cuda(*run.staged, *ini, **run.shape,
+                                             stats=st)[2:-1]
+        a5_stats += st.sum(dim=0)
+    a5_stats = [int(v) for v in a5_stats]
+    last5 = runners5[-1]
+    placed = {}
+    for on in (True, False):
+        placed[on] = cuda_ms(torch, lambda: chain(
+            lambda *a, **k: RL.lanes_blocked_replay_cuda(*a, **k,
+                                                         on_chip=on),
+            runners5, lambda o: o[2:-1]), reps=3)
+    a5_geometry = RL.blocked_geometry(
+        s5.n_docs, last5.capacity, last5.nbt, RL.BLOCKED_WARPS,
+        RL.blocked_on_chip(last5.capacity, last5.nbt), dev)
+    log(f"5 blocked chain counters (all documents and launches): "
+        f"{RL.describe_blocked_stats(a5_stats)}; last chunk's launch "
+        f"geometry {a5_geometry}; median with the rows in shared memory "
+        f"{placed[True]:.3f} ms, in device memory {placed[False]:.3f} ms")
     lat = stream.step_latency_5(runners5, s5.real_steps, time.perf_counter)
     b5 = [local_bound(r.staged, r.capacity, True, 64, r.nbt)
           for r in runners5]
@@ -1017,7 +1135,8 @@ def config5_phase(torch, dev, card, stream, RL, _kernels, a4_worst,
         f"{run5.stats.ckpt_ms:.1f} ms ({run5.stats.resyncs}); {s5.steps} "
         f"device steps ({steps5} doc-steps with work); plain chain "
         f"{plain5_ms:.1f} ms; bound {max(bb5, bo5):.4f} ms ({bytes5} B, "
-        f"{ops5} ops); on {card}")
+        f"{ops5} ops: {bb5:.4f} ms by bytes, {bo5:.4f} ms by operations); "
+        f"on {card}")
 
     # -- the un-blocked kernel on the same stream, counted -------------------
     _kernels.reset_launches()
@@ -1115,9 +1234,21 @@ def config5_phase(torch, dev, card, stream, RL, _kernels, a4_worst,
         "plain_docs": s5.n_docs,
         "bound_ms": max(bb5, bo5),
         "bound_by": "bytes" if bb5 >= bo5 else "operations",
+        "bound_bytes_ms": bb5,
+        "bound_ops_ms": bo5,
         "library_ms": None,
         "bytes": bytes5,
         "ops_lower_bound": ops5,
+        "stats": dict(zip((
+            "steps", "deletes", "delete_iterations", "inserts", "splits",
+            "block_copies", "head_reads", "cycles_slot_locates",
+            "cycles_block_copies", "cycles_delete_passes",
+            "cycles_insert_splices", "cycles_table_upkeep",
+            "cycles_splits", "cycles_all", "blocks_in_use",
+            "docs_on_chip"), a5_stats)),
+        "geometry": a5_geometry,
+        "ms_rows_in_shared_memory": placed[True],
+        "ms_rows_in_device_memory": placed[False],
         "patches_per_s": rate5,
         "p50_step_us": lat["p50_us"],
         "p99_step_us": lat["p99_us"],
@@ -1171,6 +1302,8 @@ def hbm_compare_cases(B, randedit, TestPatch, np):
          [prepends(20000, 64)],
          dict(capacity=65536, block_k=2048, batch=128, store_origins=False),
          None),
+        ("kevin prepends W=64, K=4096 (splits)", [prepends(20000, 64)],
+         dict(capacity=65536, block_k=4096, batch=16), None),
         ("block table full -> err[0]",
          [B.compile_local_patches([TestPatch(0, 0, "ab")] * 40, lmax=2)[0]],
          dict(capacity=16, block_k=8), 0),
@@ -1548,6 +1681,8 @@ def char_compare_cases(B, randedit, TestPatch, np):
          [0, 1, 0]),
         ("random, lmax 16, K=2,048", [chars(randedit.random_patches(
             random.Random(9), 600)[0], 16)], 8192, 2048, [0, 0, 0]),
+        ("random, lmax 16, K=4,096", [chars(randedit.random_patches(
+            random.Random(10), 600)[0], 16)], 8192, 4096, [0, 0, 0]),
     ]
 
 
@@ -1654,6 +1789,8 @@ def mixed_char_cases(B, storm, np):
         ("tie runs pinned past 32 positions, K=16", tie_run_ops(storm), 256,
          16, [0, 0, 0], None),
         ("storm 8x20, K=2048", stormops(8, 20, 4, 0.0), 4096, 2048,
+         [0, 0, 0], None),
+        ("storm 8x20, K=4096", stormops(8, 20, 4, 0.0), 8192, 4096,
          [0, 0, 0], None),
         ("storm 4x10, capacity 49,152: the view in device memory",
          stormops(4, 10, 2, 0.0), 49152, 256, [0, 0, 0], None),
@@ -2075,6 +2212,7 @@ def blocked_a10_phase(torch, dev, card, B, storm, TBL, TBM, np, _kernels,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2125,6 +2263,22 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
                 log(f"  ptxas {name}: {line.strip()}")
+
+    # The plain checks at the per-character paths' shapes (A9, A10, A8)
+    # and, once the 5r stream exists, the 5r plain chains in shards (A7,
+    # A6) run on the CPU in child processes, one thread each, while the
+    # card phases go on; each phase waits for its plain result last. The
+    # children are stopped at exit.
+    ncpu = os.cpu_count() or 1
+    workers = max(3, min(7, ncpu - 1))
+    pool = multiprocessing.get_context("spawn").Pool(workers)
+    atexit.register(pool.terminate)
+    plain_a9_async = pool.apply_async(plain_a9, (PLAIN_LANES_A9, TRACE_A9))
+    plain_a10_async = pool.apply_async(plain_a10,
+                                       (STORM_ROUNDS, CHAR_LANES))
+    plain_a8_async = pool.apply_async(plain_a8, (PREFIX_A8, CHAR_LANES))
+    log(f"plain checks: {workers} child processes on {ncpu} CPUs "
+        f"(os.cpu_count())")
 
     # -- kernel vs plain version on the card, small shapes ----------------
     worst = 0
@@ -2472,6 +2626,10 @@ def main() -> int:
         f"{s5.chunks} chunks x {s5.steps_per_chunk} patches -> "
         f"{sum(s5.real_steps)} real steps, {s5.steps} device steps, "
         f"{s5.char_ops} char-ops")
+    shards7 = start_5r_shards(pool, stream, B, s5, "blocked",
+                              PLAIN_STRIDE_A7)
+    shards6 = start_5r_shards(pool, stream, B, s5, "unblocked",
+                              PLAIN_STRIDE_A6)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
@@ -2497,26 +2655,16 @@ def main() -> int:
             f"{run5.stats.checked}, oracle {run5.ok}")
 
     # -- the 5r shapes: agreement, times, bound ------------------------------
-    sub7 = doc_subset(stream, B, s5, PLAIN_STRIDE_A7)
+    # The kernel chain's outputs on the documents of the plain chain's
+    # shards are kept on the CPU; the shards are compared at the end.
     runners7 = stream.make_stream_replayers(s5, device=dev)
-    t0 = time.perf_counter()
-    p7 = chain(RLM.lanes_mixed_blocked_replay_plain,
-               stream.make_stream_replayers(sub7, device=dev),
-               lambda o: o[2:-1])
-    torch.cuda.synchronize()
-    plain7_ms = (time.perf_counter() - t0) * 1e3
     k7 = chain(RLM.lanes_mixed_blocked_replay_cuda, runners7,
                lambda o: o[2:-1])
     torch.cuda.synchronize()
-    e7 = max(worst_err([t[:, ::PLAIN_STRIDE_A7] for t in k], q, A7_OUTPUTS)
-             for k, q in zip(k7, p7))
-    a7_worst = max(a7_worst, e7)
-    del p7
-    log(f"compare 5r blocked chain: max_abs_err {e7} over {s5.chunks} "
-        f"chunks against its plain version on {sub7.n_docs} docs (one in "
-        f"{PLAIN_STRIDE_A7}); plain chain {plain7_ms:.1f} ms")
-    if e7 != 0:
-        raise AssertionError("blocked kernel disagrees at the 5r shapes")
+    k7_sub = [[t[:, ::PLAIN_STRIDE_A7].cpu() for t in k] for k in k7]
+    log(f"5r blocked chain: its plain chain on {shards7[0]} docs (one in "
+        f"{PLAIN_STRIDE_A7}) runs in {len(shards7[1])} shards in child "
+        f"processes, compared at the end")
     ms7 = cuda_ms(torch, lambda: chain(RLM.lanes_mixed_blocked_replay_cuda,
                                        runners7, lambda o: o[2:-1]), reps=3)
     # The counters over the whole chain (the most probes: the chain's most).
@@ -2575,8 +2723,8 @@ def main() -> int:
         f"per-chunk blocking time per real step p50 {p50:.2f} us, p99 "
         f"{p99:.2f} us (samples {[round(x, 2) for x in samples]}); "
         f"checkpoints {run5.stats.ckpt_ms:.1f} ms ({run5.stats.resyncs}); "
-        f"{s5.steps} device steps ({steps7} doc-steps with work); plain "
-        f"chain {plain7_ms:.1f} ms; bound {max(bb7, bo7):.4f} ms ({bytes7} "
+        f"{s5.steps} device steps ({steps7} doc-steps with work); "
+        f"bound {max(bb7, bo7):.4f} ms ({bytes7} "
         f"B, {ops7} ops: {bb7:.4f} ms by bytes, {bo7:.4f} ms by "
         f"operations); on {card}")
 
@@ -2585,16 +2733,7 @@ def main() -> int:
                                             device=dev)
     k6 = chain(RLM.lanes_mixed_replay_cuda, runners6, lambda o: o[2:-1])
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sub6 = doc_subset(stream, B, s5, PLAIN_STRIDE_A6)
-    p6 = chain(RLM.lanes_mixed_replay_plain, stream.make_stream_replayers(
-        sub6, engine="unblocked", device=dev), lambda o: o[2:-1])
-    torch.cuda.synchronize()
-    plain6_ms = (time.perf_counter() - t0) * 1e3
-    e6 = max(worst_err([t[:, ::PLAIN_STRIDE_A6] for t in k], q, A6_OUTPUTS)
-             for k, q in zip(k6, p6))
-    a6_worst = max(a6_worst, e6)
-    del p6
+    k6_sub = [[t[:, ::PLAIN_STRIDE_A6].cpu() for t in k] for k in k6]
     # The two engines: same origins every chunk, same tables and documents.
     same = all(torch.equal(a[i], b[i]) for a, b in zip(k6, k7)
                for i in (0, 1))
@@ -2609,13 +2748,12 @@ def main() -> int:
     same_docs = all(RL.expand_lane(last6, d).tolist()
                     == RL.expand_lane(last7, d).tolist()
                     for d in range(s5.n_docs))
-    log(f"compare 5r un-blocked chain: max_abs_err {e6} against its plain "
-        f"version on {sub6.n_docs} docs (one in {PLAIN_STRIDE_A6}; plain "
-        f"chain {plain6_ms:.1f} ms); "
-        f"against "
-        f"the blocked kernel: origins and tables equal {same}, all "
-        f"{s5.n_docs} documents equal {same_docs}")
-    if e6 != 0 or not same or not same_docs:
+    log(f"compare 5r un-blocked chain against the blocked kernel: origins "
+        f"and tables equal {same}, all {s5.n_docs} documents equal "
+        f"{same_docs}; its plain chain on {shards6[0]} docs (one in "
+        f"{PLAIN_STRIDE_A6}) runs in {len(shards6[1])} shards in child "
+        f"processes, compared at the end")
+    if not same or not same_docs:
         raise AssertionError("un-blocked kernel disagrees at the 5r shapes")
     ms6 = cuda_ms(torch, lambda: chain(RLM.lanes_mixed_replay_cuda,
                                        runners6, lambda o: o[2:-1]), reps=3)
@@ -2690,12 +2828,10 @@ def main() -> int:
                          "examples/sync_stream (128 docs x 3 chunks)",
         "launches_sync_stream": l6,
         "sync_stream_ms": sync_ms,
-        "matches_plain": a6_worst == 0,
-        "max_abs_err": a6_worst,
-        # Timed at the 5r shapes: the chain of 8 chunk launches.
+        # Timed at the 5r shapes: the chain of 8 chunk launches. The
+        # plain chain's fields are set when its shards are compared.
         "ms": ms6,
-        "plain_ms": plain6_ms,
-        "plain_docs": sub6.n_docs,
+        "plain_docs": shards6[0],
         "bound_ms": max(bb6, bo6),
         "bound_by": "bytes" if bb6 >= bo6 else "operations",
         "bound_bytes_ms": bb6,
@@ -2715,11 +2851,8 @@ def main() -> int:
                            "_mixed_lanes_blocked_kernel",
         "launches": l7,
         "launches_path": "stream.run_stream (config 5r)",
-        "matches_plain": a7_worst == 0,
-        "max_abs_err": a7_worst,
         "ms": ms7,
-        "plain_ms": plain7_ms,
-        "plain_docs": sub7.n_docs,
+        "plain_docs": shards7[0],
         "bound_ms": max(bb7, bo7),
         "bound_by": "bytes" if bb7 >= bo7 else "operations",
         "bound_bytes_ms": bb7,
@@ -2755,17 +2888,7 @@ def main() -> int:
     hbm_line = hbm_phase(torch, dev, card, B, R, TH, kevin, northstar,
                          randedit, TestPatch, np, _kernels)
     # -- the per-character block replays: A10, A8, A9 (the main path) ------
-    # Their plain checks at the main paths' shapes run on the CPU in three
-    # child processes meanwhile, one thread each: each phase does its card
-    # work first and waits for its plain result last. The children start
-    # only now, so that they take no core from the earlier phases' own
-    # plain checks; they are stopped at exit.
-    pool = multiprocessing.get_context("spawn").Pool(3)
-    atexit.register(pool.terminate)
-    plain_a9_async = pool.apply_async(plain_a9, (PLAIN_LANES_A9, TRACE_A9))
-    plain_a10_async = pool.apply_async(plain_a10,
-                                       (STORM_ROUNDS, CHAR_LANES))
-    plain_a8_async = pool.apply_async(plain_a8, (PREFIX_A8, CHAR_LANES))
+    # Their plain checks run in the child processes started at the top.
     a10_line = blocked_a10_phase(torch, dev, card, B, storm, TBL, TBM, np,
                                  _kernels, plain_a10_async)
     a8_line = blocked_a8_phase(torch, dev, card, B, northstar, TBL, TBH,
@@ -2774,8 +2897,28 @@ def main() -> int:
     a9_line = blocked_a9_phase(torch, dev, card, B, northstar, TBL, TBH,
                                randedit, TestPatch, np, _kernels,
                                plain_a9_async)
+    # -- the 5r plain chains' shards against the kernel chains -----------------
+    for line, label, shards, k_sub, names, worst in (
+            (a7_line, "5r blocked chain (A7)", shards7, k7_sub, A7_OUTPUTS,
+             a7_worst),
+            (a6_line, "5r un-blocked chain (A6)", shards6, k6_sub,
+             A6_OUTPUTS, a6_worst)):
+        e, secs = check_5r_shards(torch, label, shards, k_sub, names)
+        worst = max(worst, e)
+        log(f"compare {label}: max_abs_err {e} over {s5.chunks} chunks "
+            f"against its plain version on {shards[0]} docs; plain chain "
+            f"{sum(secs):.1f} s over {len(secs)} shards "
+            f"({[round(x, 1) for x in secs]} s)")
+        line.update(matches_plain=worst == 0, max_abs_err=worst,
+                    plain_ms=sum(secs) * 1e3,
+                    plain_shard_s=secs)
+        if e != 0:
+            raise AssertionError(f"{label} disagrees with its plain version "
+                                 f"at the 5r shapes")
     pool.close()
     pool.join()
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
+        f"end")
     log(json.dumps({"kernels": [rle_line, mixed_line, a6_line, a7_line,
                                 a4_line, a5_line, hbm_line, a8_line,
                                 a9_line, a10_line]}))

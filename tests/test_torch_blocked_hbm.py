@@ -182,21 +182,24 @@ def test_replay_at_k2048_matches_jax():
 
 
 def test_kernel_limits_checked_before_launch():
-    """The kernel takes K up to 2,048 (A8's too) and 1-16 warps; both
-    are refused before anything is built."""
+    """The kernel takes every K whose cache of blocks fits a thread
+    block's shared memory (A8 every K whose document fits) and 1-16
+    warps; past that both are refused, naming the bytes, before anything
+    is built."""
     import torch
 
     col = torch.zeros(4, dtype=torch.int32)
-    shape = dict(groups=1, steps=4, batch=8, capacity=8192, lmax=4)
-    with pytest.raises(ValueError, match=r"\[8, 2048\]"):
-        TBH.blocked_hbm_replay_cuda(col, col, col, col, block_k=4096,
+    shape = dict(groups=1, steps=4, batch=8, capacity=65536, lmax=4)
+    # Four cached blocks of 16,384 rows: 262,144 B and more.
+    with pytest.raises(ValueError, match=r"need \d+ B of shared memory"):
+        TBH.blocked_hbm_replay_cuda(col, col, col, col, block_k=16384,
                                     **shape)
     with pytest.raises(ValueError, match="warps"):
-        TBH.blocked_hbm_replay_cuda(col, col, col, col, block_k=2048,
+        TBH.blocked_hbm_replay_cuda(col, col, col, col, block_k=4096,
                                     warps=0, **shape)
-    with pytest.raises(ValueError, match=r"\[8, 2048\]"):
+    with pytest.raises(ValueError, match=r"needs \d+ B"):
         TBL.blocked_replay_cuda(col, col, col, col, steps=4, batch=8,
-                                capacity=8192, block_k=4096, lmax=4)
+                                capacity=65536, block_k=16384, lmax=4)
     # Tables, cache tags and four cached blocks.
     assert TBH.kernel_smem_bytes(1024, 16, 512) == 4 * (
         TBL.table_ints(1024, 16) + 2 * TBH.SLOTS + TBH.SLOTS * 512)

@@ -432,13 +432,24 @@ def test_window_width_does_not_change_the_cursor(monkeypatch):
 # -- the CUDA wrapper's limits (checked before any build or launch) ----------
 
 
-def test_kernel_takes_k_up_to_2048_and_names_the_shared_memory_limit():
+def test_kernel_takes_k_up_to_2048_and_names_the_shared_memory_limit(
+        monkeypatch):
+    """K = 4,096 (and every K whose document fits) passes the wrapper's
+    checks and reaches the build; a document past the limit is refused,
+    naming the bytes."""
     from text_crdt_rust_tpu_torch.ops.blocked import SMEM_LIMIT
+
+    class Reached(Exception):
+        pass
+
+    def reached(*args, **kw):
+        raise Reached
 
     col = torch.zeros(4, dtype=torch.int32)
     tab = torch.zeros(8 * 128, dtype=torch.int32)
     shape = dict(steps=4, batch=8, capacity=8192, lmax=4, order_rows=8)
-    with pytest.raises(ValueError, match=r"\[8, 2048\]"):
+    monkeypatch.setattr(TBM._kernels, "function", reached)
+    with pytest.raises(Reached):
         TBM.blocked_mixed_replay_cuda(*[col] * 9, tab, tab, tab,
                                       block_k=4096, **shape)
     with pytest.raises(ValueError, match=f"{SMEM_LIMIT} B of shared"):

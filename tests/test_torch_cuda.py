@@ -61,6 +61,9 @@ CASES = {
                              dict(capacity=4096, block_k=2048)),
     "groups-k2048": lambda: ([_random(8, 300), _random(9, 200)],
                              dict(capacity=4096, block_k=2048, batch=3)),
+    # K past 2,048: the window and scratch rows in 65,536 B.
+    "random-k4096": lambda: ([_random(10, 400)],
+                             dict(capacity=8192, block_k=4096)),
 }
 
 
@@ -127,6 +130,8 @@ MIXED_CASES = {
                                 dict(capacity=2048 * 8, block_k=2048)),
     "mid-storm-k2048-device-planes": lambda: (
         _storm(16, 20, 4, 0.35), dict(capacity=2048 * 16, block_k=2048)),
+    "mid-storm-k4096": lambda: (_storm(16, 20, 4, 0.35),
+                                dict(capacity=4096 * 4, block_k=4096)),
 }
 
 
@@ -230,6 +235,10 @@ LANES_CASES = {
     "two-peer-k2048": lambda: (_lanes([randedit.make_two_peer_merge(s)[0]
                                        for s in (402, 403)]),
                                dict(capacity=4096, block_k=2048)),
+    # Two documents a thread block on A7 (6 K ints of scratch each).
+    "two-peer-k4096": lambda: (_lanes([randedit.make_two_peer_merge(s)[0]
+                                       for s in (404, 405, 406)]),
+                               dict(capacity=8192, block_k=4096)),
 }
 
 
@@ -366,6 +375,7 @@ LOCAL_LANES_CASES = {
     # Three documents a thread block at K = 2,048 (7 K ints each).
     "random-k2048": lambda: (_local_streams((9, 10, 11, 12, 13), 120),
                              4096, 2048),
+    "random-k4096": lambda: (_local_streams((14, 15, 16), 120), 8192, 4096),
 }
 
 
@@ -399,6 +409,42 @@ def test_local_lanes_kernel_matches_plain(card, name, blocked):
     for k, p in zip(kern, plain):
         assert k.dtype == p.dtype and k.shape == p.shape
         assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("on_chip", [True, False])
+@pytest.mark.parametrize("warps", [1, 3, 4])
+@pytest.mark.parametrize("name", ["random-k8", "bursts-k16", "out-of-blocks",
+                                  "bad-delete", "overflow-wrap",
+                                  "stale-rows"])
+def test_blocked_local_lanes_kernel_placements(card, name, warps, on_chip):
+    """A5 with each document's rows in shared memory and in device memory,
+    at 1, 3 and 4 documents a thread block (a last block with fewer), with
+    its counters: the steps with work and the blocks in use agree with
+    the stream and the plain version."""
+    from text_crdt_rust_tpu_torch.ops import rle_lanes as TL
+
+    ops, capacity, block_k, *warm = LOCAL_LANES_CASES[name]()
+    init = None
+    if warm:
+        init = _warm_state(TL.make_replayer_lanes_blocked,
+                           TL.lanes_blocked_replay_plain, warm[0], card,
+                           False, capacity=capacity, block_k=block_k)
+    rep = TL.make_replayer_lanes_blocked(ops, capacity=capacity, chunk=16,
+                                         device=card, init=init,
+                                         block_k=block_k)
+    args = (*rep.staged, *rep.initial())
+    plain = TL.lanes_blocked_replay_plain(*args, **rep.shape)
+    B = rep.staged[0].shape[1]
+    stats = torch.zeros(B, TL.BLOCKED_STATS, dtype=torch.int64, device=card)
+    kern = TL.lanes_blocked_replay_cuda(*args, **rep.shape, warps=warps,
+                                        on_chip=on_chip, stats=stats)
+    torch.cuda.synchronize()
+    for k, p in zip(kern, plain):
+        assert torch.equal(k, p)
+    work = ((rep.staged[1] > 0) | (rep.staged[2] > 0)).sum(dim=0)
+    assert torch.equal(stats[:, 0].cpu(), work.long().cpu())
+    assert torch.equal(stats[:, 14].cpu(), plain[4][0].long().cpu())
+    assert bool((stats[:, 15] == int(on_chip)).all())
 
 
 @pytest.mark.parametrize("warps", [1, 2, 4, 8])
@@ -484,6 +530,8 @@ HBM_CASES = {
                                 dict(capacity=2048 * 32, block_k=2048)),
     "kevin-k2048-no-origins": lambda: ([_kevin(20000, 64)], dict(
         capacity=2048 * 32, block_k=2048, store_origins=False)),
+    "kevin-w64-k4096": lambda: ([_kevin(20000, 64)],
+                                dict(capacity=4096 * 16, block_k=4096)),
     "capacity-overflow": lambda: (
         [_compile([TestPatch(0, 0, "ab")] * 40)],
         dict(capacity=16, block_k=8)),
@@ -545,6 +593,7 @@ BLOCKED_CASES = {
         [_chars([TestPatch(0, 0, "abc"), TestPatch(0, 10, "")])], 64, 8,
         [0, 1, 0]),
     "random-k2048": lambda: ([_char_random(9, 600)], 8192, 2048, [0, 0, 0]),
+    "random-k4096": lambda: ([_char_random(10, 600)], 8192, 4096, [0, 0, 0]),
 }
 
 
@@ -701,6 +750,7 @@ BLOCKED_MIXED_CASES = {
     "absent-left-in-scan": lambda: (_storm(4, 10, 2, 0.0), 256, 16,
                                     [0, 0, 1]),
     "storm-k2048": lambda: (_storm(8, 20, 4, 0.0), 4096, 2048, [0, 0, 0]),
+    "storm-k4096": lambda: (_storm(8, 20, 4, 0.0), 8192, 4096, [0, 0, 0]),
     # 49,152 rows leave no room for the view beside the document: it goes
     # to device memory.
     "storm-view-in-device-memory": lambda: (_storm(4, 10, 2, 0.0), 49152,

@@ -63,10 +63,6 @@ I32 = torch.int32
 
 #: Shared memory one thread block may use on an H100 (232,448 bytes).
 SMEM_LIMIT = 232448
-#: Largest ``block_k`` of the three per-character kernels (A8, A9, A10):
-#: their passes loop over a block 128 rows a round (``blocked_ops.cuh``);
-#: the largest the card holds them against their plain versions at.
-KMAX_WARP_KERNEL = 2048
 #: Rows compared at a time by ``lanes_equal`` (bounds its temporary).
 _ROWS_PER_PASS = 1 << 20
 
@@ -392,8 +388,7 @@ def blocked_replay_cuda(pos, dlen, ilen, start, *, steps: int, batch: int,
     NB, NBp = block_geometry(CAP, K)
     dev = pos.device
     _check_columns((pos, dlen, ilen, start), S, dev)
-    _require(8 <= K <= KMAX_WARP_KERNEL,
-             f"block_k must lie in [8, {KMAX_WARP_KERNEL}] for the kernel")
+    _require(K >= 8, "block_k must be at least 8")
     smem = kernel_smem_bytes(CAP, NBp)
     _require(smem <= SMEM_LIMIT, (
         f"the blocked kernel keeps a document in shared memory: capacity "

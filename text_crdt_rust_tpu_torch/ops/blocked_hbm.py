@@ -44,7 +44,6 @@ from .. import resolve_device
 from . import _kernels
 from .batch import KIND_LOCAL, require_unfused
 from .blocked import (
-    KMAX_WARP_KERNEL,
     SMEM_LIMIT,
     BlockedResult,
     _BlockOps,
@@ -173,8 +172,7 @@ def blocked_hbm_replay_cuda(pos, dlen, ilen, start, *, groups: int,
     NB, NSUP, NBp, NSUPp = hbm_geometry(CAP, K)
     dev = pos.device
     _check_columns((pos, dlen, ilen, start), G * S, dev)
-    _require(8 <= K <= KMAX_WARP_KERNEL,
-             f"block_k must lie in [8, {KMAX_WARP_KERNEL}] for the kernel")
+    _require(K >= 8, "block_k must be at least 8")
     _require(1 <= warps <= 16, "warps must lie in [1, 16]")
     _require(stats is None or (stats.device == dev and stats.dtype == I32
                                and stats.is_contiguous()

@@ -62,7 +62,6 @@ from .batch import (
     require_unfused,
 )
 from .blocked import (
-    KMAX_WARP_KERNEL,
     SMEM_LIMIT,
     BlockedResult,
     _BlockOps,
@@ -353,8 +352,7 @@ def blocked_mixed_replay_cuda(kind, pos, dlen, dtgt, olop, orop, rank,
     cols = (kind, pos, dlen, dtgt, olop, orop, rank, ilen, start)
     _check_columns(cols, S, dev)
     _check_columns((oll, orl, rkl), OTL, dev)
-    _require(8 <= K <= KMAX_WARP_KERNEL,
-             f"block_k must lie in [8, {KMAX_WARP_KERNEL}] for the kernel")
+    _require(K >= 8, "block_k must be at least 8")
     _require(stats is None or (stats.device == dev and stats.dtype == I32
                                and stats.is_contiguous()
                                and stats.shape == (2, B)),

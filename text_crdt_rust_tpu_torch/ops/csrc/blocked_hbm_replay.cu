@@ -131,7 +131,8 @@ extern "C" int blocked_hbm_replay_launch(
     int NBp, int NSUP, int LMAX, int warps, int smem, void* stream) {
   // smem: bytes of the kernel's shared layout, and warps: the thread
   // block's warps, from the Python wrapper (ops/blocked_hbm.py::
-  // kernel_smem_bytes, WARPS), which also refuses a K outside [8, 2048].
+  // kernel_smem_bytes, WARPS), which also refuses K below 8 and a cache
+  // of blocks past the shared memory a thread block may use.
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         blocked_hbm_replay_kernel,

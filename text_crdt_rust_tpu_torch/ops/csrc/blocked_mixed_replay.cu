@@ -461,8 +461,8 @@ extern "C" int blocked_mixed_replay_launch(
     int CAP, int K, int NB, int NBp, int LMAX, int DMAX, int OTL, int smem,
     void* stream) {
   // smem: bytes of the kernel's shared layout, from the Python wrapper
-  // (ops/blocked_mixed.py::kernel_smem_bytes), which also refuses a K
-  // outside [8, 2048] and a document past the shared-memory limit, and
+  // (ops/blocked_mixed.py::kernel_smem_bytes), which also refuses K below
+  // 8 and a document past the shared-memory limit, and
   // passes view_dev when the view's tables do not fit beside the
   // document.
   if (smem > 48 * 1024) {

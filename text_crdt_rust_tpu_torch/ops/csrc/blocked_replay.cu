@@ -109,8 +109,8 @@ extern "C" int blocked_replay_launch(
     int S, int B, int CAP, int K, int NB, int NBp, int LMAX, int smem,
     void* stream) {
   // smem: bytes of the kernel's shared layout, from the Python wrapper
-  // (ops/blocked.py::kernel_smem_bytes), which also refuses a K outside
-  // [8, 1024] and a document past the shared-memory limit.
+  // (ops/blocked.py::kernel_smem_bytes), which also refuses K below 8 and
+  // a document past the shared-memory limit.
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         blocked_replay_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -770,7 +770,8 @@ extern "C" int rle_hbm_replay_launch(
     int warps, int smem, void* stream) {
   // smem: bytes of the kernel's shared layout, and warps: the thread
   // block's warps, from the Python wrapper (ops/rle_hbm.py::
-  // kernel_smem_bytes, WARPS), which also refuses K outside [8, 2048].
+  // kernel_smem_bytes, WARPS), which also refuses K below 8 and a layout
+  // past the shared memory a thread block may use.
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         rle_hbm_replay_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -583,8 +583,10 @@ struct Mixed {
   // sibling (S) when its origin-left is the op's, else it must be a
   // physically chained piece; anything else (and a sibling of equal rank
   // or poisoned origin-right) defeats the scan. Returns the block's
-  // summary packed in two ints, rows as indices in [0, K] (K: none):
-  // a = fb | lt << 12 | bad << 24, g = ga | g0 << 12, where fb is the first
+  // summary packed in two ints, rows as indices in [0, K] (K: none) in
+  // 16 bits each (a block's 2 K ints of delete scratch keep K below
+  // 29,100 where they fit a thread block): a = fb | lt << 16, or -1 when
+  // the scan is defeated, g = ga | g0 << 16, where fb is the first
   // breaking sibling (rank > mine, same o_right), lt the last lower-ranked
   // sibling before it, ga the first higher-ranked different-o_right
   // sibling after lt and before fb, g0 the first such sibling before fb.
@@ -654,15 +656,15 @@ struct Mixed {
         }
       }
     }
-    a = fb | (lt << 12) | ((bad ? 1 : 0) << 24);
-    g = ga | (g0 << 12);
+    a = bad ? -1 : fb | (lt << 16);
+    g = ga | (g0 << 16);
   }
 
   // Every warp summarises one block of the window: warp w the slot
   // job[1] + w when it is at most job[2], into red[2w], red[2w+1].
   __device__ void job_scan() {
     const int l = job[1] + warp, l_b = job[2], lo = job[3], key_hi = job[4];
-    int a = K | (K << 12), g = K | (K << 12);
+    int a = K | (K << 16), g = K | (K << 16);
     if (l <= l_b) {
       const int base = l * K;
       scan_block(blkord[l], max(0, lo - base), min(K, key_hi - base), job[5],
@@ -734,14 +736,14 @@ struct Mixed {
       }
       for (int w = 0; w < n; ++w) {
         const int a = red[2 * w], g = red[2 * w + 1];
-        if (a >> 24) {
+        if (a < 0) {
           ok = false;
           break;
         }
         if (found) continue;
         const int base = (l0 + w) * K;
-        const int fb = a & 4095, lt = (a >> 12) & 4095;
-        const int ga = g & 4095, g0 = (g >> 12) & 4095;
+        const int fb = a & 0xffff, lt = a >> 16;
+        const int ga = g & 0xffff, g0 = g >> 16;
         if (lt != K) {
           kll = base + lt;
           kss = ga != K ? base + ga : BIGK;
@@ -1165,7 +1167,8 @@ extern "C" int rle_mixed_replay_launch(
   // smem: bytes of the kernel's shared layout, nsm: how many of the five
   // moved planes sit there, and warps: the thread block's warps, from the
   // Python wrapper (ops/rle_mixed.py::kernel_smem_bytes, WARPS), which
-  // also refuses a K outside [8, 2048].
+  // also refuses K below 8 and a layout past the shared memory a thread
+  // block may use.
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         rle_mixed_replay_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -813,7 +813,8 @@ __global__ void write_out(const int* __restrict__ work,
 
 // smem: bytes of the kernel's shared layout, and warps: the thread block's
 // warps, from the Python wrapper (ops/rle.py::kernel_smem_bytes, WARPS),
-// which also refuses K outside [8, 2048]. stats may be null.
+// which also refuses K below 8 and a layout past the shared memory a
+// thread block may use. stats may be null.
 extern "C" int rle_replay_launch(
     const int* pos, const int* dlen, const int* ilen, const int* start,
     const int* wcol, int* ol, int* orr, int* ordp, int* lenp, int* blk_out,

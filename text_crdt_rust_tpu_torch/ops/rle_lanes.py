@@ -494,15 +494,71 @@ WARPS = 1
 MIN_ROWS_ON_CHIP = 512
 
 _BKERNEL = "rle_lanes_blocked"
-#: Largest K of the blocked kernel: its passes loop over a block 32 rows a
-#: time; its 7 K ints of block scratch a document leave fewer documents a
-#: thread block at large K (three at 2,048).
-BLOCKED_KMAX = 2048
 _BLAUNCH = "rle_lanes_blocked_launch"
-# 5 op columns, 6 inputs, 9 outputs, the scratch planes; S, B, CAP, K, NBT,
-# WMAX; the stream.
-_BARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_BSCRATCH_PLANES = 2  # lane-major [B, CAP]: ordp, lenp
+# 5 op columns, 6 inputs, 9 outputs, the scratch, stats; S, B, CAP, K,
+# NBT, WMAX, warps, on_chip; the stream.
+_BARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+#: Per-document counters of the blocked kernel's ``stats``: steps with
+#: work, deletes, delete iterations, inserts, splits, block copies, head
+#: reads from device memory; ``clock64`` cycles in slot locates, in block
+#: copies, in delete passes, in inserts' locates and splices, in
+#: slot-table upkeep, in splits and in all steps; the blocks in use at the
+#: end, and 1 if the document's rows were in shared memory.
+BLOCKED_STATS = 16
+#: Most documents (one warp each) in a thread block of the blocked kernel,
+#: and the default where they fit.
+BLOCKED_MAX_WARPS = 4
+BLOCKED_WARPS = 4
+
+
+def blocked_doc_bytes(capacity: int, nbt: int, on_chip: bool) -> int:
+    """Shared memory of one document (warp) of the blocked kernel: its
+    counters and its four slot tables, and with ``on_chip`` its
+    ``capacity`` rows of both planes (``doc_ints`` in the kernel). No
+    K-row scratch sits there: a block is edited where it lives."""
+    return 4 * (2 * BLOCKED_STATS + 4 * nbt + (2 * capacity if on_chip
+                                                else 0))
+
+
+def blocked_on_chip(capacity: int, nbt: int) -> bool:
+    """Where the blocked kernel keeps a document's rows by default: in
+    shared memory where a document fits a thread block."""
+    return blocked_doc_bytes(capacity, nbt, True) <= SMEM_LIMIT
+
+
+def describe_blocked_stats(v) -> str:
+    """The blocked kernel's counters ``v`` (summed over documents and
+    launches) as a line of text."""
+    steps, tot = max(int(v[0]), 1), max(int(v[13]), 1)
+    names = ("slot locates", "block copies", "delete passes",
+             "inserts' locates and splices", "slot-table upkeep", "splits")
+    shares = ", ".join(f"{n} {int(v[7 + i]) / tot:.4f}"
+                       for i, n in enumerate(names))
+    return (f"{int(v[0])} steps with work, {int(v[1])} deletes "
+            f"({int(v[2]) / max(int(v[1]), 1):.3f} iterations a delete), "
+            f"{int(v[3])} inserts, {int(v[4])} splits; a step: "
+            f"{int(v[5]) / steps:.3f} block copies, {int(v[6]) / steps:.3f} "
+            f"head reads from device memory, {tot / steps:.0f} cycles; "
+            f"cycle shares: {shares}; blocks in use at the ends of the "
+            f"launches {int(v[14])}, documents with their rows in shared "
+            f"memory {int(v[15])}")
+
+
+def blocked_geometry(batch: int, capacity: int, nbt: int, warps: int,
+                     on_chip: bool, dev) -> dict:
+    """How the blocked kernel lays out ``batch`` documents at ``warps`` a
+    thread block: a thread block's shared memory, the blocks an SM holds
+    at once (the CUDA occupancy calculator) and the waves of blocks."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fn = _kernels.library(_BKERNEL).rle_lanes_blocked_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    per_sm = fn(warps, capacity, nbt, int(on_chip))
+    n = -(-batch // warps)
+    return dict(warps=warps, on_chip=on_chip,
+                smem=warps * blocked_doc_bytes(capacity, nbt, on_chip),
+                blocks_per_sm=per_sm,
+                waves=-(-n // (per_sm * sms)) if per_sm > 0 else None)
 
 
 def _check_cols(cols, dev, S, B, what="op columns"):
@@ -617,9 +673,16 @@ def lanes_replay_cuda(pos, dlen, ilen, start, wcol, ord0, len0, rows0, *,
 
 def lanes_blocked_replay_cuda(pos, dlen, ilen, start, wcol, ord0, len0,
                               nlog0, blk0, rws0, liv0, *, block_k: int,
-                              wmax: int):
+                              wmax: int, warps: Optional[int] = None,
+                              on_chip: Optional[bool] = None, stats=None):
     """Launch ``ops/csrc/rle_lanes_blocked.cu`` on PyTorch's current
-    stream. Same arguments and results as ``lanes_blocked_replay_plain``."""
+    stream. Same arguments and results as ``lanes_blocked_replay_plain``.
+    ``on_chip`` keeps each document's rows in shared memory for the
+    launch (by default where a document fits a thread block), else in
+    device memory; ``warps`` sets the documents of a thread block (1-4;
+    by default ``BLOCKED_WARPS``, fewer where they would not fit);
+    ``stats``, an int64 ``[B, BLOCKED_STATS]`` tensor on the card,
+    receives each document's counters."""
     S, B = pos.shape
     CAP, NBT = ord0.shape[0], blk0.shape[0]
     K = block_k
@@ -629,24 +692,45 @@ def lanes_blocked_replay_cuda(pos, dlen, ilen, start, wcol, ord0, len0,
     _check_cols((ord0, len0), dev, CAP, B, "run planes")
     _check_cols((nlog0,), dev, 1, B, "nlog")
     _check_cols((blk0, rws0, liv0), dev, NBT, B, "slot tables")
-    _require(S >= 1 and 8 <= K <= BLOCKED_KMAX and CAP % K == 0
-             and wmax >= 1, "bad replay shape")
+    _require(S >= 1 and K >= 8 and CAP % K == 0 and wmax >= 1,
+             "bad replay shape")
     _require(NBT == max(8, CAP // K), "slot tables must hold max(8, NB) rows")
-    _require(4 * (5 * NBT + 7 * K) <= SMEM_LIMIT,
-             f"a document's slot tables ({NBT} rows) and {K}-row block "
-             f"scratch must fit {SMEM_LIMIT} B of shared memory")
+    if on_chip is None:
+        on_chip = blocked_on_chip(CAP, NBT)
+    per_doc = blocked_doc_bytes(CAP, NBT, on_chip)
+    _require(per_doc <= SMEM_LIMIT,
+             f"a document's slot tables ({NBT} rows)"
+             f"{f' and {CAP} rows' if on_chip else ''} need {per_doc} B "
+             f"of shared memory (limit {SMEM_LIMIT})")
+    if warps is None:
+        warps = max(1, min(BLOCKED_WARPS, SMEM_LIMIT // per_doc))
+    _require(1 <= warps <= BLOCKED_MAX_WARPS
+             and warps * per_doc <= SMEM_LIMIT,
+             f"warps must lie in [1, {BLOCKED_MAX_WARPS}] and their "
+             f"documents ({per_doc} B each) fit {SMEM_LIMIT} B of shared "
+             f"memory")
+    _require(stats is None or (stats.device == dev
+                               and stats.dtype == torch.int64
+                               and stats.is_contiguous()
+                               and tuple(stats.shape) == (B, BLOCKED_STATS)),
+             f"stats must be a contiguous int64 [{B}, {BLOCKED_STATS}] on "
+             f"the card")
 
     def out(r):
         return torch.empty(r, B, dtype=I32, device=dev)
 
     outs = (out(S), out(S), out(CAP), out(CAP), out(1), out(NBT), out(NBT),
             out(NBT), out(8))
-    scratch = torch.empty(_BSCRATCH_PLANES, B, CAP, dtype=I32, device=dev)
+    # Four K-row block copies a document, after the lane-major planes
+    # [B, CAP] of ordp and lenp where the rows live in device memory.
+    scratch = torch.empty((0 if on_chip else 2 * CAP) + 4 * K, B,
+                          dtype=I32, device=dev)
     fn = _kernels.function(_BKERNEL, _BLAUNCH, _BARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     tensors = (*cols, ord0, len0, nlog0, blk0, rws0, liv0, *outs, scratch)
-    code = fn(*(t.data_ptr() for t in tensors), S, B, CAP, K, NBT, wmax,
-              stream)
+    code = fn(*(t.data_ptr() for t in tensors),
+              None if stats is None else stats.data_ptr(), S, B, CAP, K, NBT,
+              wmax, warps, int(on_chip), stream)
     _kernels.check(_BKERNEL, code)
     _kernels.count_launch(_BKERNEL)
     return outs

@@ -898,9 +898,6 @@ BLOCKED_STATS = 19
 #: and the default (``chip_smoke.py`` times 1-4 at 5r).
 BLOCKED_MAX_WARPS = 4
 BLOCKED_WARPS = 4
-#: Largest K the blocked kernel takes (its scratch is 6 K ints a warp, so
-#: at K = 2,048 at most four documents share a thread block).
-BLOCKED_KMAX = 2048
 
 
 def blocked_warp_bytes(block_k: int, nbt: int) -> int:
@@ -994,16 +991,21 @@ def lanes_mixed_blocked_replay_cuda(
     _check_cols((blk0, rws0, liv0, raw0, fwd0), dev, NBT, B, "slot tables")
     _check_cols((oll0, orl0, ordblk0, olld, orld, rkl), dev, OCAP, B,
                 "order tables")
-    _require(S >= 1 and 8 <= K <= BLOCKED_KMAX and CAP % K == 0
-             and wmax >= 1, "bad replay shape")
+    _require(S >= 1 and K >= 8 and CAP % K == 0 and wmax >= 1,
+             "bad replay shape")
     _require(NBT == max(8, CAP // K), "slot tables must hold max(8, NB) rows")
+    per_doc = blocked_warp_bytes(K, NBT)
+    _require(per_doc <= SMEM_LIMIT,
+             f"a document's slot tables ({NBT} rows) and {K}-row block "
+             f"scratch need {per_doc} B of shared memory (limit "
+             f"{SMEM_LIMIT})")
     if warps is None:
-        warps = max(1, min(BLOCKED_WARPS,
-                           SMEM_LIMIT // blocked_warp_bytes(K, NBT)))
+        warps = max(1, min(BLOCKED_WARPS, SMEM_LIMIT // per_doc))
     _require(1 <= warps <= BLOCKED_MAX_WARPS
-             and warps * blocked_warp_bytes(K, NBT) <= SMEM_LIMIT,
+             and warps * per_doc <= SMEM_LIMIT,
              f"warps must lie in [1, {BLOCKED_MAX_WARPS}] and their "
-             f"documents fit {SMEM_LIMIT} B of shared memory")
+             f"documents ({per_doc} B each) fit {SMEM_LIMIT} B of shared "
+             f"memory")
 
     def out(r):
         return torch.empty(r, B, dtype=I32, device=dev)

@@ -688,8 +688,6 @@ _KERNEL = "rle_mixed_replay"
 _LAUNCH = "rle_mixed_replay_launch"
 _ARGTYPES = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 11
              + [ctypes.c_void_p])
-#: Most rows a block of the kernel holds.
-KMAX_KERNEL = 2048
 #: Shared memory one thread block may use on an H100 (232,448 bytes).
 SMEM_LIMIT = 232448
 #: Per-lane counters of ``stats``: order lookups, hint misses, fast scans,
@@ -747,8 +745,7 @@ def rle_mixed_replay_cuda(kind, pos, dlen, dtgt, olop, orop, rank, ilen,
         _require(t.device == dev and t.dtype == I32 and t.is_contiguous()
                  and t.shape == (OTL,),
                  "order tables must be contiguous int32 [OT*128]")
-    _require(8 <= K <= KMAX_KERNEL,
-             f"block_k must lie in [8, {KMAX_KERNEL}] for the kernel")
+    _require(K >= 8, "block_k must be at least 8")
     if warps is None:
         warps = pick_warps(B, dev)
     _require(1 <= warps <= 16, "warps must lie in [1, 16]")
@@ -759,8 +756,8 @@ def rle_mixed_replay_cuda(kind, pos, dlen, dtgt, olop, orop, rank, ilen,
              f"stats must be a contiguous int64 [{B}, {STATS}] on the card")
     smem, nsm = kernel_smem_bytes(K, NB, NBL, CAP)
     _require(smem <= SMEM_LIMIT,
-             f"the slot tables of {NB} blocks need {smem} B of shared "
-             f"memory (limit {SMEM_LIMIT}); raise block_k")
+             f"the slot tables of {NB} blocks and {K}-row delete scratch "
+             f"need {smem} B of shared memory (limit {SMEM_LIMIT})")
     ol = torch.zeros(S, B, dtype=I32, device=dev)
     orr = torch.zeros_like(ol)
     ordp = torch.empty(CAP, B, dtype=I32, device=dev)
