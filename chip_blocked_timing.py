@@ -1,7 +1,7 @@
 """Time the redesigned kernels (A1-A10) on one NVIDIA card.
 
     python3 chip_blocked_timing.py [tests] [a10] [a8] [a9] [a2] [a3] [a4]
-        [a6] [a1] [a7] [a5] [--reps N]
+        [a6] [a1] [a7] [a5] [serve] [--reps N]
 
 A quicker loop than ``chip_smoke.py`` while redesigning those kernels:
 it builds them (printing ptxas's registers and spills), then runs the
@@ -49,7 +49,12 @@ named phases, all by default:
   shared memory and in device memory, and on every 16th document alone;
   each chain also timed with its launches queued ahead of the card (a
   sleep kernel first), which leaves out the gaps in which the card waits
-  for the host between launches.
+  for the host between launches;
+- ``serve``: the serve lanes backend's card tests (``-k
+  serve_lanes_backend``), then ``chip_smoke.py``'s serve phase (the
+  document server on A7: the acceptance shape at pipeline depths 1 and 2
+  against the JAX package's golden record, the wide shape, A7 against
+  its plain version on sampled serve launches).
 
 Times are medians of ``--reps`` runs (3) after 1 warm-up, CUDA events.
 The plain versions are not timed here; ``chip_smoke.py`` holds every
@@ -69,9 +74,11 @@ from __future__ import annotations
 
 import argparse
 import inspect
+import json
 import statistics
 import subprocess
 import sys
+import time
 
 
 def cuda_ms(torch, fn, reps: int, queued: bool = False) -> float:
@@ -536,7 +543,7 @@ def phase_a5(torch, dev, reps):
 
 def main(argv=None) -> int:
     phases = ("tests", "a10", "a8", "a9", "a2", "a3", "a4", "a6", "a1",
-              "a7", "a5")
+              "a7", "a5", "serve")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="*", help=f"any of {phases} (all)")
     ap.add_argument("--reps", type=int, default=3)
@@ -654,7 +661,39 @@ def main(argv=None) -> int:
         phase_a7(torch, dev, args.reps)
     if "a5" in args.phases:
         phase_a5(torch, dev, args.reps)
+    if "serve" in args.phases:
+        phase_serve(torch, dev)
     return 0
+
+
+def phase_serve(torch, dev) -> None:
+    import multiprocessing
+
+    import numpy as np
+
+    import chip_smoke
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as RLM
+
+    r = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+         "-q", "tests/test_torch_cuda.py", "-k", "serve_lanes_backend",
+         "-p", "no:cacheprovider"], capture_output=True, text=True)
+    print(r.stdout[-3000:], r.stderr[-2000:], flush=True)
+    card = chip_smoke.card_line()
+    pool = multiprocessing.get_context("spawn").Pool(4)
+    try:
+        t0 = time.perf_counter()
+        fields, worst, pending = chip_smoke.serve_phase(
+            torch, dev, card, _kernels, RLM, np, pool)
+        e, secs = chip_smoke.check_serve_wide(torch, pending)
+        print(f"serve phase: {time.perf_counter() - t0:.1f} s, max_abs_err "
+              f"{max(worst, e)}; {json.dumps(fields, default=str)}",
+              flush=True)
+    finally:
+        pool.terminate()
+    if r.returncode != 0 or max(worst, e) != 0:
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":

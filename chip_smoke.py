@@ -215,10 +215,32 @@
    the child processes started in phase 2; the three phases run in the
    order 24, 22, 23, each doing its card work first and waiting for its
    plain result last.
-25. The 5r plain chains' shards (phases 11 and 12) against the kernel
-   chains' outputs.
-26. Prints ``{"kernels": [...]}`` (all ten kernels) and, as its last
-   line, ``{"ok": true, "device": {...}}``.
+25. The document server (``serve/``) on A7, right after the 5r phases:
+   ``ServeLoadGen(docs=200, agents_per_doc=3, ticks=60,
+   events_per_tick=48, 10% faults, seed=7)`` on ``ServeConfig(engine=
+   "rle-lanes-mixed", num_shards=2, lanes_per_shard=16)`` (K = 32,
+   capacity 512 run rows, order tables of 1,536 rows, tick shapes padded
+   to 8, 32 and 128 steps) at pipeline depths 1 and 2, each counted
+   (launch counts set to 0 just before, read just after) and held
+   against the JAX package's golden record of the same run
+   (``tests/data/serve_lanes_golden.json``: the report's logical fields,
+   every document's string and digest, the sha256 of the trace stream
+   without its walls); it fails unless both converge, equal the record,
+   evict at least 20 times and launch only the three shapes. Then the
+   wide shape: 4,096 documents on 2 x 1,024 lanes, 1,024 events a tick,
+   16 ticks (the per-doc queue bound raised to 1,024, see
+   ``SERVE_WIDE``), which must converge. Each run prints its host wall,
+   ticks, tick ms p50/p99 (the caller's clock), A7's launches and device
+   ms (CUDA events around each launch, summed), item-ops/s, evictions,
+   restores, lane writes, the pipeline's overlap share and stall, and
+   peak device memory. A7 is held against its plain version on the
+   depth-1 acceptance run's launches with a split, every S = 128 launch
+   and every 8th launch of each shard (in this process), and on every 8th
+   launch of each shard of the wide run (in the child processes).
+26. The wide serve launches and the 5r plain chains' shards (phases 11
+   and 12) against the kernel's outputs.
+27. Prints ``{"kernels": [...]}`` (all ten kernels; A7's line carries the
+   serve runs) and, as its last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line; so does a host without
 CUDA, and a directory without the rest of the repository.
@@ -2211,6 +2233,301 @@ def blocked_a10_phase(torch, dev, card, B, storm, TBL, TBM, np, _kernels,
     }
 
 
+# -- the document server on A7 ------------------------------------------------
+
+SERVE_GOLDEN = os.path.join("tests", "data", "serve_lanes_golden.json")
+SERVE_ACCEPTANCE = dict(docs=200, agents_per_doc=3, ticks=60,
+                        events_per_tick=48, zipf_alpha=1.1, fault_rate=0.10,
+                        local_prob=0.25, seed=7)
+SERVE_ACCEPTANCE_CFG = dict(engine="rle-lanes-mixed", num_shards=2,
+                            lanes_per_shard=16)
+# A server this card would carry: 2,048 resident lanes over 4,096 docs.
+# At 1,024 events a tick the default per-doc queue bound (256) livelocks
+# the loadgen's final drain on the second-hottest document (its clean
+# pull chunk of 128 txns plus its pending txns exceed the bound, and the
+# all-or-nothing group is refused every round; the JAX package's logic,
+# which the port reproduces); the bound is raised to 1,024 here.
+SERVE_WIDE = dict(docs=4096, agents_per_doc=3, ticks=16,
+                  events_per_tick=1024, zipf_alpha=1.1, fault_rate=0.10,
+                  local_prob=0.25, seed=7)
+SERVE_WIDE_CFG = dict(engine="rle-lanes-mixed", num_shards=2,
+                      lanes_per_shard=1024, max_queue_per_doc=1024)
+SERVE_SAMPLE_EVERY = 8         # every 8th launch of each shard is checked
+
+
+def plain_serve_launch(inputs, shape):
+    """Runs on the CPU (in a child process for the wide shape): A7's plain
+    version on one recorded serve launch's inputs (numpy). Returns its
+    outputs as numpy arrays and the seconds."""
+    import torch
+
+    from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as RLM
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = RLM.lanes_mixed_blocked_replay_plain(
+        *[torch.from_numpy(a) for a in inputs], **shape)
+    return [o.numpy() for o in out], time.perf_counter() - t0
+
+
+class ServeLaunches:
+    """Stands in for A7's launch wrapper while the server runs: CUDA
+    events around every launch (the device time), and with ``keep`` set,
+    a copy of each launch's inputs and outputs (taken on the card, in
+    stream order: the server edits its state in place afterwards) with
+    its shard and its index in that shard."""
+
+    def __init__(self, torch, kernel):
+        self.torch, self.kernel = torch, kernel
+        self.events, self.kept = [], []
+        self.keep = None           # (shard, index) -> keep the launch?
+        self.shard = 0
+        self.index = {}
+
+    def __call__(self, *args, **shape):
+        torch = self.torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.kernel(*args, **shape)
+        end.record()
+        self.events.append((start, end))
+        k = self.index.get(self.shard, 0)
+        self.index[self.shard] = k + 1
+        if self.keep is not None and self.keep(args, k):
+            self.kept.append(dict(
+                shard=self.shard, index=k, shape=dict(shape),
+                inputs=[a.clone() for a in args],
+                outputs=[o.clone() for o in out]))
+        return out
+
+    def take(self):
+        """(device ms summed over the launches since the last take, their
+        count, the kept launches); resets."""
+        self.torch.cuda.synchronize()
+        ms = sum(s.elapsed_time(e) for s, e in self.events)
+        out = (ms, len(self.events), self.kept)
+        self.events, self.kept, self.index = [], [], {}
+        return out
+
+
+def serve_run(torch, ServeConfig, ServeLoadGen, launches, params, cfg_kw,
+              depth, keep, dev):
+    """One counted ServeLoadGen run on the card (the caller's clock:
+    ``time.perf_counter``); returns the generator, its report and the
+    host wall."""
+    cfg = ServeConfig(pipeline_ticks=depth, trace_keep=True, **cfg_kw)
+    launches.keep = keep
+    gen = ServeLoadGen(cfg=cfg, device=dev, clock=time.perf_counter,
+                       **params)
+    for i, b in enumerate(gen.server.residency.backends):
+        def apply(stacked, orig=b.apply, i=i):
+            launches.shard = i
+            orig(stacked)
+        b.apply = apply
+    t0 = time.perf_counter()
+    report = gen.run()
+    torch.cuda.synchronize()
+    return gen, report, time.perf_counter() - t0
+
+
+def serve_record(gen, report, logical_report, hashlib):
+    """The golden record's fields of a run (as
+    ``tests/data/make_serve_golden.py`` writes them)."""
+    docs = {w.doc_id: [gen.server.doc_string(w.doc_id),
+                       int(gen.server.doc_digest(w.doc_id))]
+            for w in gen.worlds}
+    trace = gen.server.tracer.logical_bytes()
+    return {"logical": logical_report(report), "docs": docs,
+            "trace_sha256": hashlib.sha256(trace).hexdigest(),
+            "trace_events": trace.count(b"\n")}
+
+
+def serve_numbers(torch, gen, report, wall, ms, n, launches, label, card):
+    """Logs a serve run's numbers (all on ``card``) and returns them."""
+    b0 = gen.server.residency.backends
+    tick = report["tick_ms"]
+    srv = report["server"]
+    out = dict(
+        host_wall_s=wall, ticks=tick["samples"], tick_ms_p50=tick["p50"],
+        tick_ms_p99=tick["p99"], a7_device_ms=ms, a7_launches=n,
+        kernel_launches=launches, item_ops=report["item_ops_applied"],
+        item_ops_per_s=report["ops_per_sec"],
+        evictions=srv.get("evictions", 0), restores=srv.get("restores", 0),
+        lane_writes=sum(b.lane_writes for b in b0),
+        lane_uploads=srv.get("lane_uploads", 0),
+        overlap_frac=report["pipeline"]["overlap_frac"],
+        stall_ms=report["pipeline"]["stall_ms_total"],
+        rejected=report["rejected_submissions"],
+        shapes_seen=sorted(set().union(*(b.shapes_seen for b in b0))),
+        peak_device_bytes=torch.cuda.max_memory_allocated())
+    log(f"serve {label}: converged {report['converged']}; host wall "
+        f"{wall:.2f} s over {out['ticks']} ticks (tick ms p50 "
+        f"{out['tick_ms_p50']}, p99 {out['tick_ms_p99']}, caller's clock); "
+        f"A7 {n} launches, {ms:.3f} ms on the card (CUDA events, summed); "
+        f"{out['item_ops']} item-ops, {out['item_ops_per_s']} item-ops/s; "
+        f"evictions {out['evictions']}, restores {out['restores']}, lane "
+        f"writes {out['lane_writes']} (uploads {out['lane_uploads']}); "
+        f"pipeline depth {report['pipeline']['ticks']}: overlap_frac "
+        f"{out['overlap_frac']}, stall {out['stall_ms']} ms; rejected "
+        f"submissions {out['rejected']}; shapes {out['shapes_seen']}; "
+        f"launches {launches}; peak device memory "
+        f"{out['peak_device_bytes'] / 2**20:.1f} MiB; on {card}")
+    return out
+
+
+def serve_phase(torch, dev, card, _kernels, RLM, np, pool):
+    """The document server (``serve/``) on A7: the acceptance shape at
+    pipeline depths 1 and 2 against the JAX package's golden record, the
+    wide shape, and A7 against its plain version on sampled serve
+    launches. Returns the A7 line's serve fields and the wide shape's
+    pending plain checks."""
+    import hashlib
+
+    from text_crdt_rust_tpu_torch.config import ServeConfig
+    from text_crdt_rust_tpu_torch.serve.loadgen import (
+        ServeLoadGen,
+        logical_report,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, SERVE_GOLDEN)) as f:
+        golden = json.load(f)
+    if (golden["params"] != SERVE_ACCEPTANCE
+            or golden["cfg"] != SERVE_ACCEPTANCE_CFG):
+        raise AssertionError("the golden record is of another shape")
+    launches = ServeLaunches(torch, RLM.lanes_mixed_blocked_replay_cuda)
+    RLM.lanes_mixed_blocked_replay_cuda = launches
+    runs, kept_acc = {}, []
+    try:
+        for depth in (1, 2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launches()
+            gen, report, wall = serve_run(
+                torch, ServeConfig, ServeLoadGen, launches,
+                SERVE_ACCEPTANCE, SERVE_ACCEPTANCE_CFG, depth,
+                (lambda args, k: True) if depth == 1 else None, dev)
+            counts = dict(_kernels.launches)
+            ms, n, kept = launches.take()
+            kept_acc.extend(kept)
+            rec = serve_record(gen, report, logical_report, hashlib)
+            want = golden["depths"][str(depth)]
+            same = {k: rec[k] == want[k] for k in rec}
+            nums = serve_numbers(torch, gen, report, wall, ms, n, counts,
+                                 f"acceptance (depth {depth})", card)
+            log(f"serve acceptance (depth {depth}) against the JAX "
+                f"package's golden record: {same}; "
+                f"{len(rec['docs'])} documents, {rec['trace_events']} "
+                f"trace events")
+            if (not report["converged"] or not all(same.values())
+                    or counts.get("rle_lanes_mixed_blocked", 0) < 1
+                    or report["pipeline"]["ticks"] != depth
+                    or report["server"]["evictions"] < 20
+                    or not set(nums["shapes_seen"]) <= {8, 32, 128}):
+                raise AssertionError(
+                    f"serve acceptance (depth {depth}) failed: converged "
+                    f"{report['converged']}, golden {same}, launches "
+                    f"{counts}, shapes {nums['shapes_seen']}")
+            runs[f"acceptance_depth{depth}"] = nums
+            del gen, report
+
+        # The wide shape: every 8th launch of each shard kept for the
+        # plain check, which runs in the child processes.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        gen, report, wall = serve_run(
+            torch, ServeConfig, ServeLoadGen, launches, SERVE_WIDE,
+            SERVE_WIDE_CFG, 2, lambda args, k: k % SERVE_SAMPLE_EVERY == 0,
+            dev)
+        counts = dict(_kernels.launches)
+        ms, n, kept_wide = launches.take()
+        nums = serve_numbers(torch, gen, report, wall, ms, n, counts,
+                             "wide (depth 2)", card)
+        if (not report["converged"]
+                or counts.get("rle_lanes_mixed_blocked", 0) < 1):
+            raise AssertionError(f"serve wide shape failed: converged "
+                                 f"{report['converged']}, launches "
+                                 f"{counts}, mismatches "
+                                 f"{report['mismatches'][:4]}")
+        runs["wide_depth2"] = nums
+        del gen, report
+    finally:
+        RLM.lanes_mixed_blocked_replay_cuda = launches.kernel
+
+    # The acceptance run's launches held against the plain version: every
+    # launch with a split, every S = 128 launch, every 8th of each shard.
+    def chosen(kl):
+        nlog_in, nlog_out = kl["inputs"][12], kl["outputs"][4]
+        return (kl["index"] % SERVE_SAMPLE_EVERY == 0
+                or kl["inputs"][0].shape[0] == 128
+                or bool((nlog_out > nlog_in).any()))
+
+    sample = [kl for kl in kept_acc if chosen(kl)]
+    worst, secs, splits = 0, 0.0, 0
+    bytes_, ops_ = 0, 0
+    for kl in sample:
+        inputs = [t.cpu().numpy() for t in kl["inputs"]]
+        outs, s = plain_serve_launch(inputs, kl["shape"])
+        secs += s
+        e = worst_err([t.cpu() for t in kl["outputs"]],
+                      [torch.from_numpy(x) for x in outs], A7_OUTPUTS)
+        worst = max(worst, e)
+        splits += bool((kl["outputs"][4] > kl["inputs"][12]).any())
+    for kl in kept_acc:
+        CAP, NBT, OCAP = (kl["inputs"][10].shape[0],
+                          kl["inputs"][13].shape[0],
+                          kl["inputs"][17].shape[0])
+        b, o, _ = lanes_bound(kl["inputs"][:10], (CAP, OCAP), True,
+                              kl["shape"]["block_k"], NBT)
+        bytes_, ops_ = bytes_ + b, ops_ + o
+    bb, bo = bytes_ / PEAK_BYTES_PER_S * 1e3, ops_ / PEAK_OPS_PER_S * 1e3
+    log(f"compare serve acceptance launches (K=32) against the plain "
+        f"version: {len(sample)} of {len(kept_acc)} launches ({splits} "
+        f"with a split, every S = 128 one, every {SERVE_SAMPLE_EVERY}th of "
+        f"each shard), max_abs_err {worst} over all 14 outputs, plain "
+        f"{secs:.1f} s on the CPU; the depth-1 run's {len(kept_acc)} "
+        f"launches bound {max(bb, bo):.4f} ms ({bb:.4f} ms by bytes, "
+        f"{bo:.4f} ms by operations); on {card}")
+    if worst != 0 or not sample:
+        raise AssertionError("A7 disagrees with its plain version at the "
+                             "serve shapes")
+    wide_pending = [(kl["shard"], kl["index"], pool.apply_async(
+        plain_serve_launch, ([t.cpu().numpy() for t in kl["inputs"]],
+                             kl["shape"])),
+        [t.cpu() for t in kl["outputs"]]) for kl in kept_wide]
+    del kept_wide, kept_acc
+    fields = {
+        "launches_serve": {k: v["a7_launches"] for k, v in runs.items()},
+        "serve_ms": {k: v["a7_device_ms"] for k, v in runs.items()},
+        "serve_bound_ms_acceptance_depth1": max(bb, bo),
+        "serve_bound_by": "bytes" if bb >= bo else "operations",
+        "serve_plain_launches": len(sample),
+        "serve_plain_s": secs,
+        "serve_max_abs_err": worst,
+        "serve": runs,
+    }
+    return fields, worst, wide_pending
+
+
+def check_serve_wide(torch, pending):
+    """The wide serve run's sampled launches against their plain version
+    (run in the child processes), bit for bit."""
+    worst, secs = 0, []
+    for shard, index, res, kern in pending:
+        outs, s = res.get()
+        e = worst_err(kern, [torch.from_numpy(x) for x in outs], A7_OUTPUTS)
+        worst = max(worst, e)
+        secs.append(s)
+        log(f"compare serve wide launch {index} of shard {shard} against "
+            f"the plain version: max_abs_err {e}, plain {s:.1f} s in its "
+            f"child process")
+    if not pending:
+        raise AssertionError("no wide serve launch was sampled")
+    return worst, secs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2877,6 +3194,15 @@ def main() -> int:
         "peak_device_bytes": peak_mem,
         "device_steps": s5.steps,
     }
+    # -- the document server (serve/) on A7 ----------------------------------
+    t0 = time.perf_counter()
+    serve_fields, serve_worst, serve_wide = serve_phase(
+        torch, dev, card, _kernels, RLM, np, pool)
+    a7_worst = max(a7_worst, serve_worst)
+    a7_line.update(serve_fields)
+    a7_line["launches_path"] = ("stream.run_stream (config 5r); the serve "
+                                "loadgen runs: see launches_serve")
+    log(f"serve phase: {time.perf_counter() - t0:.1f} s")
     # -- the per-lane local replays and the config-5 path ----------------------
     a4_worst, a5_worst = local_lanes_phase(torch, dev, B, RL, randedit,
                                            TestPatch, np)
@@ -2897,7 +3223,16 @@ def main() -> int:
     a9_line = blocked_a9_phase(torch, dev, card, B, northstar, TBL, TBH,
                                randedit, TestPatch, np, _kernels,
                                plain_a9_async)
-    # -- the 5r plain chains' shards against the kernel chains -----------------
+    # -- the wide serve run's sampled launches, then the 5r plain chains ------
+    e, secs = check_serve_wide(torch, serve_wide)
+    a7_worst = max(a7_worst, e)
+    a7_line.update(serve_wide_plain_launches=len(secs),
+                   serve_wide_plain_s=secs)
+    log(f"compare serve wide launches: max_abs_err {e} over {len(secs)} "
+        f"launches against the plain version")
+    if e != 0:
+        raise AssertionError("A7 disagrees with its plain version on the "
+                             "wide serve launches")
     for line, label, shards, k_sub, names, worst in (
             (a7_line, "5r blocked chain (A7)", shards7, k7_sub, A7_OUTPUTS,
              a7_worst),

@@ -776,3 +776,88 @@ def test_blocked_mixed_kernel_matches_plain(card, name):
                                                            **rep.shape))
     _assert_equal(kern, plain)
     assert kern[4][:3].amax(dim=1).tolist() == flags
+
+
+def _serve_ticks(S: int, lanes: int = 16, ticks: int = 3, seed: int = 0):
+    """Three ``[S, lanes]`` serve ticks of remote txns from seeded
+    two-agent histories, compiled per lane with a carried compiler state
+    and fused as the batcher fuses them (W <= 8 at K = 32)."""
+    import copy
+
+    from text_crdt_rust_tpu_torch.models.oracle import ListCRDT
+    from text_crdt_rust_tpu_torch.models.sync import export_txns_since
+
+    rng = random.Random(seed)
+    hist = []
+    for b in range(lanes):
+        # Mostly typing at the end (runs merge, so the rows stay inside
+        # the lanes' row budget while the steps fill S), some scattered
+        # inserts and deletes (splits).
+        doc = ListCRDT()
+        ids = [doc.get_or_create_agent_id(f"l{b}a{i}") for i in range(2)]
+        for i in range(rng.randint(ticks * S, 2 * ticks * S)):
+            if doc.get_next_order() > 1400:   # order capacity 1536
+                break
+            n = len(doc)
+            a = ids[(i // 8) % 2]
+            r = rng.random()
+            if n > 2 and r < 0.1:
+                doc.local_delete(a, rng.randrange(n - 1), 1)
+            elif r < 0.2:
+                doc.local_insert(a, rng.randint(0, n), "xy")
+            else:
+                doc.local_insert(a, n, "abcd"[: rng.randint(1, 4)])
+        hist.append(export_txns_since(doc, 0))
+    state = [(TB.AgentTable(), None, 0) for _ in range(lanes)]
+    out = []
+    for _ in range(ticks):
+        streams = []
+        for b in range(lanes):
+            table, assigner, at = state[b]
+            cur = TB.empty_ops(16)
+            while at < len(hist[b]):
+                t = hist[b][at]
+                tab, asg = copy.deepcopy((table, assigner))
+                for name in sorted({t.id.agent}):
+                    tab.add(name)
+                ops, asg = TB.compile_remote_txns([t], tab, assigner=asg,
+                                                  lmax=16)
+                nxt = TB.concat_ops([cur, ops])
+                if nxt.num_steps > S:
+                    break
+                cur, table, assigner, at = nxt, tab, asg, at + 1
+            state[b] = (table, assigner, at)
+            if cur.num_steps > 1:
+                cur, _ = TB.fuse_steps(cur, fuse_w=8)
+            streams.append(TB.pad_ops(cur, S))
+        out.append(TB.stack_ops(streams))
+    return out
+
+
+@pytest.mark.parametrize("S", [8, 32, 128])
+def test_serve_lanes_backend_kernel_matches_plain(card, S):
+    """The serve lanes backend at the serve geometry (K = 32, capacity
+    512, OCAP 1536, 16 lanes): on the card every tick launches A7, and
+    three warm-started ticks leave the state the plain backend leaves,
+    bit for bit."""
+    from text_crdt_rust_tpu_torch.serve.lanes_backend import (
+        LanesMixedLaneBackend)
+
+    geo = dict(lanes=16, capacity=512, order_capacity=1536, lmax=16,
+               block_k=32, fuse_w=8)
+    kb = LanesMixedLaneBackend(device=card, **geo)
+    pb = LanesMixedLaneBackend(device="cpu", **geo)
+    before = _kernels.launches.get("rle_lanes_mixed_blocked", 0)
+    for tick in _serve_ticks(S):
+        kb.apply(tick)
+        pb.apply(tick)
+    torch.cuda.synchronize()
+    assert _kernels.launches["rle_lanes_mixed_blocked"] == before + 3
+    assert kb.shapes_seen == pb.shapes_seen == {S}
+    kb.barrier()
+    pb.barrier()
+    for k, p in zip(kb._state, pb._state):
+        assert torch.equal(k.cpu(), p)
+    assert np.array_equal(kb._lane_rows, pb._lane_rows)
+    for b in range(16):
+        assert np.array_equal(kb.lane_signed(b), pb.lane_signed(b))

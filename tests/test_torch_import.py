@@ -28,6 +28,9 @@ from text_crdt_rust_tpu_torch.ops import rle_lanes as TL
 from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as TLM
 from text_crdt_rust_tpu_torch.ops import rle_mixed as TRM
 from text_crdt_rust_tpu_torch.ops import span_arrays as TSA
+from text_crdt_rust_tpu_torch.config import ServeConfig
+from text_crdt_rust_tpu_torch.serve import DocServer
+from text_crdt_rust_tpu_torch.serve.loadgen import ServeLoadGen
 from text_crdt_rust_tpu_torch.utils.testdata import TestPatch
 
 REPO = Path(__file__).resolve().parent.parent
@@ -62,7 +65,9 @@ def test_port_imports_with_jax_blocked():
         "          'ops.rle_lanes_mixed', 'parallel.causal',\n"
         "          'examples.sync_stream', 'ops.rle_lanes', 'convert',\n"
         "          'ops.rle_hbm', 'kevin', 'ops.blocked', 'ops.blocked_hbm',\n"
-        "          'ops.blocked_mixed'):\n"
+        "          'ops.blocked_mixed', 'serve.server', 'serve.loadgen',\n"
+        "          'serve.lanes_backend', 'net.codec', 'obs.trace',\n"
+        "          'utils.checkpoint'):\n"
         "    assert 'text_crdt_rust_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -112,6 +117,8 @@ def _ops():
     "run_northstar_blocked",
     "run_northstar_hbm",
     "run_storm_blocked_mixed",
+    "DocServer",
+    "ServeLoadGen",
 ])
 def test_entry_point_without_device_raises_on_cpu_host(entry):
     if torch.cuda.is_available():
@@ -173,6 +180,12 @@ def test_entry_point_without_device_raises_on_cpu_host(entry):
             patches=10, batch=2, engine="hbm"),
         "run_storm_blocked_mixed": lambda: storm.run_storm(
             n_peers=2, rounds=2, batch=2, engine="blocked-mixed"),
+        "DocServer": lambda: DocServer(ServeConfig(
+            engine="rle-lanes-mixed", num_shards=1, lanes_per_shard=2)),
+        "ServeLoadGen": lambda: ServeLoadGen(
+            docs=2, ticks=1, cfg=ServeConfig(engine="rle-lanes-mixed",
+                                             num_shards=1,
+                                             lanes_per_shard=2)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -46,7 +46,13 @@ kevin, the config-4 storm and the streaming configs 5r and 5):
 - ``storm``             entry point: the config-4 storm × batch, on
                         ``rle-mixed`` or ``blocked-mixed``;
 - ``stream``            entry point: configs 5r and 5, thousands of
-                        divergent documents chunk after chunk.
+                        divergent documents chunk after chunk;
+- ``net``, ``obs``      the wire codec, fault channel and resync sessions;
+                        the tracer, metrics registry, flight recorder and
+                        per-op flow audit;
+- ``serve``             entry points ``DocServer`` and ``ServeLoadGen``:
+                        the document server on the blocked lanes backend
+                        (A7), its router, batcher, residency and loadgen.
 
 Every entry point takes ``device=None``, which means CUDA. Without a card
 it raises unless the caller asked for ``device="cpu"``: the port never

@@ -1,5 +1,5 @@
 """Core scalar types, sentinels and plain-data op structs (counterpart of
-``text_crdt_rust_tpu/common.py:20-100`` and its ``split_txn_suffix``).
+``text_crdt_rust_tpu/common.py``).
 
 - Agent ids are dense u16 ints, peer-local (`common.rs:5-13`).
 - ``CRDTLocation`` = (agent, seq) names one item globally (`common.rs:16-28`).
@@ -93,6 +93,43 @@ def txn_len(txn: RemoteTxn) -> int:
         len(op.ins_content) if isinstance(op, RemoteIns) else op.len
         for op in txn.ops
     )
+
+
+def validate_remote_txn(txn: RemoteTxn) -> None:
+    """Structural validation of a peer-portable txn (`doc.rs:242-269`
+    preconditions the apply paths otherwise only assert):
+
+    - at least one op, and total length > 0 (zero-length txns would create
+      zero-length RLE log entries and break frontier arithmetic);
+    - inserts carry non-empty content; deletes have positive length;
+    - no id names the reserved ROOT agent as an *author* (ROOT is only
+      valid as an origin/parent sentinel).
+
+    Raises ``ValueError``; the wire codec wraps this into ``CodecError``
+    so malformed frames are rejected, never applied.
+    """
+    if txn.id.agent == "ROOT":
+        raise ValueError("txn authored by reserved agent ROOT")
+    if not txn.parents:
+        # Every legitimate txn has >= 1 parent (ROOT for the first,
+        # `doc.rs:54`): a parentless txn would plant a second root in the
+        # time DAG and permanently poison the frontier.
+        raise ValueError("txn has no parents")
+    if not txn.ops:
+        raise ValueError("txn has no ops")
+    for op in txn.ops:
+        if isinstance(op, RemoteIns):
+            if not op.ins_content:
+                raise ValueError("empty insert run")
+        elif isinstance(op, RemoteDel):
+            if op.len <= 0:
+                raise ValueError(f"non-positive delete length {op.len}")
+            if op.id.agent == "ROOT":
+                raise ValueError("delete targets the ROOT sentinel")
+        else:
+            raise ValueError(f"unknown op type {type(op).__name__}")
+    if txn_len(txn) <= 0:
+        raise ValueError("zero-length txn")
 
 
 def split_txn_suffix(txn: RemoteTxn, at: int) -> RemoteTxn:

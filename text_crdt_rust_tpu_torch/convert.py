@@ -14,7 +14,10 @@ engines' 3-tuple ``(ordp, lenp, rows)`` (un-blocked) and 6-tuple
 (``BlockedLanesMixedResult.STATE_KEYS``). ``lanes_state_to_numpy`` /
 ``lanes_state_from_numpy`` carry any of them across as a dict of int32
 arrays, so a state the JAX package left can warm-start the port's next
-chunk, and back.
+chunk, and back. ``lane_backend_to_numpy`` / ``lane_backend_from_numpy``
+do the same for a serve ``LanesMixedLaneBackend``: the 11-tuple plus its
+host mirrors (the rank table, the run-row bound, the fresh-lane marks)
+and the last tick's exact row counts.
 """
 from __future__ import annotations
 
@@ -155,3 +158,38 @@ def lanes_state_from_numpy(fields: Dict[str, np.ndarray],
                 if set(ks) == set(fields))
     return tuple(torch.from_numpy(np.array(fields[k], dtype=np.int32))
                  .to(dev) for k in keys)
+
+
+def lane_backend_to_numpy(backend) -> Dict[str, np.ndarray]:
+    """Either package's ``serve.lanes_backend.LanesMixedLaneBackend`` as a
+    dict of numpy arrays: its carried 11-tuple, the host mirrors ``rkl``,
+    ``lane_rows`` and ``resident_fresh``, and ``prev_rows`` — the last
+    tick's exact per-lane row counts, which its next ``apply`` re-bases
+    the run-row bound on (absent before the first tick)."""
+    out = lanes_state_to_numpy(backend._state)
+    out["rkl"] = np.array(backend._rkl, dtype=np.int32)
+    out["lane_rows"] = np.array(backend._lane_rows, dtype=np.int64)
+    out["resident_fresh"] = np.array(backend._resident_fresh, dtype=bool)
+    prev = backend._prev_res
+    if prev is not None:
+        rows = prev.rows
+        if isinstance(rows, torch.Tensor):
+            rows = rows.cpu()
+        out["prev_rows"] = np.array(rows, dtype=np.int32)
+    return out
+
+
+def lane_backend_from_numpy(backend, fields: Dict[str, np.ndarray]) -> None:
+    """Load such a dict into the port's lanes ``backend`` in place, on its
+    device: its next tick continues where the dumped backend's would."""
+    keys = LANES_STATE_KEYS[11]
+    backend._state = lanes_state_from_numpy(
+        {k: fields[k] for k in keys}, device=backend.device)
+    backend._rkl = np.array(fields["rkl"], dtype=np.int32)
+    backend._lane_rows = np.array(fields["lane_rows"], dtype=np.int64)
+    backend._resident_fresh = np.array(fields["resident_fresh"], dtype=bool)
+    prev = fields.get("prev_rows")
+    backend._prev_rows = (None if prev is None else torch.from_numpy(
+        np.array(prev, dtype=np.int32)).to(backend.device))
+    backend._prev_res = backend._prev_token = None
+    backend._prev_checked = True

@@ -1,16 +1,28 @@
-"""Peer synchronization, export side (counterpart of
-``text_crdt_rust_tpu/models/sync.py:33``, ``export_txns_since`` only).
+"""Peer synchronization: export local history as ``RemoteTxn``s and merge
+(counterpart of ``text_crdt_rust_tpu/models/sync.py``).
 
-Exports a document's history since an order watermark as ``RemoteTxn``s.
-All ids cross this boundary as (agent-name string, seq) pairs because
-numeric agent ids and orders are peer-local (`doc.rs:236-240`). Merging
-and the rest of the sync layer come with the serve slice.
+Exports a document's history since an order watermark, merges another
+peer's history (skipping already-known (agent, seq) ranges and splitting
+partially-known spans), and derives the peer-portable progress vector and
+state digest the wire's DIGEST frames carry. All ids cross this boundary
+as (agent-name string, seq) pairs because numeric agent ids and orders
+are peer-local (`doc.rs:236-240`).
 """
 from __future__ import annotations
 
-from typing import List
+import struct
+import zlib
+from typing import Dict, List, Set
 
-from ..common import RemoteDel, RemoteId, RemoteIns, RemoteTxn
+from ..common import (
+    CLIENT_INVALID,
+    RemoteDel,
+    RemoteId,
+    RemoteIns,
+    RemoteTxn,
+    split_txn_suffix,
+    txn_len,
+)
 from .oracle import ListCRDT
 
 
@@ -108,3 +120,88 @@ def export_txns_since(doc: ListCRDT, start_order: int = 0) -> List[RemoteTxn]:
         ))
         o = sub_end
     return out
+
+
+def merge_into(dst: ListCRDT, src: ListCRDT) -> int:
+    """Apply everything ``dst`` is missing from ``src``'s history.
+
+    Returns the number of RemoteTxns applied. Applying in source order is
+    causally safe: parents always have smaller source order than their txn.
+    """
+    applied = 0
+    for txn in export_txns_since(src, 0):
+        agent = dst.get_or_create_agent_id(txn.id.agent)
+        next_seq = dst.client_data[agent].get_next_seq()
+        if txn.id.seq + txn_len(txn) <= next_seq:
+            continue  # fully known
+        if txn.id.seq < next_seq:
+            txn = split_txn_suffix(txn, next_seq - txn.id.seq)
+        dst.apply_remote_txn(txn)
+        applied += 1
+    return applied
+
+
+def remote_frontier(doc: ListCRDT) -> Set[RemoteId]:
+    """Frontier as peer-portable ids (orders are peer-local)."""
+    return {doc.order_to_remote_id(o) for o in doc.frontier}
+
+
+def agent_watermarks(doc: ListCRDT) -> Dict[str, int]:
+    """Per-agent next expected seq — the peer-portable progress vector a
+    DIGEST frame advertises (`net/session.py`). Orders are peer-local;
+    (agent name, seq) watermarks are the only comparable progress."""
+    return {cd.name: cd.get_next_seq() for cd in doc.client_data}
+
+
+def state_digest(doc: ListCRDT) -> int:
+    """Order-independent 32-bit digest of the *converged* state.
+
+    Hashes the document body in document order as peer-portable
+    (agent name, seq, deleted) triples plus the sorted remote frontier —
+    never local orders, which differ across peers that interleaved the
+    same history differently. Two peers that have applied the same op set
+    converge to the same YATA document order (PAPER.md §1), so equal
+    history ⇒ equal digest; equal watermarks with UNEQUAL digests is the
+    divergence signal the resync session trips on.
+    """
+    h = 0
+    # u32 length prefix: agent names are unbounded strings (the codec
+    # caps them at 4 KiB, but the digest must never be the crash site).
+    for i in range(doc.n):
+        agent, seq = doc.loc_of_order(int(doc.order[i]))
+        name = doc.get_agent_name(agent).encode("utf-8")
+        h = zlib.crc32(struct.pack("<I", len(name)) + name, h)
+        h = zlib.crc32(
+            struct.pack("<IB", seq, 1 if doc.deleted[i] else 0), h)
+    frontier = sorted(((r.agent, r.seq) for r in remote_frontier(doc)))
+    for name_s, seq in frontier:
+        name = name_s.encode("utf-8")
+        h = zlib.crc32(struct.pack("<I", len(name)) + name, h)
+        h = zlib.crc32(struct.pack("<I", seq), h)
+    return h & 0xFFFF_FFFF
+
+
+def export_txns_for_wants(doc: ListCRDT,
+                          wants: Dict[str, int]) -> List[RemoteTxn]:
+    """Serve a REQUEST frame: history covering every requested
+    (agent, from_seq..) range this doc knows about.
+
+    Exports since the *minimum* local order covering any requested id —
+    possibly a superset of the ask (linear history interleaves agents),
+    which is safe: the receiver's ``CausalBuffer`` trims known prefixes
+    and drops duplicates idempotently. Unknown agents and already-covered
+    watermarks are skipped; returns ``[]`` when nothing is owed.
+    """
+    start = None
+    for name, from_seq in wants.items():
+        aid = doc.get_agent_id(name)
+        if aid is None or aid == CLIENT_INVALID:
+            continue
+        cd = doc.client_data[aid]
+        if from_seq >= cd.get_next_seq():
+            continue
+        o = cd.seq_to_order(from_seq)
+        start = o if start is None else min(start, o)
+    if start is None:
+        return []
+    return export_txns_since(doc, start)

@@ -1,0 +1,25 @@
+"""Structured observability for the serving stack (counterpart of
+``text_crdt_rust_tpu/obs``; the cost ledger and the trace analytics CLI
+are not ported yet).
+
+- ``obs.trace``    — a logical-clock-first span/event tracer emitting
+                     versioned JSONL with wall-clock fields segregated,
+                     so two same-seed runs produce byte-identical
+                     *logical* traces (the determinism oracle); walls
+                     come only from the caller's clock;
+- ``obs.registry`` — one metrics registry (counters + gauges + bounded
+                     histograms) with JSONL and Prometheus-text
+                     exporters;
+- ``obs.recorder`` — a bounded flight recorder that, on any typed
+                     failure or twin/lane bit-identity mismatch, dumps
+                     a post-mortem bundle;
+- ``obs.flow``     — per-op provenance spans: every sampled op's
+                     ``(agent, seq)`` journey emitted as ``flow.*``
+                     trace events, with a conservation audit and
+                     op-age-at-apply distributions on the logical tick
+                     axis.
+"""
+from .flow import FlowTracker, audit_spans, flow_report  # noqa: F401
+from .recorder import FlightRecorder  # noqa: F401
+from .registry import Histogram, MetricsRegistry, observe  # noqa: F401
+from .trace import TRACE_SCHEMA_VERSION, Tracer, validate_event  # noqa: F401

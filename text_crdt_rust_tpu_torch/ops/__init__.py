@@ -26,6 +26,8 @@
                    blocked): plain versions and their CUDA kernels' wrappers,
                    plus the lane-vector helpers the mixed ones share;
 - ``rle_lanes_mixed`` the per-lane mixed replays of config 5r, likewise;
-- ``lane_blocks``  per-lane K-row block helpers of the blocked engines;
+- ``lane_blocks``  per-lane K-row block helpers of the blocked engines,
+                   and the seeding of one lane from an oracle (the serve
+                   residency's upload);
 - ``_kernels``     builds ``csrc/*.cu`` with nvcc, loads and counts them.
 """

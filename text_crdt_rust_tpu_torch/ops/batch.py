@@ -11,13 +11,15 @@ W-row backwards-burst fusion), the generalized step fuser
 ``fuse_steps`` and the by-order log prefill; and the remote path of the
 storm: ``AgentTable`` (name ranks for the YATA tiebreak),
 ``OrderAssigner`` (per-agent seq -> order maps) and
-``compile_remote_txns``; and for the per-document streams,
-``row_growth_bound``, ``pad_ops`` and ``stack_ops``. Every function
-returns the same arrays, field for field, as its JAX-package counterpart.
+``compile_remote_txns``; for the per-document streams,
+``row_growth_bound``, ``pad_ops`` and ``stack_ops``; and for the serve
+batcher, ``rank_remap`` (agent-onboarding epochs),
+``OrderAssigner.from_oracle`` (resume after a checkpoint restore),
+``empty_ops`` and ``concat_ops``. Every function returns the same arrays,
+field for field, as its JAX-package counterpart.
 
-``prefill_delta``/``concat_deltas``, ``rank_remap``,
-``OrderAssigner.from_oracle`` and the rest of the batching family come
-with later slices.
+``prefill_delta``/``concat_deltas``/``stack_ticks`` (the flat backend's
+device prefill and tick trains) come with the flat slice.
 """
 from __future__ import annotations
 
@@ -84,7 +86,9 @@ class AgentTable:
     The device tiebreak compares ranks; ranks are the index of each name in
     the sorted name list, so rank order == name order (`doc.rs:206-209`).
     Within ONE compiled stream the table must not change (the steps bake
-    ranks in); agent ids are append-only.
+    ranks in). ACROSS compiled epochs peers may join freely: agent IDS are
+    append-only (``OrderAssigner`` state stays valid), and persisted rank
+    tables are re-based through ``rank_remap`` at the epoch boundary.
     """
 
     def __init__(self, names: Iterable[str] = ()):
@@ -121,11 +125,29 @@ class AgentTable:
         return int(self.rank_of_agent()[self.id_of(name)])
 
 
+def rank_remap(old_names: Sequence[str], table: AgentTable) -> np.ndarray:
+    """old-epoch rank -> new-epoch rank (u32[len(old_names)]).
+
+    When a peer joins between compiled epochs, the sorted-name ranks of
+    existing agents shift; device state that PERSISTED ranks (the by-order
+    rank table a serve lane carries for the Yjs tiebreak) must be re-based
+    before applying steps compiled against the new table
+    (``serve.lanes_backend.remap_lane_ranks``).
+    """
+    for n in old_names:
+        if n not in table:
+            raise ValueError(f"agent {n!r} missing from the new table")
+    old_sorted = sorted(old_names)
+    out = np.zeros(len(old_names), dtype=np.uint32)
+    for old_rank, name in enumerate(old_sorted):
+        out[old_rank] = table.rank_of(name)
+    return out
+
+
 class OrderAssigner:
     """Host twin of the order-allocation metadata (`doc.rs:155-165`):
     per-agent seq->order RLE maps (`list/mod.rs:33-43`) + the dense
-    ``next_order`` counter. (``from_oracle``, the resume-from-a-document
-    constructor, comes with the serve slice.)"""
+    ``next_order`` counter. Shared by the compiler and the causal layer."""
 
     def __init__(self, table: AgentTable):
         self.table = table
@@ -133,6 +155,28 @@ class OrderAssigner:
             Rle() for _ in table.names
         ]
         self.next_order = 0
+
+    @classmethod
+    def from_oracle(cls, doc, table: "AgentTable") -> "OrderAssigner":
+        """Rebuild the compiler's order metadata from a live (or
+        checkpoint-restored) oracle document, so compilation can resume
+        mid-history — the serve layer's restore path
+        (`serve/residency.py`): a doc evicted to a checkpoint loses its
+        in-memory assigner, and the restored oracle's per-agent
+        ``item_orders`` are exactly the state to resume from.
+
+        ``table`` must list the oracle's agents in dense-id order (the
+        checkpoint meta's ``agents`` list) so agent ids align."""
+        if table.names != [cd.name for cd in doc.client_data]:
+            raise ValueError(
+                "agent table order must match the oracle's dense agent ids")
+        out = cls(table)
+        for aid, cd in enumerate(doc.client_data):
+            io = out._orders_of(aid)
+            for e in cd.item_orders:
+                io.append(KOrderSpan(e.seq, e.order, e.length))
+        out.next_order = doc.get_next_order()
+        return out
 
     def _orders_of(self, agent_id: int) -> Rle:
         while agent_id >= len(self.item_orders):
@@ -439,6 +483,15 @@ class FuseStats:
                 "rows_saved": self.rows_saved,
                 "reduction_x": round(self.reduction_x, 3),
                 "fused": dict(self.fused)}
+
+    def merge(self, other: "FuseStats") -> None:
+        """Fold another pass's counts in (the serve batcher's run total);
+        ``step_map`` is per stream and is dropped."""
+        self.steps_in += other.steps_in
+        self.steps_out += other.steps_out
+        self.step_map = None
+        for k, v in other.fused.items():
+            self.fused[k] = self.fused.get(k, 0) + v
 
 
 class _FRow:
@@ -846,6 +899,31 @@ def pad_ops(ops: OpTensors, num_steps: int) -> OpTensors:
         return np.pad(a, [(0, num_steps - s)] + [(0, 0)] * (a.ndim - 1))
 
     return _map_fields(pad, ops)
+
+
+def empty_ops(lmax: int) -> OpTensors:
+    """A zero-step stream (idle lanes in a serve batch tick)."""
+    return _Rows(lmax).to_tensors()
+
+
+def concat_ops(streams: Sequence[OpTensors]) -> OpTensors:
+    """Concatenate step streams along the step axis (equal lmax).
+
+    The serve batcher compiles one stream per drained event and fuses
+    them into the doc's tick stream; orders were threaded through one
+    assigner, so plain concatenation preserves the compiled invariants.
+    """
+    streams = [s for s in streams if s.num_steps > 0]
+    if not streams:
+        return empty_ops(1)
+    lmax = streams[0].lmax
+    if any(s.lmax != lmax for s in streams):
+        raise ValueError("mixed lmax streams")
+    if len(streams) == 1:
+        return streams[0]
+    return _map_fields(
+        lambda *xs: np.concatenate([np.asarray(x) for x in xs], axis=0),
+        *streams)
 
 
 def stack_ops(streams: Sequence[OpTensors]) -> OpTensors:

@@ -1,16 +1,18 @@
 """Per-lane K-row block machinery of the blocked streaming engine, as plain
 PyTorch on ``[rows, B]`` tensors (counterpart of
-``text_crdt_rust_tpu/ops/lane_blocks.py:26-76, 149-183``).
+``text_crdt_rust_tpu/ops/lane_blocks.py``).
 
 Runs live in K-row physical blocks; per-lane logical block tables order
 them. Every block index is a ``[1, B]`` lane vector, so a block is
 gathered and scattered per lane. The index rules are the Pallas body's:
 a gather of a block id outside ``[0, NB)`` reads block 0, a scatter to
-one writes nothing. ``oracle_runs`` and ``pack_lane_blocks`` come with
-the serve slice.
+one writes nothing. ``oracle_runs`` and ``pack_lane_blocks`` are numpy:
+they seed one lane's columns from a host oracle (the serve residency's
+upload path).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .rle_lanes import _vrow, _vshift
@@ -63,6 +65,79 @@ def scatter_block2(plane, b1, ws1, b2, ws2, act, K: int, NB: int) -> None:
     to the fresh block ``b2``; ``b2`` wins where they coincide)."""
     scatter_block(plane, b1, ws1, act, K, NB)
     scatter_block(plane, b2, ws2, act, K, NB)
+
+
+def oracle_runs(oracle):
+    """RLE-compress a host oracle body into the lanes engines' run rows:
+    ``(signed_starts, lens)`` — ±(order+1) of each run head and its
+    length, in document order.
+
+    A char extends the current run only when its order is consecutive,
+    its tombstone flag matches, AND its ``origin_left`` chains to its
+    predecessor.  The chain condition is load-bearing, not cosmetic:
+    the kernels' YATA scan skips whole runs on the premise that every
+    non-head char's origin_left is its own predecessor (`doc.rs`
+    span-skip; see ``rle_lanes_mixed.do_remote_insert``'s merge
+    predicate) — seeding a run across an unchained boundary would let a
+    later concurrent-insert scan skip a char it must evaluate and land
+    the insert at a diverged cursor."""
+    n = oracle.n
+    if n == 0:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    order = oracle.order[:n].astype(np.int64)
+    deleted = oracle.deleted[:n]
+    oleft = oracle.origin_left[:n].astype(np.int64)
+    brk = np.ones(n, dtype=bool)
+    brk[1:] = ((order[1:] != order[:-1] + 1)
+               | (deleted[1:] != deleted[:-1])
+               | (oleft[1:] != order[:-1]))
+    starts = np.nonzero(brk)[0]
+    lens = np.diff(np.append(starts, n)).astype(np.int64)
+    sign = np.where(deleted[starts], -1, 1).astype(np.int64)
+    return sign * (order[starts] + 1), lens
+
+
+def pack_lane_blocks(signed_starts, lens, *, K: int, NB: int, NBT: int,
+                     capacity: int):
+    """Seed ONE lane's blocked state columns from a run list (the
+    residency restore/upload path of ``serve.lanes_backend``): pack runs
+    into K-row physical blocks at most ``(K-1)//2`` rows each — the same
+    half-full occupancy a leaf split leaves, so every seeded block keeps
+    the out-of-blocks row bound the serve capacity probe relies on AND
+    immediate insert traffic never needs a split to find headroom.
+
+    Returns ``(cols, run_block)``: the numpy state columns
+    ``(ordp[capacity], lenp[capacity], nlog[1], blkord[NBT], rws[NBT],
+    liv[NBT], raw[NBT])`` with blocks in identity logical order
+    (blkord[l] = l), plus the run -> physical-block assignment
+    (i64[R]) so hint seeding stays bit-consistent with the packing
+    (one occupancy rule, one owner)."""
+    R = len(signed_starts)
+    per = max(1, (K - 1) // 2)
+    nblocks = -(-R // per) if R else 0
+    if nblocks > NB:
+        raise ValueError(
+            f"{R} runs need {nblocks} blocks of {per} rows but only {NB} "
+            f"blocks exist (the fits_doc probe should have refused)")
+    ordp = np.zeros(capacity, np.int32)
+    lenp = np.zeros(capacity, np.int32)
+    blkord = np.zeros(NBT, np.int32)
+    rws = np.zeros(NBT, np.int32)
+    liv = np.zeros(NBT, np.int32)
+    raw = np.zeros(NBT, np.int32)
+    for b in range(nblocks):
+        lo, hi = b * per, min((b + 1) * per, R)
+        rows = hi - lo
+        ordp[b * K: b * K + rows] = signed_starts[lo:hi]
+        lenp[b * K: b * K + rows] = lens[lo:hi]
+        blkord[b] = b
+        rws[b] = rows
+        live = signed_starts[lo:hi] > 0
+        liv[b] = int(lens[lo:hi][live].sum())
+        raw[b] = int(lens[lo:hi].sum())
+    nlog = np.asarray([max(nblocks, 1)], np.int32)
+    run_block = np.arange(R, dtype=np.int64) // per
+    return (ordp, lenp, nlog, blkord, rws, liv, raw), run_block
 
 
 def lane_apply_partial(a, i_p, bo, bl, cs, ce, idx):

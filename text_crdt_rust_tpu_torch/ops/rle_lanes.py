@@ -904,6 +904,17 @@ def _local_stream(ops: OpTensors, chunk: int):
     return S, B, max(((S + chunk - 1) // chunk) * chunk, chunk)
 
 
+def upload(a: np.ndarray, dev) -> torch.Tensor:
+    """A host array as a tensor on ``dev``. To the card it goes through
+    pinned memory without blocking the host: a copy from pageable memory
+    would first wait for every launch queued before it, which serializes
+    the host with the card."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
 def _stage(ops: OpTensors, s_pad: int, dev, names=OP_COLUMNS):
     """The op columns ``names`` as int32 ``[s_pad, B]`` tensors (u32
     bits), padded with no-op steps."""
@@ -911,7 +922,7 @@ def _stage(ops: OpTensors, s_pad: int, dev, names=OP_COLUMNS):
 
     def col(name):
         a = np.asarray(getattr(ops, name), dtype=np.uint32).view(np.int32)
-        return torch.from_numpy(np.pad(a, ((0, s_pad - S), (0, 0)))).to(dev)
+        return upload(np.pad(a, ((0, s_pad - S), (0, 0))), dev)
 
     return tuple(col(n) for n in names)
 

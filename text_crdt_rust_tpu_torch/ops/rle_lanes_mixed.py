@@ -83,6 +83,7 @@ from .rle_lanes import (
     _vcumsum,
     _vrow,
     _vshift,
+    upload,
 )
 
 I32 = torch.int32
@@ -1141,7 +1142,8 @@ def lane_tables(stacked: OpTensors, ocap: int):
     oll = np.full((B, ocap), TAB_UNKNOWN, np.int32)
     orl = np.full((B, ocap), TAB_UNKNOWN, np.int32)
     rkl = np.zeros((B, ocap), np.int32)
-    for b in range(B):
+    # Lanes without inserts scatter nothing (``_prefill_scatter`` is None).
+    for b in np.nonzero((np.asarray(stacked.ins_len) > 0).any(axis=0))[0]:
         per = OpTensors(**{f.name: np.asarray(getattr(stacked, f.name))[:, b]
                            for f in dataclasses.fields(OpTensors)})
         sc = _prefill_scatter(per)
@@ -1171,8 +1173,7 @@ def _rank_table(ops, ocap, rkl, B, dev):
                          np.int32)
         _require(rkl.shape == (ocap, B),
                  f"rkl shape {rkl.shape} != ({ocap}, {B})")
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                 for a in (olld, orld, rkl))
+    return tuple(upload(a, dev) for a in (olld, orld, rkl))
 
 
 def _grow_table(t, ocap: int, B: int, dev, fill: int = TAB_UNKNOWN):
