@@ -1,7 +1,7 @@
 """Time the redesigned kernels (A1-A10) on one NVIDIA card.
 
     python3 chip_blocked_timing.py [tests] [a10] [a8] [a9] [a2] [a3] [a4]
-        [a6] [a1] [a7] [a5] [serve] [--reps N]
+        [a6] [a1] [a7] [a5] [serve] [flat] [--reps N]
 
 A quicker loop than ``chip_smoke.py`` while redesigning those kernels:
 it builds them (printing ptxas's registers and spills), then runs the
@@ -54,7 +54,14 @@ named phases, all by default:
   serve_lanes_backend``), then ``chip_smoke.py``'s serve phase (the
   document server on A7: the acceptance shape at pipeline depths 1 and 2
   against the JAX package's golden record, the wide shape, A7 against
-  its plain version on sampled serve launches).
+  its plain version on sampled serve launches);
+- ``flat``: the flat kernel's card tests (``-k flat``), then
+  ``chip_smoke.py``'s flat phase (``ServeConfig()``'s document server on
+  the flat kernel: its small cases, the acceptance shape at depth 1 and
+  at depth 2 with trains of 1 and 4 against the JAX package's golden
+  record, the wide shape, the kernel against its plain version on
+  sampled launches, crash recovery, ``DeviceMirror`` and a profiler
+  capture).
 
 Times are medians of ``--reps`` runs (3) after 1 warm-up, CUDA events.
 The plain versions are not timed here; ``chip_smoke.py`` holds every
@@ -543,7 +550,7 @@ def phase_a5(torch, dev, reps):
 
 def main(argv=None) -> int:
     phases = ("tests", "a10", "a8", "a9", "a2", "a3", "a4", "a6", "a1",
-              "a7", "a5", "serve")
+              "a7", "a5", "serve", "flat")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="*", help=f"any of {phases} (all)")
     ap.add_argument("--reps", type=int, default=3)
@@ -571,7 +578,8 @@ def main(argv=None) -> int:
     reports = _kernels.build([n for n in (
         "blocked_replay", "blocked_hbm_replay", "blocked_mixed_replay",
         "rle_hbm_replay", "rle_mixed_replay", "rle_lanes", "rle_lanes_mixed",
-        "rle_replay", "rle_lanes_mixed_blocked", "rle_lanes_blocked")
+        "rle_replay", "rle_lanes_mixed_blocked", "rle_lanes_blocked",
+        "flat_replay")
         if n in _kernels.sources()])
     for name, report in reports.items():
         print(name, [line.strip() for line in report.splitlines()
@@ -663,6 +671,8 @@ def main(argv=None) -> int:
         phase_a5(torch, dev, args.reps)
     if "serve" in args.phases:
         phase_serve(torch, dev)
+    if "flat" in args.phases:
+        phase_flat(torch, dev)
     return 0
 
 
@@ -693,6 +703,38 @@ def phase_serve(torch, dev) -> None:
     finally:
         pool.terminate()
     if r.returncode != 0 or max(worst, e) != 0:
+        raise SystemExit(1)
+
+
+def phase_flat(torch, dev) -> None:
+    import multiprocessing
+
+    import numpy as np
+
+    import chip_smoke
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    from text_crdt_rust_tpu_torch.ops import batch as B
+    from text_crdt_rust_tpu_torch.utils import randedit
+
+    r = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+         "-q", "tests/test_torch_cuda.py", "-k", "flat",
+         "-p", "no:cacheprovider"], capture_output=True, text=True)
+    print(r.stdout[-3000:], r.stderr[-2000:], flush=True)
+    card = chip_smoke.card_line()
+    pool = multiprocessing.get_context("spawn").Pool(4)
+    try:
+        t0 = time.perf_counter()
+        line, pending = chip_smoke.flat_phase(torch, dev, card, _kernels, B,
+                                              randedit, np, pool)
+        e, secs = chip_smoke.check_flat_wide(pending)
+        line.update(wide_plain_s=secs)
+        print(f"flat phase: {time.perf_counter() - t0:.1f} s, max_abs_err "
+              f"{max(line['max_abs_err'], e)}; "
+              f"{json.dumps(line, default=str)}", flush=True)
+    finally:
+        pool.terminate()
+    if r.returncode != 0 or max(line["max_abs_err"], e) != 0:
         raise SystemExit(1)
 
 

@@ -237,10 +237,38 @@
    depth-1 acceptance run's launches with a split, every S = 128 launch
    and every 8th launch of each shard (in this process), and on every 8th
    launch of each shard of the wide run (in the child processes).
-26. The wide serve launches and the 5r plain chains' shards (phases 11
-   and 12) against the kernel's outputs.
-27. Prints ``{"kernels": [...]}`` (all ten kernels; A7's line carries the
-   serve runs) and, as its last line, ``{"ok": true, "device": {...}}``.
+26. ``ServeConfig()``'s document server on the flat kernel
+   (``ops/csrc/flat_replay.cu``, the flat engine's step chain; no TPU
+   kernel behind it, the JAX package runs it as an XLA program): the
+   kernel against its plain version on small cases (local edits, a
+   remote storm, fuzzed op kinds, a train of 4 with idle steps) at
+   capacities 256 and 4,096; then the serve acceptance shape of phase 25
+   on ``ServeConfig()`` (the flat engine, 2 x 16 lanes, capacity 512,
+   order logs of 1,536, lmax 16) at (pipeline depth, train length) 1/1,
+   2/1 and 2/4, each counted and held against the JAX package's golden
+   record ``tests/data/serve_flat_golden.json`` (trains on the fields a
+   train does not change); it fails unless each converges, equals the
+   record, launches the flat kernel and never A7. Then the wide shape of
+   phase 25 on 2 x 1,024 flat lanes, which must converge. Each run prints
+   its host wall, tick ms p50/p99, the kernel's launches, device ms and
+   share of the wall, item-ops/s, evictions, the overlap share and stall,
+   the train economy and peak device memory. The kernel is held against
+   its plain version on every S = 128 launch, every train with T > 1 and
+   every 8th launch of each shard of the three acceptance runs (in this
+   process; the kernel re-launched on the same inputs is timed there) and
+   on every 8th launch of each shard of the wide run (in the child
+   processes). Then crash recovery (``serve/chaos.run_crash_scenario``)
+   at all four kill phases at the ``recovery`` cost-ledger cell's shape
+   and killed post-dispatch at tick 30 of the acceptance shape, each
+   identical to its uncrashed twin (the acceptance one to the golden
+   record's documents) with green crash audits; ``DeviceMirror`` on a
+   3-agent history; and a ``torch.profiler`` capture (``profile_dir``)
+   that must name the kernel.
+27. The wide serve and flat launches and the 5r plain chains' shards
+   (phases 11 and 12) against the kernels' outputs.
+28. Prints ``{"kernels": [...]}`` (the ten TPU kernels' ports and the
+   flat kernel; A7's line carries the serve runs) and, as its last line,
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line; so does a host without
 CUDA, and a directory without the rest of the repository.
@@ -2528,6 +2556,583 @@ def check_serve_wide(torch, pending):
     return worst, secs
 
 
+# -- the flat engine: ServeConfig()'s document server -------------------------
+
+FLAT_GOLDEN = os.path.join("tests", "data", "serve_flat_golden.json")
+FLAT_CFG = dict(engine="flat", num_shards=2, lanes_per_shard=16)
+FLAT_WIDE_CFG = dict(engine="flat", num_shards=2, lanes_per_shard=1024,
+                     max_queue_per_doc=1024)
+FLAT_RUNS = ((1, 1), (2, 1), (2, 4))   # (pipeline depth, train length)
+FLAT_SAMPLE_EVERY = 8          # every 8th launch of each shard is checked
+#: The ``recovery`` cost-ledger cell's crash shape (obs/cells.py).
+FLAT_CHAOS = dict(ticks=9, docs=6, agents_per_doc=2, events_per_tick=12,
+                  seed=7, fault_rate=0.10, num_shards=2, lanes_per_shard=2)
+FLAT_CHAOS_TICK = 3
+FLAT_ACCEPTANCE_CRASH_TICK = 30
+#: Report fields that count dispatches and scatter shapes: the only
+#: logical fields a tick train changes.
+FLAT_TRAIN_KEYS = ("device_dispatches", "device_dispatches_per_tick",
+                   "dispatch_cut_x", "train_len", "train_compiles",
+                   "train_ticks", "prefill_bytes_per_tick",
+                   "prefill_bytes_cut_x", "prefill_scatter_compiles")
+FLAT_STATE = ("signed", "ol_log", "or_log", "n", "next_order")
+
+
+def flat_train_invariant(record):
+    """A golden record without its dispatch-economy fields (as
+    ``tests/test_torch_serve_flat.train_invariant``)."""
+    out = dict(record)
+    lg = dict(record["logical"])
+    lg.pop("train", None)
+    lg["prefill"] = {k: v for k, v in lg["prefill"].items()
+                     if k not in ("bytes_per_tick", "bytes_cut_x",
+                                  "scatter_compiles")}
+    lg["tick_ms"] = {k: v for k, v in lg["tick_ms"].items()
+                     if k not in FLAT_TRAIN_KEYS}
+    lg["server"] = {k: v for k, v in lg["server"].items()
+                    if k.replace("tick_ms_", "") not in FLAT_TRAIN_KEYS}
+    out["logical"] = lg
+    return out
+
+
+def docs_digest(docs, hashlib):
+    """``serve.chaos.logical_stream_digest`` of a golden record's
+    documents (doc id, string, state digest, in doc-id order)."""
+    h = hashlib.sha256()
+    for doc_id in sorted(docs):
+        text, digest = docs[doc_id]
+        for part in (doc_id, text, str(digest)):
+            h.update(part.encode("utf-8"))
+            h.update(b"\x00")
+    return h.hexdigest()
+
+
+def plain_flat_launch(inputs, cols, active, lmax):
+    """Runs on the CPU (in a child process for the wide shape): the flat
+    kernel's plain version on one recorded launch's inputs (numpy). Returns
+    the state it leaves (``FLAT_STATE``), its flags and the seconds."""
+    import torch
+
+    from text_crdt_rust_tpu_torch.ops import flat as F
+
+    torch.set_num_threads(1)
+    st = [torch.from_numpy(a.copy()) for a in inputs]
+    t0 = time.perf_counter()
+    flags = F.flat_replay_plain(*st, cols.view("uint32"), active.astype(bool),
+                                lmax)
+    secs = time.perf_counter() - t0
+    signed, ol, orr, _rank, n, nxt = st
+    return ([t.numpy() for t in (signed, ol, orr, n, nxt)], flags.numpy(),
+            secs)
+
+
+class FlatLaunches:
+    """Stands in for the flat kernel's launch wrapper while the server
+    runs: CUDA events around every launch (the device time), and with
+    ``keep`` set, copies of a launch's inputs and outputs (taken on the
+    card, in stream order: the kernel edits the state in place) with its
+    shard (found by the state's storage) and its index in that shard."""
+
+    def __init__(self, torch, kernel):
+        self.torch, self.kernel = torch, kernel
+        self.events, self.kept = [], []
+        self.keep = None       # (cols shape, index in shard) -> keep it?
+        self.shard_of = {}     # signed.data_ptr() -> shard
+        self.index = {}
+
+    def __call__(self, signed, ol, orr, rank, n, nxt, cols, active, lmax):
+        torch = self.torch
+        shard = self.shard_of.get(signed.data_ptr(), -1)
+        k = self.index.get(shard, 0)
+        self.index[shard] = k + 1
+        keep = self.keep is not None and self.keep(tuple(cols.shape), k)
+        if keep:
+            before = [t.clone() for t in (signed, ol, orr, rank, n, nxt)]
+            cols_c, active_c = cols.clone(), active.clone()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        flags = self.kernel(signed, ol, orr, rank, n, nxt, cols, active,
+                            lmax)
+        end.record()
+        self.events.append((start, end))
+        if keep:
+            self.kept.append(dict(
+                shard=shard, index=k, lmax=lmax, inputs=before,
+                cols=cols_c, active=active_c,
+                outputs=[t.clone() for t in (signed, ol, orr, n, nxt)],
+                flags=flags.clone()))
+        return flags
+
+    def take(self):
+        """(device ms summed over the launches since the last take, their
+        count, the kept launches); resets."""
+        self.torch.cuda.synchronize()
+        ms = sum(s.elapsed_time(e) for s, e in self.events)
+        out = (ms, len(self.events), self.kept)
+        self.events, self.kept, self.index = [], [], {}
+        return out
+
+
+def flat_bound(kl):
+    """(bytes, operations) of one kept launch, from its inputs: the state
+    read and written once, the op stack and mask read once, a local
+    insert's log window written per step with work; operations: the
+    live-prefix count, the delete compare and the splice over every row
+    of every lane a step with work touches. The real floor is each lane's
+    serial chain of steps, not these."""
+    import numpy as np
+
+    signed = kl["inputs"][0]
+    B, CAP = signed.shape
+    cols = kl["cols"].cpu().numpy().view(np.uint32)
+    active = kl["active"].cpu().numpy().astype(bool)
+    _, T, S, _ = cols.shape
+    kind, ilen = cols[0], cols[6]
+    steps = int(active.sum())
+    local_ins = (kind == 0) & (ilen > 0) & active[..., None]
+    window = int((1 + np.minimum(ilen, kl["lmax"]))[local_ins].sum())
+    nbytes = 4 * (2 * B * CAP + 4 * B + 10 * T * S * B + T * S + B
+                  + window)
+    nops = 3 * steps * B * CAP
+    return nbytes, nops
+
+
+def flat_run(torch, ServeConfig, ServeLoadGen, launches, params, cfg_kw,
+             depth, train, keep, dev):
+    """One counted ServeLoadGen run on the card (the caller's clock:
+    ``time.perf_counter``); returns the generator, its report and the
+    host wall."""
+    cfg = ServeConfig(pipeline_ticks=depth, train_ticks=train,
+                      trace_keep=True, **cfg_kw)
+    launches.keep = keep
+    gen = ServeLoadGen(cfg=cfg, device=dev, clock=time.perf_counter,
+                       **params)
+    launches.shard_of = {b.docs.signed.data_ptr(): i for i, b in
+                         enumerate(gen.server.residency.backends)}
+    t0 = time.perf_counter()
+    report = gen.run()
+    torch.cuda.synchronize()
+    return gen, report, time.perf_counter() - t0
+
+
+def flat_numbers(torch, gen, report, wall, ms, n, launches, label, card):
+    """Logs a flat serve run's numbers (all on ``card``) and returns
+    them."""
+    b0 = gen.server.residency.backends
+    tick = report["tick_ms"]
+    srv = report["server"]
+    out = dict(
+        host_wall_s=wall, ticks=tick["samples"], tick_ms_p50=tick["p50"],
+        tick_ms_p99=tick["p99"], flat_device_ms=ms, flat_launches=n,
+        kernel_launches=launches, item_ops=report["item_ops_applied"],
+        item_ops_per_s=report["ops_per_sec"],
+        evictions=srv.get("evictions", 0), restores=srv.get("restores", 0),
+        lane_writes=sum(b.lane_writes for b in b0),
+        overlap_frac=report["pipeline"]["overlap_frac"],
+        stall_ms=report["pipeline"]["stall_ms_total"],
+        train=report["train"], rejected=report["rejected_submissions"],
+        shapes_seen=sorted(set().union(*(b.shapes_seen for b in b0))),
+        train_shapes=sorted(set().union(
+            *(b.train_shapes_seen for b in b0))),
+        device_share=ms / 1e3 / wall if wall else None,
+        peak_device_bytes=torch.cuda.max_memory_allocated())
+    log(f"flat serve {label}: converged {report['converged']}; host wall "
+        f"{wall:.2f} s over {out['ticks']} ticks (tick ms p50 "
+        f"{out['tick_ms_p50']}, p99 {out['tick_ms_p99']}, caller's clock); "
+        f"flat kernel {n} launches, {ms:.3f} ms on the card (CUDA events, "
+        f"summed; {100 * (out['device_share'] or 0):.3f} % of the wall); "
+        f"{out['item_ops']} item-ops, {out['item_ops_per_s']} item-ops/s; "
+        f"evictions {out['evictions']}, restores {out['restores']}, lane "
+        f"writes {out['lane_writes']}; pipeline depth "
+        f"{report['pipeline']['ticks']}: overlap_frac "
+        f"{out['overlap_frac']}, stall {out['stall_ms']} ms; train "
+        f"{out['train']}; rejected submissions {out['rejected']}; shapes "
+        f"{out['shapes_seen']}, trains {out['train_shapes']}; launches "
+        f"{launches}; peak device memory "
+        f"{out['peak_device_bytes'] / 2**20:.1f} MiB; on {card}")
+    return out
+
+
+def flat_check_kept(torch, kept, label):
+    """The kept launches against the plain version in this process: the
+    worst difference, the plain seconds, the kernel's ms re-launched on
+    copies of the same inputs (median of 3, CUDA events, summed) and the
+    summed bound."""
+    import numpy as np
+
+    from text_crdt_rust_tpu_torch.ops import flat as F
+
+    worst, secs, kern_ms, nbytes, nops = 0, 0.0, 0.0, 0, 0
+    for kl in kept:
+        outs, flags, s = plain_flat_launch(
+            [t.cpu().numpy() for t in kl["inputs"]],
+            kl["cols"].cpu().numpy(), kl["active"].cpu().numpy(),
+            kl["lmax"])
+        secs += s
+        got = [t.cpu().numpy() for t in kl["outputs"]]
+        e = max(int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+                if a.size else 0 for a, b in zip(got, outs))
+        e = max(e, int(np.abs(kl["flags"].cpu().numpy() - flags).max()))
+        worst = max(worst, e)
+        b, o = flat_bound(kl)
+        nbytes, nops = nbytes + b, nops + o
+        times = []
+        for _ in range(4):     # 1 warm-up, then 3 timed on fresh copies
+            st = [t.clone() for t in kl["inputs"]]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            F.flat_replay_cuda(*st, kl["cols"], kl["active"], kl["lmax"])
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        kern_ms += statistics.median(times[1:])
+    log(f"compare {label}: {len(kept)} launches against the plain version, "
+        f"max_abs_err {worst} over the state and flags; plain {secs:.2f} s "
+        f"on the CPU, kernel {kern_ms:.3f} ms re-launched on the same "
+        f"inputs")
+    return worst, secs, kern_ms, nbytes, nops
+
+
+def flat_small_cases(torch, dev, B, randedit, np):
+    """The flat kernel against its plain version on small cases (local
+    edits, a remote storm, fuzzed op columns, a train of 4 with idle
+    steps), at capacity 256 (the flag set on the fuzz) and 4,096 (past 48
+    KB of shared memory)."""
+    from text_crdt_rust_tpu_torch.ops import flat as F
+    from text_crdt_rust_tpu_torch.ops import span_arrays as SA
+
+    def local(seed):
+        return B.compile_local_patches(randedit.random_patches(
+            np.random.default_rng(seed), 120)[0], lmax=16)[0]
+
+    def storm_ops(seed):
+        txns, _ = randedit.make_storm(4, 8, 5, seed=seed, del_prob=0.3)
+        table = B.AgentTable(sorted({t.id.agent for t in txns}))
+        return B.compile_remote_txns(txns, table, lmax=16)[0]
+
+    streams = [local(1), local(2), storm_ops(3), storm_ops(4)]
+    one = B.stack_ops(streams)
+    half = one.num_steps // 2
+    ticks = [B._map_fields(lambda a: np.asarray(a)[:half], one),
+             B._map_fields(lambda a: np.asarray(a)[half:], one)]
+    ticks = [B.pad_ops(t, one.num_steps - half + 3) for t in ticks]
+    zero = B._map_fields(lambda a: np.zeros_like(np.asarray(a)), ticks[0])
+    train = B.stack_ticks(ticks + [zero, zero])
+    rng = np.random.default_rng(5)
+    fuzz = B._map_fields(lambda a: np.asarray(a).copy(), one)
+    fuzz.kind = rng.integers(0, 3, fuzz.kind.shape).astype(np.uint32)
+    fuzz.del_target = rng.integers(0xFFFF_FF00, 0xFFFF_FFFF,
+                                   fuzz.kind.shape).astype(np.uint32)
+    worst = 0
+    for label, ops, skip in (("local+storm", one, False),
+                             ("train T=4", train, True),
+                             ("fuzzed kinds", fuzz, False)):
+        for cap in (256, 4096):
+            docs = SA.stack_docs(SA.make_flat_doc(cap, 2048, device="cpu"),
+                                 len(streams))
+            plain = F._batched_copy(docs)
+            kern = F._batched_copy(docs)
+            for f in ("signed", "ol_log", "or_log", "rank_log", "chars_log",
+                      "n", "next_order"):
+                setattr(kern, f, getattr(kern, f).to(dev))
+            pf = F.flat_replay(plain, ops, skip_idle=skip)
+            kf = F.flat_replay(kern, ops, skip_idle=skip)
+            torch.cuda.synchronize()
+            e = int((kf.cpu() != pf).sum())
+            for f in FLAT_STATE:
+                e = max(e, int((getattr(kern, f).cpu().long()
+                                - getattr(plain, f).long()).abs().max()))
+            worst = max(worst, e)
+            log(f"compare flat {label} at capacity {cap}: max_abs_err {e}, "
+                f"flags {kf.cpu().tolist()}")
+    if worst != 0:
+        raise AssertionError("the flat kernel disagrees with its plain "
+                             "version on the small cases")
+    return worst
+
+
+def flat_phase(torch, dev, card, _kernels, B, randedit, np, pool):
+    """``ServeConfig()``'s document server on the flat kernel: the small
+    cases, the acceptance shape at (depth, train) 1/1, 2/1 and 2/4 against
+    the JAX package's golden record, the wide shape, the kernel against
+    its plain version on sampled launches, crash recovery at the ledger's
+    recovery shape (all four phases) and at the acceptance shape,
+    ``DeviceMirror`` and a profiler capture. Returns the kernel's line and
+    the wide run's pending plain checks."""
+    import hashlib
+    import tempfile
+
+    from text_crdt_rust_tpu_torch.config import ServeConfig
+    from text_crdt_rust_tpu_torch.ops import flat as F
+    from text_crdt_rust_tpu_torch.serve import chaos
+    from text_crdt_rust_tpu_torch.serve.loadgen import (
+        ServeLoadGen,
+        logical_report,
+    )
+
+    t_phase = time.perf_counter()
+    small_worst = flat_small_cases(torch, dev, B, randedit, np)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, FLAT_GOLDEN)) as f:
+        golden = json.load(f)
+    if (golden["params"] != SERVE_ACCEPTANCE or golden["cfg"] != FLAT_CFG
+            or ServeConfig().engine != "flat"):
+        raise AssertionError("the flat golden record is of another shape")
+    launches = FlatLaunches(torch, F.flat_replay_cuda)
+    F.flat_replay_cuda = launches
+    runs, kept_acc, main_counts = {}, [], None
+
+    def keep_acc(shape, k):
+        _, T, S, _ = shape
+        return S == 128 or T > 1 or k % FLAT_SAMPLE_EVERY == 0
+
+    try:
+        for depth, train in FLAT_RUNS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launches()
+            gen, report, wall = flat_run(
+                torch, ServeConfig, ServeLoadGen, launches,
+                SERVE_ACCEPTANCE, FLAT_CFG, depth, train, keep_acc, dev)
+            counts = dict(_kernels.launches)
+            ms, n, kept = launches.take()
+            kept_acc.extend(kept)
+            rec = serve_record(gen, report, logical_report, hashlib)
+            want = golden["depths"][str(depth)]
+            if train == 1:
+                same = {k: rec[k] == want[k] for k in rec}
+            else:
+                same = {k: flat_train_invariant(rec)[k]
+                        == flat_train_invariant(want)[k] for k in rec}
+            label = f"acceptance (depth {depth}, train {train})"
+            nums = flat_numbers(torch, gen, report, wall, ms, n, counts,
+                                label, card)
+            log(f"flat serve {label} against the JAX package's golden "
+                f"record: {same}; {len(rec['docs'])} documents, "
+                f"{rec['trace_events']} trace events")
+            if (not report["converged"] or not all(same.values())
+                    or counts.get("flat_replay", 0) < 1
+                    or counts.get("rle_lanes_mixed_blocked", 0) != 0
+                    or report["pipeline"]["ticks"] != depth
+                    or report["train"]["ticks"] != train
+                    or not set(nums["shapes_seen"]) <= {8, 32, 128}):
+                raise AssertionError(
+                    f"flat serve {label} failed: converged "
+                    f"{report['converged']}, golden {same}, launches "
+                    f"{counts}, shapes {nums['shapes_seen']}")
+            if main_counts is None:
+                main_counts = counts
+            runs[f"acceptance_depth{depth}_train{train}"] = nums
+            del gen, report
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        gen, report, wall = flat_run(
+            torch, ServeConfig, ServeLoadGen, launches, SERVE_WIDE,
+            FLAT_WIDE_CFG, 2, 1,
+            lambda shape, k: k % FLAT_SAMPLE_EVERY == 0, dev)
+        counts = dict(_kernels.launches)
+        ms, n, kept_wide = launches.take()
+        nums = flat_numbers(torch, gen, report, wall, ms, n, counts,
+                            "wide (depth 2)", card)
+        if not report["converged"] or counts.get("flat_replay", 0) < 1:
+            raise AssertionError(f"flat serve wide shape failed: converged "
+                                 f"{report['converged']}, launches "
+                                 f"{counts}, mismatches "
+                                 f"{report['mismatches'][:4]}")
+        runs["wide_depth2"] = nums
+        del gen, report
+    finally:
+        F.flat_replay_cuda = launches.kernel
+
+    worst, plain_s, kern_ms, nbytes, nops = flat_check_kept(
+        torch, kept_acc, "flat serve acceptance launches (every S = 128 "
+        "launch, every train with T > 1, every 8th launch of each shard)")
+    if worst != 0 or not kept_acc:
+        raise AssertionError("the flat kernel disagrees with its plain "
+                             "version at the serve shapes")
+    bb, bo = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_OPS_PER_S * 1e3
+    log(f"flat kernel bound over those {len(kept_acc)} launches: "
+        f"{max(bb, bo):.4f} ms ({bb:.4f} ms by bytes, {nbytes} B; "
+        f"{bo:.4f} ms by operations, {nops}); the real floor is each "
+        f"lane's serial chain of steps; on {card}")
+    wide_pending = [(kl["shard"], kl["index"], pool.apply_async(
+        plain_flat_launch, ([t.cpu().numpy() for t in kl["inputs"]],
+                            kl["cols"].cpu().numpy(),
+                            kl["active"].cpu().numpy(), kl["lmax"])),
+        [t.cpu().numpy() for t in kl["outputs"]], kl["flags"].cpu().numpy())
+        for kl in kept_wide]
+    del kept_wide
+
+    # -- crash recovery ---------------------------------------------------
+    crash = {}
+    twin = None
+    for phase in chaos.PHASES:
+        t0 = time.perf_counter()
+        cell = chaos.run_crash_scenario(
+            phase, FLAT_CHAOS_TICK, device=dev, clock=time.perf_counter,
+            twin_digest=twin, **FLAT_CHAOS)
+        twin = cell["twin_digest"]
+        green = (cell["identical"] and cell["converged"]
+                 and cell["at_recovery_audit"]["audit_ok"]
+                 and cell["final_audit"]["audit_ok"])
+        crash[phase] = dict(identical=cell["identical"], green=green,
+                            recover=cell["recover"],
+                            recover_wall_s=cell["recover_wall_s"],
+                            wall_s=time.perf_counter() - t0)
+        log(f"flat crash {phase} at tick {FLAT_CHAOS_TICK} (recovery cell "
+            f"shape): identical to its twin {cell['identical']}, green "
+            f"{green}, replayed {cell['recover']['ops']} ops in "
+            f"{cell['recover']['ticks']} ticks, recover wall "
+            f"{cell['recover_wall_s']} s (caller's clock)")
+        if not green:
+            raise AssertionError(f"flat crash {phase} is not green")
+    t0 = time.perf_counter()
+    acc_twin = docs_digest(golden["depths"]["1"]["docs"], hashlib)
+    p = SERVE_ACCEPTANCE
+    cell = chaos.run_crash_scenario(
+        "post-dispatch", FLAT_ACCEPTANCE_CRASH_TICK, ticks=p["ticks"],
+        docs=p["docs"], agents_per_doc=p["agents_per_doc"],
+        events_per_tick=p["events_per_tick"], seed=p["seed"],
+        fault_rate=p["fault_rate"], num_shards=2, lanes_per_shard=16,
+        twin_digest=acc_twin, device=dev, clock=time.perf_counter)
+    green = (cell["identical"] and cell["converged"]
+             and cell["at_recovery_audit"]["audit_ok"]
+             and cell["final_audit"]["audit_ok"])
+    crash["acceptance_post_dispatch"] = dict(
+        identical=cell["identical"], green=green, recover=cell["recover"],
+        recover_wall_s=cell["recover_wall_s"],
+        wall_s=time.perf_counter() - t0)
+    log(f"flat crash post-dispatch at tick {FLAT_ACCEPTANCE_CRASH_TICK} of "
+        f"the acceptance shape: identical to the golden record's documents "
+        f"{cell['identical']}, green {green}, replayed "
+        f"{cell['recover']['ops']} ops in {cell['recover']['ticks']} ticks, "
+        f"recover wall {cell['recover_wall_s']} s, "
+        f"{crash['acceptance_post_dispatch']['wall_s']:.1f} s in all")
+    if not green:
+        raise AssertionError("flat crash at the acceptance shape is not "
+                             "green")
+    del cell
+
+    # -- DeviceMirror --------------------------------------------------------
+    from text_crdt_rust_tpu_torch.models.oracle import ListCRDT
+    from text_crdt_rust_tpu_torch.models.sync import export_txns_since
+    from text_crdt_rust_tpu_torch.net import codec
+    from text_crdt_rust_tpu_torch.net.session import (
+        DeviceMirror,
+        ResyncSession,
+    )
+    from text_crdt_rust_tpu_torch.ops import span_arrays as SA
+    from text_crdt_rust_tpu_torch.utils.metrics import memory_stats
+
+    peer = ListCRDT()
+    rng = np.random.default_rng(9)
+    ids = [peer.get_or_create_agent_id(a) for a in ("amy", "bob", "cat")]
+    for _ in range(60):
+        a = ids[int(rng.integers(0, 3))]
+        n = len(peer)
+        if n > 4 and rng.random() < 0.25:
+            p0 = int(rng.integers(0, n - 2))
+            peer.local_delete(a, p0, 2)
+        else:
+            peer.local_insert(a, int(rng.integers(0, n + 1)),
+                              "xyzw"[: int(rng.integers(1, 5))])
+    mirror = DeviceMirror(capacity=1024, agents=("amy", "bob", "cat"),
+                          device=dev)
+    sess = ResyncSession(ListCRDT(), mirror=mirror)
+    txns = export_txns_since(peer, 0)
+    _kernels.reset_launches()
+    for i in range(0, len(txns), 4):
+        sess.receive(codec.encode_txns(txns[i:i + 4]))
+    m_launches = _kernels.launches.get("flat_replay", 0)
+    mirror_ok = (not mirror.degraded
+                 and SA.doc_spans(mirror.doc) == sess.doc.doc_spans()
+                 and SA.to_string(mirror.doc) == peer.to_string()
+                 and m_launches >= 1)
+    log(f"flat DeviceMirror: {len(txns)} txns from 3 agents, "
+        f"{m_launches} launches (B = 1), degraded {mirror.degraded}, spans "
+        f"and text equal to the oracle {mirror_ok}; "
+        f"{memory_stats(mirror.doc)['total_bytes']} B on the card")
+    if not mirror_ok:
+        raise AssertionError("DeviceMirror disagrees with its oracle")
+
+    # -- the profiler --------------------------------------------------------
+    with tempfile.TemporaryDirectory() as prof_dir:
+        cfg = ServeConfig(num_shards=2, lanes_per_shard=4,
+                          profile_dir=prof_dir, profile_ticks=3)
+        gen = ServeLoadGen(cfg=cfg, device=dev, docs=12, agents_per_doc=2,
+                           ticks=6, events_per_tick=12, seed=3)
+        rep = gen.run()
+        path = os.path.join(prof_dir, "trace.json")
+        text = open(path).read() if os.path.exists(path) else ""
+        hits = text.count("flat_replay_kernel")
+        prof_errors = gen.server.counters.get("profile_errors")
+    log(f"flat profiler capture (ticks 1-3): converged {rep['converged']}, "
+        f"{len(text)} B of Chrome trace, {hits} mentions of "
+        f"flat_replay_kernel, profile_errors {prof_errors}")
+    if not rep["converged"] or hits < 1 or prof_errors:
+        raise AssertionError("the profiler trace holds no flat kernel "
+                             "launch")
+
+    main = runs["acceptance_depth1_train1"]
+    line = {
+        "name": "flat_replay",
+        "route": "cuda",
+        "source": "text_crdt_rust_tpu_torch/ops/csrc/flat_replay.cu",
+        "replaces": "text_crdt_rust_tpu/ops/flat.py:418",
+        "jax_counterpart": "text_crdt_rust_tpu/ops/flat.py::"
+                           "_apply_train_batch / _apply_ops_batch (XLA "
+                           "lax.scan of step; no pallas_call)",
+        "launches": main_counts.get("flat_replay", 0),
+        "launches_path": "serve.loadgen.ServeLoadGen on ServeConfig() "
+                         "(acceptance shape, depth 1, train 1)",
+        "ms": kern_ms,
+        "ms_what": f"the {len(kept_acc)} sampled acceptance launches "
+                   f"re-launched on their inputs (median of 3 each, "
+                   f"summed)",
+        "main_path_ms": main["flat_device_ms"],
+        "plain_ms": plain_s * 1e3,
+        "bound_ms": max(bb, bo),
+        "bound_by": "bytes" if bb >= bo else "operations",
+        "bound_bytes_ms": bb,
+        "bound_ops_ms": bo,
+        "library_ms": None,
+        "library_why": "no PyTorch call computes a CRDT step chain",
+        "max_abs_err": max(worst, small_worst),
+        "plain_launches": len(kept_acc),
+        "serve": runs,
+        "crash": crash,
+        "mirror_launches": m_launches,
+        "profiler_hits": hits,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    return line, wide_pending
+
+
+def check_flat_wide(pending):
+    """The wide flat run's sampled launches against their plain version
+    (run in the child processes), bit for bit."""
+    import numpy as np
+
+    worst, secs = 0, []
+    for shard, index, res, kern, kflags in pending:
+        outs, flags, s = res.get()
+        e = max(int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+                for a, b in zip(kern, outs))
+        e = max(e, int(np.abs(kflags - flags).max()))
+        worst = max(worst, e)
+        secs.append(s)
+        log(f"compare flat wide launch {index} of shard {shard} against "
+            f"the plain version: max_abs_err {e}, plain {s:.1f} s in its "
+            f"child process")
+    if not pending:
+        raise AssertionError("no wide flat launch was sampled")
+    return worst, secs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3203,6 +3808,11 @@ def main() -> int:
     a7_line["launches_path"] = ("stream.run_stream (config 5r); the serve "
                                 "loadgen runs: see launches_serve")
     log(f"serve phase: {time.perf_counter() - t0:.1f} s")
+    # -- ServeConfig()'s document server on the flat kernel --------------------
+    t0 = time.perf_counter()
+    flat_line, flat_wide = flat_phase(torch, dev, card, _kernels, B,
+                                      randedit, np, pool)
+    log(f"flat serve phase: {time.perf_counter() - t0:.1f} s")
     # -- the per-lane local replays and the config-5 path ----------------------
     a4_worst, a5_worst = local_lanes_phase(torch, dev, B, RL, randedit,
                                            TestPatch, np)
@@ -3233,6 +3843,14 @@ def main() -> int:
     if e != 0:
         raise AssertionError("A7 disagrees with its plain version on the "
                              "wide serve launches")
+    e, secs = check_flat_wide(flat_wide)
+    flat_line.update(wide_plain_launches=len(secs), wide_plain_s=secs,
+                     max_abs_err=max(flat_line["max_abs_err"], e))
+    log(f"compare flat wide launches: max_abs_err {e} over {len(secs)} "
+        f"launches against the plain version")
+    if e != 0:
+        raise AssertionError("the flat kernel disagrees with its plain "
+                             "version on the wide serve launches")
     for line, label, shards, k_sub, names, worst in (
             (a7_line, "5r blocked chain (A7)", shards7, k7_sub, A7_OUTPUTS,
              a7_worst),
@@ -3256,7 +3874,8 @@ def main() -> int:
         f"end")
     log(json.dumps({"kernels": [rle_line, mixed_line, a6_line, a7_line,
                                 a4_line, a5_line, hbm_line, a8_line,
-                                a9_line, a10_line]}))
+                                a9_line, a10_line, flat_line]},
+                    default=str))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,8 +1,9 @@
-"""Golden record of the JAX package's serve loadgen on the lanes backend.
+"""Golden record of the JAX package's serve loadgen on a lane backend.
 
 Runs ``text_crdt_rust_tpu.serve.loadgen.ServeLoadGen`` on the
-``rle-lanes-mixed`` engine (A7 in Pallas interpret mode, on the CPU) at
-pipeline depths 1 and 2 and writes, per depth, what a port run of the
+``rle-lanes-mixed`` engine (A7 in Pallas interpret mode, on the CPU) or,
+with ``--engine flat``, on the flat engine (``ServeConfig()``'s default,
+XLA on the CPU) at pipeline depths 1 and 2 and writes, per depth, what a port run of the
 same seed must reproduce: the report's logical fields
 (``text_crdt_rust_tpu_torch.serve.loadgen.logical_report``), every
 document's string and ``state_digest``, and the sha256 of the logical
@@ -12,8 +13,13 @@ trace stream (the stream without its ``"w"`` wall fields).
         --out tests/data/serve_lanes_golden.json
 
 writes the acceptance shape (200 documents x 3 agents, 60 ticks of 48
-events, 10% faults, 2 shards x 16 lanes; ~10 min a depth on a CPU).
-``chip_smoke.py`` holds the port's run on the card against it.
+events, 10% faults, 2 shards x 16 lanes; ~10 min a depth on a CPU), and
+
+    JAX_PLATFORMS=cpu python tests/data/make_serve_golden.py --engine flat \
+        --out tests/data/serve_flat_golden.json
+
+the same shape on the flat engine (~1 min a depth).
+``chip_smoke.py`` holds the port's runs on the card against them.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ ACCEPTANCE = dict(docs=200, agents_per_doc=3, ticks=60, events_per_tick=48,
                   zipf_alpha=1.1, fault_rate=0.10, local_prob=0.25, seed=7)
 ACCEPTANCE_CFG = dict(engine="rle-lanes-mixed", num_shards=2,
                       lanes_per_shard=16)
+#: ``ServeConfig()`` as it stands: the flat engine, 2 x 16 lanes.
+FLAT_CFG = dict(engine="flat", num_shards=2, lanes_per_shard=16)
 
 
 def record_of(gen, report) -> dict:
@@ -80,8 +88,11 @@ def main(argv=None) -> None:
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--out", required=True)
     ap.add_argument("--depths", type=int, nargs="+", default=[1, 2])
+    ap.add_argument("--engine", default="rle-lanes-mixed",
+                    choices=("rle-lanes-mixed", "flat"))
     a = ap.parse_args(argv)
-    golden = make_golden(ACCEPTANCE, ACCEPTANCE_CFG, tuple(a.depths))
+    cfg_kw = FLAT_CFG if a.engine == "flat" else ACCEPTANCE_CFG
+    golden = make_golden(ACCEPTANCE, cfg_kw, tuple(a.depths))
     with open(a.out, "w") as f:
         json.dump(golden, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -861,3 +861,134 @@ def test_serve_lanes_backend_kernel_matches_plain(card, S):
     assert np.array_equal(kb._lane_rows, pb._lane_rows)
     for b in range(16):
         assert np.array_equal(kb.lane_signed(b), pb.lane_signed(b))
+
+
+# -- the flat engine's step-chain kernel (ops/csrc/flat_replay.cu) -------------
+
+
+def _flat_local(seed, lmax=16):
+    ops, _ = TB.compile_local_patches(
+        randedit.random_patches(np.random.default_rng(seed), 120)[0],
+        lmax=lmax)
+    return ops
+
+
+def _flat_storm(seed, lmax=16):
+    txns, _ = randedit.make_storm(4, 8, 5, seed=seed, del_prob=0.3)
+    table = TB.AgentTable(sorted({t.id.agent for t in txns}))
+    ops, _ = TB.compile_remote_txns(txns, table, lmax=lmax)
+    return ops
+
+
+def _flat_fuzz(seed, steps=60, cap=256, lmax=16):
+    """Arbitrary op columns: garbage orders, wrapping delete ranges."""
+    rng = np.random.default_rng(seed)
+    u = np.uint32
+
+    def col(lo, hi):
+        return rng.integers(lo, hi, steps, dtype=np.int64).astype(u)
+
+    ins = col(0, lmax + 1)
+    return TB.OpTensors(
+        kind=col(0, 3), pos=col(0, cap // 4), del_len=col(0, 9),
+        del_target=np.where(rng.random(steps) < 0.3,
+                            col(0xFFFF_FFF0, 0x1_0000_0000),
+                            col(0, 2 * cap)).astype(u),
+        origin_left=np.where(rng.random(steps) < 0.2, 0xFFFF_FFFF,
+                             rng.integers(0, 3 * cap, steps)).astype(u),
+        origin_right=np.where(rng.random(steps) < 0.2, 0xFFFF_FFFF,
+                              rng.integers(0, 3 * cap, steps)).astype(u),
+        ins_len=ins, ins_order_start=(np.arange(steps) * lmax).astype(u),
+        order_advance=ins.copy(), rank=col(0, 5),
+        rows_per_step=(ins > 0).astype(u),
+        chars=rng.integers(97, 123, (steps, lmax)).astype(u))
+
+
+def _flat_train(T, lanes=6):
+    """T ticks cut from per-lane streams, idle lanes and idle steps
+    included, re-padded to one step count (as the serve backend pads)."""
+    rng = np.random.default_rng(T)
+    per = [_flat_local(10 + b) if b % 2 else _flat_storm(20 + b)
+           for b in range(lanes)]
+    at = [0] * lanes
+    ticks = []
+    for _ in range(T):
+        cols = []
+        for b in range(lanes):
+            take = 0 if rng.random() < 0.3 else int(rng.integers(1, 12))
+            lo, hi = at[b], min(per[b].num_steps, at[b] + take)
+            at[b] = hi
+            cols.append(TB._map_fields(lambda a: np.asarray(a)[lo:hi],
+                                       per[b]) if hi > lo
+                        else TB.empty_ops(16))
+        ticks.append(TB.stack_ops([TB.pad_ops(c, max(
+            1, max(x.num_steps for x in cols))) for c in cols]))
+    s = max(t.num_steps for t in ticks) + 2
+    return TB.stack_ticks([TB.pad_ops(t, s) for t in ticks])
+
+
+FLAT_CASES = {
+    "local": lambda: (TB.stack_ops([_flat_local(s) for s in range(5)]),
+                      False),
+    "storm": lambda: (TB.stack_ops([_flat_storm(s) for s in range(4)]),
+                      False),
+    "fuzz": lambda: (TB.stack_ops([_flat_fuzz(s) for s in range(3)]),
+                     False),
+    "train-T1": lambda: (_flat_train(1), True),
+    "train-T4": lambda: (_flat_train(4), True),
+    "train-T8": lambda: (_flat_train(8), True),
+}
+
+
+@pytest.mark.parametrize("cap", [256, 512, 4096])
+@pytest.mark.parametrize("name", sorted(FLAT_CASES))
+def test_flat_kernel_matches_plain(card, name, cap):
+    """One launch of the flat kernel leaves every lane's columns, counts
+    and overflow flags as the plain version does, bit for bit (the logs
+    start unprefilled, which both versions read alike; small capacities
+    set the flag)."""
+    from text_crdt_rust_tpu_torch.ops import flat as TF
+    from text_crdt_rust_tpu_torch.ops import span_arrays as TSA
+
+    ops, skip = FLAT_CASES[name]()
+    lanes = np.asarray(ops.kind).shape[-1]
+    docs = TSA.stack_docs(TSA.make_flat_doc(cap, 2048, device="cpu"),
+                          lanes)
+    plain = TF._batched_copy(docs)
+    kern = TF._batched_copy(docs)
+    for f in ("signed", "ol_log", "or_log", "rank_log", "chars_log", "n",
+              "next_order"):
+        setattr(kern, f, getattr(kern, f).to(card))
+    pf = TF.flat_replay(plain, ops, skip_idle=skip)
+    before = _kernels.launches.get("flat_replay", 0)
+    kf = TF.flat_replay(kern, ops, skip_idle=skip)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flat_replay"] == before + 1
+    assert torch.equal(kf.cpu(), pf)
+    for f in ("signed", "ol_log", "or_log", "rank_log", "n", "next_order"):
+        assert torch.equal(getattr(kern, f).cpu(), getattr(plain, f)), f
+
+
+def test_flat_serve_backend_on_the_card_matches_plain(card):
+    """The flat backend at ``ServeConfig()``'s geometry through a train of
+    4 and a serial tick: the card's lanes equal the plain backend's."""
+    from text_crdt_rust_tpu_torch.serve.batcher import FlatLaneBackend
+
+    geo = dict(lanes=6, capacity=512, order_capacity=1536, lmax=16)
+    kb = FlatLaneBackend(device=card, **geo)
+    pb = FlatLaneBackend(device="cpu", **geo)
+    train = _flat_train(4)
+    ticks = [TB._map_fields(lambda a, t=t: np.asarray(a)[t], train)
+             for t in range(4)]
+    for be in (kb, pb):
+        be.set_train_ticks(4)
+        for t in ticks:
+            be.apply(t)
+        be.set_train_ticks(1)
+        be.apply(TB.stack_ops([TB.pad_ops(TB.empty_ops(16), 2)] * 6))
+        be.flush_train()
+    for b in range(6):
+        assert np.array_equal(kb.lane_signed(b), pb.lane_signed(b))
+    for f in ("signed", "ol_log", "or_log", "rank_log", "chars_log", "n",
+              "next_order"):
+        assert torch.equal(getattr(kb.docs, f).cpu(), getattr(pb.docs, f))

@@ -280,5 +280,9 @@ def test_checkpoint_files_identical(tmp_path):
 
 
 def test_device_mirror_waits_for_the_flat_slice():
-    with pytest.raises(NotImplementedError, match="flat"):
+    """The flat slice is in: the mirror builds on the flat engine, raises
+    without CUDA unless the CPU is named, and tracks a session's doc."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         DeviceMirror(64)
+    mirror = DeviceMirror(64, agents=("alice",), device="cpu")
+    assert mirror.doc.capacity == 64 and not mirror.degraded

@@ -442,7 +442,11 @@ def test_replace_step_growth_counts_both_branches():
 
 
 def test_flat_engine_is_a_later_slice():
-    with pytest.raises(ValueError, match="later slice"):
-        t_make("flat", device="cpu", **BACKEND)
+    """The flat slice is in: the registry builds its backend; an engine
+    outside the registry still raises."""
+    from text_crdt_rust_tpu_torch.serve.batcher import FlatLaneBackend
+
+    flat = t_make("flat", device="cpu", **BACKEND)
+    assert isinstance(flat, FlatLaneBackend) and flat.lanes == 4
     with pytest.raises(ValueError, match="unknown engine"):
         t_make("rle", device="cpu", **BACKEND)

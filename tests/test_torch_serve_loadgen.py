@@ -98,19 +98,34 @@ def test_walls_only_from_the_callers_clock():
     assert any("w" in ev for ev in gen.server.tracer.events)
 
 
-def test_flat_engine_and_unported_options_refuse():
-    with pytest.raises(ValueError, match="later slice"):
-        DocServer(ServeConfig(engine="flat"), device="cpu")
-    with pytest.raises(ValueError, match="journal"):
-        DocServer(ServeConfig(engine="rle-lanes-mixed", journal_dir="j"),
-                  device="cpu")
-    with pytest.raises(ValueError, match="profile"):
-        DocServer(ServeConfig(engine="rle-lanes-mixed", profile_dir="p"),
-                  device="cpu")
-    srv = DocServer(ServeConfig(engine="rle-lanes-mixed", num_shards=1,
-                                lanes_per_shard=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="journal"):
-        srv.recover()
+def test_flat_engine_and_unported_options_refuse(tmp_path):
+    """The flat slice is in: ``ServeConfig()``'s flat engine builds, and
+    ``journal_dir``, ``profile_dir`` and ``recover()`` work; an engine
+    outside the registry still raises."""
+    srv = DocServer(ServeConfig(), device="cpu")
+    assert srv.residency.backends[0].engine == "flat"
+    srv.close_obs()
+    with pytest.raises(ValueError, match="unknown engine"):
+        DocServer(ServeConfig(engine="rle"), device="cpu")
+    cfg = ServeConfig(num_shards=1, lanes_per_shard=2,
+                      journal_dir=str(tmp_path / "j"),
+                      profile_dir=str(tmp_path / "p"), profile_ticks=2,
+                      spool_dir=str(tmp_path / "s"), trace_keep=True)
+    gen = ServeLoadGen(cfg=cfg, device="cpu", docs=3, agents_per_doc=2,
+                       ticks=4, events_per_tick=6, seed=5)
+    assert gen.run()["converged"]
+    assert (tmp_path / "p" / "trace.json").exists()
+    assert gen.server.counters.get("profile_errors") == 0
+    actions = [ev.get("action") for ev in gen.server.tracer.events
+               if ev.get("k") == "profile"]
+    assert actions[:2] == ["start", "stop"]
+    srv = DocServer(ServeConfig(num_shards=1, lanes_per_shard=2,
+                                journal_dir=str(tmp_path / "j"),
+                                spool_dir=str(tmp_path / "s2")),
+                    device="cpu")
+    stats = srv.recover()
+    assert stats["docs"] == 3 and stats["refusals"] == 0
+    srv.close_obs()
 
 
 def _cli(*args):
@@ -120,11 +135,18 @@ def _cli(*args):
 
 
 def test_cli_runs_on_cpu_and_refuses_flat():
+    """The CLI runs both engines on the CPU; with no ``--engine`` it runs
+    the flat engine (``ServeConfig()``'s default) and converges."""
     out = _cli("--engine", "rle-lanes-mixed", "--docs", "24", "--ticks",
                "10", "--device", "cpu")
     assert out.returncode == 0, out.stderr[-2000:]
     report = json.loads(out.stdout)
     assert report["converged"] and report["engine"] == "rle-lanes-mixed"
     assert report["wall_s"] is None
-    out = _cli("--docs", "2", "--ticks", "1", "--device", "cpu")
-    assert out.returncode != 0 and "later slice" in out.stderr
+    out = _cli("--docs", "24", "--ticks", "10", "--device", "cpu")
+    assert out.returncode == 0, out.stderr[-2000:]
+    report = json.loads(out.stdout)
+    assert report["converged"] and report["engine"] == "flat"
+    out = _cli("--engine", "rle", "--docs", "2", "--ticks", "1",
+               "--device", "cpu")
+    assert out.returncode != 0 and "unknown engine" in out.stderr

@@ -18,6 +18,8 @@ kevin, the config-4 storm and the streaming configs 5r and 5):
 - ``ops/batch``         the numpy op compiler (local edits, step fusion,
                         remote txns);
 - ``ops/span_arrays``   ``FlatDoc``, the per-char document on tensors;
+- ``ops/flat``          the flat engine: plain version and the wrapper of
+                        its step-chain CUDA kernel;
 - ``ops/rle``           the RLE run-block replay, its plain PyTorch
                         version and its CUDA kernel wrapper;
 - ``ops/rle_hbm``       the run-block replay with its planes in device
@@ -51,8 +53,10 @@ kevin, the config-4 storm and the streaming configs 5r and 5):
                         the tracer, metrics registry, flight recorder and
                         per-op flow audit;
 - ``serve``             entry points ``DocServer`` and ``ServeLoadGen``:
-                        the document server on the blocked lanes backend
-                        (A7), its router, batcher, residency and loadgen.
+                        the document server on the flat engine (the
+                        default) or the blocked lanes backend (A7), its
+                        router, batcher, residency, journal, crash
+                        harness and loadgen.
 
 Every entry point takes ``device=None``, which means CUDA. Without a card
 it raises unless the caller asked for ``device="cpu"``: the port never

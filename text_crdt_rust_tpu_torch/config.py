@@ -9,8 +9,7 @@ from typing import Optional
 # The serve entries of the JAX package's engine registry: the public
 # engine name -> its implementing module (relative to this package), the
 # configs that exercise it, and ``serve_backend``, the lane backend class
-# ``serve.batcher.make_lane_backend`` builds. ``pending`` marks an engine
-# whose port is a later slice: naming it is a configuration error.
+# ``serve.batcher.make_lane_backend`` builds.
 ENGINE_REGISTRY = {
     "rle-lanes-mixed": {"module": "ops.rle_lanes_mixed",
                         "configs": ("5r", "serve", "serve-lanes"),
@@ -18,11 +17,7 @@ ENGINE_REGISTRY = {
                         "serve_backend":
                             "serve.lanes_backend:LanesMixedLaneBackend"},
     "flat":            {"module": "ops.flat", "configs": ("serve",),
-                        "serve_backend": "serve.batcher:FlatLaneBackend",
-                        "pending": "the flat engine (ops/flat.py) and its "
-                                   "FlatLaneBackend are a later slice of "
-                                   "the port (ROADMAP Queue A); use "
-                                   "engine='rle-lanes-mixed'"},
+                        "serve_backend": "serve.batcher:FlatLaneBackend"},
 }
 ENGINE_CHOICES = tuple(ENGINE_REGISTRY)
 
@@ -49,8 +44,8 @@ class ServeConfig:
     package's fields and defaults.
 
     ``engine`` must be registered for the ``serve`` config in
-    ``ENGINE_REGISTRY`` with a ported backend
-    (``serve/batcher.make_lane_backend`` raises a typed error otherwise).
+    ``ENGINE_REGISTRY`` (``serve/batcher.make_lane_backend`` raises a typed
+    error otherwise).
     The device is not a field: ``DocServer(cfg, device=...)`` takes it.
     """
 
@@ -94,9 +89,8 @@ class ServeConfig:
     rate_capacity: int = 0          # token bucket size per agent (0 = off)
     rate_refill: int = 0            # tokens added per tick per agent
     spool_dir: Optional[str] = None  # eviction checkpoint directory
-    journal_dir: Optional[str] = None  # write-ahead op journal; the
-    #                            journal is a later slice of the port, so
-    #                            setting it raises
+    journal_dir: Optional[str] = None  # write-ahead op journal
+    #                            (serve/journal.py); None = durability off
     journal_fsync_ticks: int = 1  # fsync cadence of the journal
     fuse_steps: bool = True    # generalized tick-stream fusion
     fuse_w: int = 8            # burst width cap; effective W is
@@ -123,7 +117,6 @@ class ServeConfig:
     #                            (1 = every span, 0 = off)
     obs_dir: Optional[str] = None  # post-mortem bundle directory; None =
     #                            $TCR_TRACE_DIR or <spool_dir>/obs
-    profile_dir: Optional[str] = None  # the JAX package's jax.profiler
-    #                            capture; not ported (ROADMAP), setting it
-    #                            raises
+    profile_dir: Optional[str] = None  # torch.profiler capture of ticks
+    #                            1..profile_ticks into this directory
     profile_ticks: int = 3     # ticks per profiler capture window

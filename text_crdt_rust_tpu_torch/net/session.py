@@ -28,7 +28,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-from ..common import CLIENT_INVALID, RemoteIns, RemoteTxn
+from ..common import CLIENT_INVALID, RemoteIns, RemoteTxn, txn_len
 from ..models.oracle import ListCRDT
 from ..models.sync import (
     agent_watermarks,
@@ -66,19 +66,75 @@ class CausalGapError(RuntimeError):
 class DeviceMirror:
     """Device-engine shadow of a *receive-only* session's document.
 
-    In the JAX package released remote txns are compiled and applied to a
-    device ``FlatDoc`` alongside the oracle. That engine (``ops/flat.py``)
-    is the port's next slice (ROADMAP Queue A), so the port's mirror
-    refuses construction, naming it: a session without a mirror serves
-    from the oracle, as a degraded mirror would.
+    Released remote txns are compiled (``ops.batch.compile_remote_txns``)
+    and applied to a ``FlatDoc`` alongside the oracle, on the flat engine
+    (``ops/flat.py``: one launch of its kernel per released batch on the
+    card, B = 1). The mirror is an accelerator, not the source of truth:
+    any condition it cannot handle — capacity or order-log overflow, an
+    agent not pre-registered in its rank table (rank re-basing is an
+    epoch-boundary operation, ``ops.batch.rank_remap``) — flips
+    ``degraded`` and the session keeps serving from the oracle. Never an
+    assert on the serving path.
+
+    ``agents`` must pre-register every peer name that will appear in the
+    stream (ranks bake into compiled steps). Local edits do not flow
+    through ``apply``; use mirrors on receive-only replicas. ``device``
+    as ``resolve_device`` (CUDA unless ``"cpu"`` is named).
     """
 
     def __init__(self, capacity: int, order_capacity: Optional[int] = None,
-                 agents: tuple = (), lmax: int = 8):
-        raise NotImplementedError(
-            "DeviceMirror applies txns on the flat engine (ops/flat.py), "
-            "which the port has not reached yet (ROADMAP Queue A: the flat "
-            "slice); run the session without a mirror")
+                 agents: tuple = (), lmax: int = 8, device=None):
+        from ..ops import batch as B
+        from ..ops import span_arrays as SA
+
+        self.table = B.AgentTable(agents)
+        self.assigner = None
+        self.doc = SA.make_flat_doc(capacity, order_capacity, device=device)
+        self.lmax = lmax
+        self.degraded = False
+        self.degrade_reason = ""
+
+    def _degrade(self, reason: str, counters: Counters) -> None:
+        self.degraded = True
+        self.degrade_reason = reason
+        counters.incr("device_degraded")
+
+    def apply(self, txns: List[RemoteTxn], counters: Counters) -> None:
+        from ..ops import batch as B
+        from ..ops import flat as F
+
+        if self.degraded or not txns:
+            return
+        names = set()
+        for t in txns:
+            names.add(t.id.agent)
+            for p in t.parents:
+                names.add(p.agent)
+            for op in t.ops:
+                if isinstance(op, RemoteIns):
+                    names.update((op.origin_left.agent,
+                                  op.origin_right.agent))
+                else:
+                    names.add(op.id.agent)
+        unknown = {n for n in names if n != "ROOT" and n not in self.table}
+        if unknown:
+            self._degrade(f"unregistered agents {sorted(unknown)}", counters)
+            return
+        ins_chars = sum(len(op.ins_content) for t in txns for op in t.ops
+                        if isinstance(op, RemoteIns))
+        orders = sum(txn_len(t) for t in txns)
+        if (int(self.doc.n) + ins_chars > self.doc.capacity
+                or int(self.doc.next_order) + orders
+                > self.doc.order_capacity):
+            self._degrade(
+                f"capacity overflow: n {int(self.doc.n)}+{ins_chars} "
+                f"vs {self.doc.capacity}, orders {int(self.doc.next_order)}"
+                f"+{orders} vs {self.doc.order_capacity}", counters)
+            return
+        ops, self.assigner = B.compile_remote_txns(
+            txns, self.table, assigner=self.assigner, lmax=self.lmax)
+        self.doc = F.apply_ops(self.doc, ops)
+        counters.incr("device_txns_applied", len(txns))
 
 
 def span_is_items(doc: ListCRDT, agent_name: str, seq: int,

@@ -1,6 +1,5 @@
 """Structured observability for the serving stack (counterpart of
-``text_crdt_rust_tpu/obs``; the cost ledger and the trace analytics CLI
-are not ported yet).
+``text_crdt_rust_tpu/obs``; the trace analytics CLI is not ported yet).
 
 - ``obs.trace``    — a logical-clock-first span/event tracer emitting
                      versioned JSONL with wall-clock fields segregated,
@@ -17,7 +16,9 @@ are not ported yet).
                      ``(agent, seq)`` journey emitted as ``flow.*``
                      trace events, with a conservation audit and
                      op-age-at-apply distributions on the logical tick
-                     axis.
+                     axis;
+- ``obs.ledger``   — the cost ledger's schema and per-metric diff;
+- ``obs.cells``    — five of its CPU cells re-derived on the port.
 """
 from .flow import FlowTracker, audit_spans, flow_report  # noqa: F401
 from .recorder import FlightRecorder  # noqa: F401

@@ -3,6 +3,10 @@
 - ``batch``        the numpy op compiler (local edits, step fusion,
                    remote txns, by-order log prefill);
 - ``span_arrays``  ``FlatDoc``, the per-char document on tensors;
+- ``flat``         the flat engine (one ``FlatDoc`` a lane, the YATA scan
+                   per remote insert): plain PyTorch ``step`` and the
+                   wrapper of its step-chain CUDA kernel, one launch a
+                   tick or a tick train;
 - ``blocked``      the per-character block replay of one shared local
                    stream (the document in shared memory) and the block
                    helpers every replay shares: plain PyTorch version and

@@ -15,11 +15,10 @@ storm: ``AgentTable`` (name ranks for the YATA tiebreak),
 ``row_growth_bound``, ``pad_ops`` and ``stack_ops``; and for the serve
 batcher, ``rank_remap`` (agent-onboarding epochs),
 ``OrderAssigner.from_oracle`` (resume after a checkpoint restore),
-``empty_ops`` and ``concat_ops``. Every function returns the same arrays,
-field for field, as its JAX-package counterpart.
-
-``prefill_delta``/``concat_deltas``/``stack_ticks`` (the flat backend's
-device prefill and tick trains) come with the flat slice.
+``empty_ops`` and ``concat_ops``; for the flat engine's serve backend,
+``prefill_delta``/``concat_deltas`` (the device-resident log prefill),
+``stack_ticks`` (tick trains) and ``tile_ops``. Every function returns the
+same arrays, field for field, as its JAX-package counterpart.
 """
 from __future__ import annotations
 
@@ -846,12 +845,15 @@ def prefill_logs(doc, ops: OpTensors):
     every insert run's implicit origin chain. The replay then writes only
     the two origins a local insert discovers (`doc.rs:447-453`).
 
-    Takes one unbatched ``[S, ...]`` stream and one ``[OCAP]`` document
-    (the JAX package's batched form comes with the serve slice). Returns
-    a new doc on the doc's device."""
-    if np.asarray(ops.kind).ndim != 1 or doc.ol_log.ndim != 1:
-        raise ValueError("prefill_logs takes one unbatched stream and one "
-                         "unbatched document")
+    ``ops`` may be unbatched ``[S, ...]`` (doc unbatched, or one stream
+    shared by every doc of a batched doc) or batched ``[S, B, ...]`` (doc
+    batched ``[B, ...]``). Tiled batches (every doc's column identical,
+    the ``tile_ops`` output) are prefilled with one scatter broadcast
+    across the doc axis. Returns a new doc on the doc's device; the
+    scatter runs in host numpy."""
+    ops_batched = np.asarray(ops.kind).ndim == 2
+    if doc.ol_log.ndim == 1 and ops_batched:
+        raise ValueError("batched ops need a batched doc")
 
     def host(t):
         return t.cpu().numpy().view(np.uint32).copy()
@@ -861,10 +863,163 @@ def prefill_logs(doc, ops: OpTensors):
 
     ol, orr, rank, chars = (host(doc.ol_log), host(doc.or_log),
                             host(doc.rank_log), host(doc.chars_log))
-    _apply_scatter(ol, orr, rank, chars, _prefill_scatter(ops))
+    if not ops_batched:
+        _apply_scatter(ol, orr, rank, chars, _prefill_scatter(ops))
+    else:
+        def tiled(a):
+            a = np.asarray(a)
+            return bool((a == a[:, :1] if a.ndim == 2
+                         else a == a[:, :1, ...]).all())
+
+        if all(tiled(c) for c in
+               (ops.kind, ops.ins_len, ops.ins_order_start, ops.rank,
+                ops.origin_left, ops.origin_right, ops.chars)):
+            one = _map_fields(lambda a: np.asarray(a)[:, 0], ops)
+            _apply_scatter(ol, orr, rank, chars, _prefill_scatter(one))
+        else:
+            for b in range(ol.shape[0]):
+                per_doc = _map_fields(lambda a: np.asarray(a)[:, b], ops)
+                _apply_scatter(ol[b], orr[b], rank[b], chars[b],
+                               _prefill_scatter(per_doc))
     return dataclasses.replace(
         doc, ol_log=dev_t(ol), or_log=dev_t(orr),
         rank_log=dev_t(rank), chars_log=dev_t(chars))
+
+
+# -- device-resident prefill ----------------------------------------------------
+# ``prefill_delta`` ships only the scatter — fixed-shape padded (positions,
+# values) arrays — and ``ops.flat.apply_prefill_delta`` applies it to the
+# device-resident logs, so a serve tick moves O(ops) bytes instead of the
+# four full [B, OCAP] logs. Scatter lengths are padded to a small
+# geometric bucket set (``scatter_bucket``).
+
+#: Padding position for scatter arrays: positive, out of range for any
+#: real order capacity (< 2^31), so the device scatter drops it. The
+#: value columns pad with 0 (never read — the position is dropped).
+PREFILL_PAD = np.uint32(0x7FFFFFFF)
+
+#: Smallest scatter bucket; buckets grow geometrically (x4) from here.
+PREFILL_BUCKET_BASE = 32
+
+
+def scatter_bucket(n: int) -> int:
+    """Smallest bucket (PREFILL_BUCKET_BASE * 4^k) holding ``n`` scatter
+    entries (a serve tick's scatter is capped at S_bucket * lmax
+    entries anyway)."""
+    b = PREFILL_BUCKET_BASE
+    while b < n:
+        b *= 4
+    return b
+
+
+_DELTA_FIELDS = ("ins_pos", "chars_val", "rank_val", "ol_pos", "ol_val",
+                 "or_pos", "or_val")
+
+
+@dataclasses.dataclass
+class PrefillDelta:
+    """The compile-time-known by-order log writes of an op stream as
+    fixed-shape padded scatter arrays (``[L]`` for one stream, ``[B, L]``
+    for a stacked batch; ``L = bucket``), u32 numpy.
+
+    ``chars_log`` and ``rank_log`` share one position column (every
+    inserted char gets both); ``ol``/``or`` carry their own (the chain
+    subset / the remote subset). Padding rows hold ``PREFILL_PAD``
+    positions, which the device scatter drops."""
+
+    ins_pos: np.ndarray    # u32[..., L] chars/rank write positions
+    chars_val: np.ndarray  # u32[..., L]
+    rank_val: np.ndarray   # u32[..., L]
+    ol_pos: np.ndarray     # u32[..., L] origin_left writes (chain + heads)
+    ol_val: np.ndarray     # u32[..., L]
+    or_pos: np.ndarray     # u32[..., L] origin_right writes (remote runs)
+    or_val: np.ndarray     # u32[..., L]
+    bucket: int
+
+    def nbytes(self) -> int:
+        """Bytes this delta moves host->device (the whole cost of a
+        device-resident prefill; compare 2 * 4 * OCAP * B * 4 for the
+        full-log round trip)."""
+        return sum(np.asarray(getattr(self, f)).nbytes
+                   for f in _DELTA_FIELDS)
+
+
+def _delta_rows(sc, L: int):
+    """One lane's scatter dict -> seven padded length-L u32 rows."""
+    ins_pos = np.full(L, PREFILL_PAD, np.uint32)
+    chars_val = np.zeros(L, np.uint32)
+    rank_val = np.zeros(L, np.uint32)
+    ol_pos = np.full(L, PREFILL_PAD, np.uint32)
+    ol_val = np.zeros(L, np.uint32)
+    or_pos = np.full(L, PREFILL_PAD, np.uint32)
+    or_val = np.zeros(L, np.uint32)
+    if sc is not None:
+        p, v = sc["chars"]
+        ins_pos[:len(p)] = p
+        chars_val[:len(p)] = v
+        rank_val[:len(p)] = sc["rank"][1]
+        p, v = sc["ol"]
+        ol_pos[:len(p)] = p
+        ol_val[:len(p)] = v
+        p, v = sc["or"]
+        or_pos[:len(p)] = p
+        or_val[:len(p)] = v
+    return ins_pos, chars_val, rank_val, ol_pos, ol_val, or_pos, or_val
+
+
+def prefill_delta(ops: OpTensors) -> Optional[PrefillDelta]:
+    """``_prefill_scatter`` as fixed-shape padded arrays: the
+    delta-prefill twin of ``prefill_logs``. ``ops`` may be unbatched
+    ``[S, ...]`` or batched ``[S, B, ...]`` (one scatter row per lane).
+    Returns ``None`` when the stream inserts nothing (callers then skip
+    the device scatter). Applying the delta
+    (``ops.flat.apply_prefill_delta``) is bit-identical to
+    ``prefill_logs``: both are projections of the same
+    ``_prefill_scatter``."""
+    batched = np.asarray(ops.kind).ndim == 2
+    if not batched:
+        scs = [_prefill_scatter(ops)]
+    else:
+        host = _map_fields(np.asarray, ops)
+        scs = [_prefill_scatter(_map_fields(lambda a: a[:, b], host))
+               for b in range(np.asarray(ops.kind).shape[1])]
+    if all(sc is None for sc in scs):
+        return None
+    need = max(len(sc["chars"][0]) for sc in scs if sc is not None)
+    L = scatter_bucket(need)
+    cols = [np.stack(rows) if batched else rows[0]
+            for rows in zip(*(_delta_rows(sc, L) for sc in scs))]
+    return PrefillDelta(*cols, bucket=L)
+
+
+def concat_deltas(deltas) -> Optional[PrefillDelta]:
+    """Concatenate T per-tick ``PrefillDelta``s (same batch shape) into
+    one padded delta for a tick train. Per-tick scatter positions land
+    in disjoint fresh order ranges (orders are allocated uniquely and
+    monotonically per lane), so applying the concatenation once before
+    the train is bit-identical to applying each delta before its tick.
+    ``None`` entries contribute nothing; returns ``None`` when every
+    tick was insert-free. The result is re-padded to the
+    ``scatter_bucket`` series."""
+    live = [d for d in deltas if d is not None]
+    if not live:
+        return None
+    if len(live) == 1:
+        return live[0]
+    total = sum(d.bucket for d in live)
+    L = scatter_bucket(total)
+    pads = {"ins_pos": PREFILL_PAD, "ol_pos": PREFILL_PAD,
+            "or_pos": PREFILL_PAD}
+    cols = []
+    for f in _DELTA_FIELDS:
+        col = np.concatenate(
+            [np.asarray(getattr(d, f)) for d in live], axis=-1)
+        if col.shape[-1] < L:
+            width = [(0, 0)] * (col.ndim - 1) + [(0, L - col.shape[-1])]
+            col = np.pad(col, width,
+                         constant_values=pads.get(f, np.uint32(0)))
+        cols.append(col)
+    return PrefillDelta(*cols, bucket=L)
 
 
 # -- row bounds and batching --------------------------------------------------
@@ -932,3 +1087,21 @@ def stack_ops(streams: Sequence[OpTensors]) -> OpTensors:
     s_max = max(o.num_steps for o in streams)
     padded = [pad_ops(o, s_max) for o in streams]
     return _map_fields(lambda *xs: np.stack(xs, axis=1), *padded)
+
+
+def stack_ticks(ticks: Sequence[OpTensors]) -> OpTensors:
+    """T equal-shape stacked tick streams ([S, B, ...] each) -> one
+    train-major [T, S, B, ...] batch for ``ops.flat.apply_train``. The
+    caller re-pads every tick to a common step bucket first
+    (``pad_ops``) and pads short trains with all-zero no-op ticks."""
+    return _map_fields(
+        lambda *xs: np.stack([np.asarray(x) for x in xs], axis=0), *ticks)
+
+
+def tile_ops(ops: OpTensors, batch: int) -> OpTensors:
+    """One stream -> B identical docs (``[S, B, ...]``)."""
+    return _map_fields(
+        lambda a: np.broadcast_to(
+            np.asarray(a)[:, None, ...],
+            (np.asarray(a).shape[0], batch) + np.asarray(a).shape[1:]),
+        ops)

@@ -7,15 +7,17 @@ documents onto B-lane device batches:
 
 - ``admission``  — typed backpressure (bounded queues, token buckets);
 - ``router``     — doc_id -> (shard, lane) + frames -> causal queues;
-- ``batcher``    — per-tick drain -> bucketed [S, B] device pass;
+- ``batcher``    — per-tick drain -> bucketed [S, B] device pass, and
+  the flat engine's lane backend (``flat``, ``ServeConfig()``'s default:
+  the flat kernel, tick trains);
 - ``lanes_backend`` — the blocked O(NB+K) lane backend
   (``rle-lanes-mixed``, kernel A7);
 - ``residency``  — LRU lanes, checkpoint evict / restore;
-- ``server``     — the ``DocServer`` facade;
+- ``journal``    — the write-ahead input log crash recovery re-executes;
+- ``server``     — the ``DocServer`` facade (``recover()``, the profiler
+  hook);
+- ``chaos``      — deterministic crash injection against uncrashed twins;
 - ``loadgen``    — deterministic closed-loop load generator + checker.
-
-The flat backend, the write-ahead journal and its crash harness are
-later slices (ROADMAP Queue A).
 """
 from .admission import (  # noqa: F401
     AdmissionControl,

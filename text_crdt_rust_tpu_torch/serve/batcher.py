@@ -1,6 +1,6 @@
 """The continuous batcher: per-doc causal queues -> one device step/tick
-(counterpart of ``text_crdt_rust_tpu/serve/batcher.py``; its
-``FlatLaneBackend`` comes with the flat slice).
+(counterpart of ``text_crdt_rust_tpu/serve/batcher.py``), and the flat
+engine's lane backend ``FlatLaneBackend`` (``ServeConfig()``'s default).
 
 Each tick the batcher drains causally-ready events across every
 lane-resident document of a shard, applies them to the per-doc host
@@ -43,6 +43,8 @@ from ..models.sync import agent_watermarks
 from ..net.session import txn_refs_known
 from ..obs.registry import observe
 from ..ops import batch as B
+from ..ops import flat as F
+from ..ops import span_arrays as SA
 from ..utils.metrics import Counters
 from ..utils.testdata import TestPatch
 from .router import EV_LOCAL, DocState, Event, ShardRouter
@@ -71,17 +73,450 @@ def _op_fingerprints(stacked: "B.OpTensors") -> Dict[str, int]:
     return out
 
 
+class FlatLaneBackend:
+    """The flat engine (``ops/flat.py``) as a serve lane backend: one
+    batched ``FlatDoc`` ``[B, CAP]`` per shard on the device, a ``[S, B]``
+    tick applied by one launch of the flat kernel (the plain version on
+    the CPU), a tick train of T ticks by one launch over ``[T, S, B]``.
+
+    Surface the batcher and residency layers consume: ``apply`` /
+    ``clear_lane`` / ``upload_lane`` / ``remap_lane_ranks`` /
+    ``lane_signed`` / ``fits`` / ``fits_doc`` / ``tick_fits`` /
+    ``barrier`` / ``sync_token`` / ``flush_train``.
+
+    Device writes (launches, prefill scatters, residency column writes)
+    are queued on the device's stream in program order and need no host
+    sync; host uploads go through pinned memory without blocking. The
+    capacity gate reads host mirrors of every lane's ``n``/``next_order``
+    (``_n_host``/``_next_order_host``, exact: a tick advances them by its
+    column sums, residency writes set them), so the dispatch edge reads
+    no device state (``dispatch_reads_device`` False with device
+    prefill) and a launch may stay in flight through the next host ticks.
+    """
+
+    engine = "flat"
+    # The flat engine has no W-row splice (``require_unfused``).
+    max_fuse_w = 1
+    # Every host probe reads the host oracle or the host mirrors, and
+    # ``barrier`` performs no true-up, so a tick's launch may stay in
+    # flight through the next host ticks, synced at the staged sync.
+    max_pipeline_ticks = 8
+
+    def __init__(self, lanes: int, capacity: int, order_capacity: int,
+                 lmax: int, block_k: Optional[int] = None, fuse_w: int = 1,
+                 device=None, device_prefill: bool = True):
+        # block_k / fuse_w are lane-backend-constructor surface (the
+        # blocked backend consumes them); the flat engine has no blocks
+        # and no W-row splice.
+        from .. import resolve_device
+
+        self.device = resolve_device(device)
+        self.lanes = lanes
+        self.capacity = capacity
+        self.order_capacity = order_capacity
+        self.lmax = lmax
+        base = SA.make_flat_doc(capacity, order_capacity, device=self.device)
+        self.docs = SA.stack_docs(base, lanes)
+        self._empty = base
+        self.shapes_seen: set = set()   # launched (S,) tick shapes
+        # Device-resident prefill: ship only the per-tick scatter delta,
+        # keep the [B, OCAP] logs on the device, and check capacity
+        # against the host mirrors.
+        self.device_prefill = device_prefill
+        self.dispatch_reads_device = not device_prefill
+        self.scatter_shapes_seen: set = set()  # scatter buckets applied
+        self._n_host = np.zeros(lanes, np.int64)
+        self._next_order_host = np.zeros(lanes, np.int64)
+        # Prefill cost accounting: bytes the chosen path moved vs what
+        # the full-log round trip would move, and the un-padded scatter
+        # volume. All logical (seed-deterministic).
+        self.prefill_stats = {"ticks": 0, "moved_bytes": 0,
+                              "full_bytes_equiv": 0, "scatter_len": 0}
+        # Tick trains: with train_ticks > 1 ``apply`` buffers ticks
+        # host-side (op tensors + prefill deltas) and ``_dispatch_train``
+        # applies T of them in one launch (``ops.flat.apply_train``
+        # semantics), the concatenated scatter applied first. Only the
+        # device-prefill path can defer: host prefill writes the logs per
+        # tick from host numpy. The host mirrors advance at the TRAIN
+        # boundary by the buffered column sums (``_pending_n``/
+        # ``_pending_o``), in the method that launches.
+        self.max_train_ticks = 8 if device_prefill else 1
+        self.train_ticks = 1
+        self._train_buf: list = []      # [(stacked, delta), ...]
+        self._pending_n = np.zeros(lanes, np.int64)
+        self._pending_o = np.zeros(lanes, np.int64)
+        # Lanes with real (non-padding) steps buffered: a single-lane
+        # residency write only forces a flush when THAT lane has
+        # buffered work.
+        self._pending_active = np.zeros(lanes, bool)
+        self._train_flags: list = []    # [(flags, event or None), ...]
+        self.train_shapes_seen: set = set()  # launched (T, S) train keys
+        self.train_stats = {"trains": 0, "ticks_sum": 0,
+                            "dispatches": 0, "serial_equiv": 0}
+        self.lane_writes = 0    # upload/clear/remap calls (column writes)
+
+    def set_train_ticks(self, t: int) -> None:
+        """Clamp-and-set the effective train length (the batcher calls
+        this at construction with ``ServeConfig.train_ticks``)."""
+        self.train_ticks = max(1, min(int(t), self.max_train_ticks))
+
+    def fits(self, n: int, next_order: int) -> bool:
+        """Would a doc of ``n`` rows / ``next_order`` orders fit a lane
+        (with the engine's lmax log-write headroom)?"""
+        return (n <= self.capacity
+                and next_order <= self.order_capacity - self.lmax)
+
+    def fits_doc(self, oracle) -> bool:
+        """Residency-path probe: the doc's char count IS its device
+        occupancy, so this is ``fits``."""
+        return self.fits(oracle.n, oracle.get_next_order())
+
+    def tick_fits(self, b: int, oracle, stream) -> bool:
+        """Pre-apply probe for lane ``b``'s compiled tick ``stream``: the
+        oracle already applied it, so its counts are exactly the
+        post-tick device occupancy."""
+        return self.fits(oracle.n, oracle.get_next_order())
+
+    # -- residency writes ---------------------------------------------------
+
+    def _flush_train_for_lane(self, b: int) -> None:
+        """Flush the open train iff lane ``b`` has buffered steps: a
+        residency write to a lane with NO buffered work commutes with the
+        rest of the train (its steps are all no-ops on that lane)."""
+        if self._pending_active[b]:
+            self.flush_train()
+
+    def _remap_buffered_lane(self, b: int, m: np.ndarray) -> None:
+        """Re-base lane ``b``'s buffered rank values through the old->new
+        rank map (values outside the map — padding, sentinels — pass
+        through). Copies the touched arrays: the originals may be
+        CRC-fingerprinted by the pipeline sanitizer."""
+        if not self._pending_active[b]:
+            return
+        import dataclasses
+        mlen = m.shape[0]
+
+        def rebase(col):
+            safe = np.minimum(col, mlen - 1)
+            return np.where(col < mlen, m[safe], col)
+
+        for i, (stacked, delta) in enumerate(self._train_buf):
+            r = np.asarray(stacked.rank).copy()
+            r[:, b] = rebase(r[:, b])
+            stacked = dataclasses.replace(stacked, rank=r)
+            if delta is not None:
+                rv = np.asarray(delta.rank_val).copy()
+                rv[b] = rebase(rv[b])
+                delta = dataclasses.replace(delta, rank_val=rv)
+            self._train_buf[i] = (stacked, delta)
+
+    def _cancel_buffered_lane(self, b: int) -> None:
+        """Erase lane ``b``'s columns from every buffered tick: zero op
+        rows (an exact no-op step) and padding delta positions (dropped
+        by the scatter). Used by ``clear_lane``: eviction checkpoints
+        from the ORACLE, so apply-then-wipe and never-apply are
+        indistinguishable — nothing reads the lane in between."""
+        if not self._pending_active[b]:
+            return
+        import dataclasses
+        for i, (stacked, delta) in enumerate(self._train_buf):
+            cols = {}
+            for f in ("kind", "pos", "del_len", "del_target",
+                      "origin_left", "origin_right", "ins_len",
+                      "ins_order_start", "order_advance", "rank",
+                      "rows_per_step", "chars"):
+                a = np.asarray(getattr(stacked, f)).copy()
+                a[:, b] = 0
+                cols[f] = a
+            stacked = dataclasses.replace(stacked, **cols)
+            if delta is not None:
+                dcols = {}
+                for f in ("ins_pos", "ol_pos", "or_pos"):
+                    a = np.asarray(getattr(delta, f)).copy()
+                    a[b] = B.PREFILL_PAD
+                    dcols[f] = a
+                for f in ("chars_val", "rank_val", "ol_val", "or_val"):
+                    a = np.asarray(getattr(delta, f)).copy()
+                    a[b] = 0
+                    dcols[f] = a
+                delta = dataclasses.replace(delta, **dcols)
+            self._train_buf[i] = (stacked, delta)
+        self._pending_n[b] = 0
+        self._pending_o[b] = 0
+        self._pending_active[b] = False
+
+    def _write_lane(self, b: int, one: SA.FlatDoc) -> None:
+        """Column ``b`` of every device column from a single doc on the
+        same device (queued behind earlier launches)."""
+        d = self.docs
+        for f in ("signed", "ol_log", "or_log", "rank_log", "chars_log"):
+            getattr(d, f)[b].copy_(getattr(one, f))
+        d.n[b] = int(one.n)
+        d.next_order[b] = SA.u32_bits(int(one.next_order))
+
+    def clear_lane(self, b: int) -> None:
+        self._cancel_buffered_lane(b)
+        self._write_lane(b, self._empty)
+        self._n_host[b] = 0
+        self._next_order_host[b] = 0
+        self.lane_writes += 1
+
+    def upload_lane(self, b: int, oracle, rank_of_agent) -> None:
+        self._flush_train_for_lane(b)
+        flat = SA.upload_oracle(oracle, self.capacity, rank_of_agent,
+                                self.order_capacity, device=self.device)
+        self._write_lane(b, flat)
+        self._n_host[b] = oracle.n
+        self._next_order_host[b] = oracle.get_next_order()
+        self.lane_writes += 1
+
+    def remap_lane_ranks(self, b: int, mapping: np.ndarray) -> None:
+        """Agent-onboarding epoch re-base of lane ``b``'s rank log. Work
+        buffered for THIS lane carries rank values of the PRE-remap table
+        (the op tensors' ``rank`` and the deltas' ``rank_val``); it is
+        re-based through the same old->new map instead of flushed (the
+        map is strictly monotone on old ranks, so every tiebreak the
+        buffered steps make is preserved)."""
+        m = np.asarray(mapping, dtype=np.uint32)
+        self._remap_buffered_lane(b, m)
+        lane = self.docs.rank_log[b]
+        lane.copy_(SA.remap_ranks(lane, m))
+        self.lane_writes += 1
+
+    # -- the tick -----------------------------------------------------------
+
+    def _check_capacity_host(self, ops: B.OpTensors) -> None:
+        """The ONE flat capacity contract (``flat.check_capacity_counts``)
+        against the HOST-MIRRORED lane counts, pending train sums
+        included — a train can never carry a tick the serial loop would
+        have refused."""
+        F.check_capacity_counts(self._n_host + self._pending_n,
+                                self._next_order_host + self._pending_o,
+                                self.capacity, self.order_capacity, ops)
+
+    def apply(self, stacked: B.OpTensors) -> None:
+        """One [S, B] tick: prefill the by-order logs — on the device from
+        the scatter delta (``device_prefill``, the default) or host-side
+        via ``batch.prefill_logs`` — then one launch over all lanes. The
+        two paths are bit-identical in device state and logical counters;
+        they differ in bytes moved and in whether the dispatch edge reads
+        device state."""
+        st = self.prefill_stats
+        st["ticks"] += 1
+        # What the full-log round trip would move for this tick: the
+        # four [B, OCAP] u32 logs, host-materialized AND re-uploaded.
+        st["full_bytes_equiv"] += 2 * 4 * self.lanes \
+            * self.order_capacity * 4
+        st["scatter_len"] += int(np.asarray(
+            stacked.ins_len, dtype=np.int64).sum())
+        self.shapes_seen.add(int(stacked.num_steps))
+        if self.train_ticks > 1:
+            # Tick-train path (device_prefill guaranteed): gate against
+            # the pending-aware host mirrors NOW, buffer the tick, and
+            # launch once train_ticks are queued.
+            self._check_capacity_host(stacked)
+            delta = B.prefill_delta(stacked)
+            self._train_buf.append((stacked, delta))
+            self._pending_n += np.asarray(
+                stacked.ins_len, dtype=np.int64).sum(axis=0)
+            self._pending_o += np.asarray(
+                stacked.order_advance, dtype=np.int64).sum(axis=0)
+            self._pending_active |= (np.asarray(
+                stacked.rows_per_step, dtype=np.int64).sum(axis=0) > 0)
+            self.train_stats["serial_equiv"] += 1 + (delta is not None)
+            self._drain_train_flags()
+            if len(self._train_buf) >= self.train_ticks:
+                self._dispatch_train()
+            return
+        n_disp = 1
+        if self.device_prefill:
+            self._check_capacity_host(stacked)
+            delta = B.prefill_delta(stacked)
+            if delta is not None:
+                self.scatter_shapes_seen.add(delta.bucket)
+                st["moved_bytes"] += delta.nbytes()
+                F.scatter_delta_(self.docs, delta)
+                n_disp = 2
+        else:
+            F._check_capacity(self.docs, stacked)
+            self.docs = B.prefill_logs(self.docs, stacked)
+            st["moved_bytes"] += 2 * 4 * self.lanes \
+                * self.order_capacity * 4
+        F.flat_replay(self.docs, stacked, skip_idle=False)
+        self._n_host += np.asarray(
+            stacked.ins_len, dtype=np.int64).sum(axis=0)
+        self._next_order_host += np.asarray(
+            stacked.order_advance, dtype=np.int64).sum(axis=0)
+        ts = self.train_stats
+        ts["trains"] += 1
+        ts["ticks_sum"] += 1
+        ts["dispatches"] += n_disp
+        ts["serial_equiv"] += n_disp
+
+    @staticmethod
+    def _train_bucket(t: int) -> int:
+        """Smallest power of two >= ``t`` — the train-length pad series
+        ({1, 2, 4, 8}) the JAX package compiles one program for each."""
+        b = 1
+        while b < t:
+            b *= 2
+        return b
+
+    def _dispatch_train(self) -> None:
+        """Apply the buffered ticks as ONE train: (1) the concatenated
+        prefill scatter (per-tick scatters land in disjoint fresh order
+        ranges, so hoisting them is bit-identical to interleaving), (2)
+        one launch over the ``[T, S, B]`` stack, T padded to the
+        power-of-two bucket with no-op ticks and every tick re-padded to
+        the train's largest step count. Host mirrors true up by the
+        buffered column sums here, in the method that launches."""
+        buf, self._train_buf = self._train_buf, []
+        if not buf:
+            return
+        st = self.prefill_stats
+        ts = self.train_stats
+        t_bkt = self._train_bucket(len(buf))
+        s_max = max(s.num_steps for s, _ in buf)
+        ticks = [B.pad_ops(s, s_max) for s, _ in buf]
+        if len(ticks) < t_bkt:
+            noop = B._map_fields(lambda a: np.zeros_like(np.asarray(a)),
+                                 ticks[0])
+            ticks = ticks + [noop] * (t_bkt - len(ticks))
+        train = B.stack_ticks(ticks)
+        delta = B.concat_deltas([d for _, d in buf])
+        docs = self.docs
+        n_disp = 1
+        if delta is not None:
+            self.scatter_shapes_seen.add(delta.bucket)
+            st["moved_bytes"] += delta.nbytes()
+            F.scatter_delta_(docs, delta)
+            n_disp = 2
+        flags = F.flat_replay(docs, train, skip_idle=True)
+        # The scatter and the launch edit the carried columns in place;
+        # rebinding them here keeps the train's device write and the
+        # mirror true-up below in this one method (the train contract).
+        self.docs = docs
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self._train_flags.append((flags, event))
+        self.train_shapes_seen.add((t_bkt, s_max))
+        ts["trains"] += 1
+        ts["ticks_sum"] += len(buf)
+        ts["dispatches"] += n_disp
+        self._n_host = self._n_host + self._pending_n
+        self._next_order_host = self._next_order_host + self._pending_o
+        self._pending_n = np.zeros(self.lanes, np.int64)
+        self._pending_o = np.zeros(self.lanes, np.int64)
+        self._pending_active = np.zeros(self.lanes, bool)
+
+    def _drain_train_flags(self, block: bool = False) -> None:
+        """Check finished trains' overflow flags. Non-blocking by default
+        (a train whose event has not completed is kept — reading its flag
+        would block the host); ``block=True`` waits for every one. A set
+        flag means a tick exceeded the static capacities mid-train —
+        unreachable through the serve path (the pending-aware host check
+        refuses such ticks at enqueue), so it raises: the docs are
+        corrupt, not merely full."""
+        keep = []
+        for flags, event in self._train_flags:
+            if not block and event is not None and not event.query():
+                keep.append((flags, event))
+                continue
+            if bool(flags.any()):
+                raise RuntimeError(
+                    "tick-train overflow flag set: a train exceeded the "
+                    "lane capacity/order budget on the device; the host-"
+                    "mirror capacity check should have refused it at "
+                    "enqueue")
+        self._train_flags = keep
+
+    def flush_train(self) -> None:
+        """Launch any partial train and settle its overflow flags — the
+        pre-read / pre-residency-write sync point. NOT called from
+        ``barrier``: at pipeline depth 1 the batcher barriers every tick,
+        which would stop trains from ever forming."""
+        if self._train_buf:
+            self._dispatch_train()
+        self._drain_train_flags(block=True)
+
+    def train_summary(self) -> Dict[str, float]:
+        """Per-train dispatch economy (logical, seed-deterministic): device
+        dispatches issued vs the serial loop's, and the distinct (T, S)
+        train shapes launched (the JAX package's train compiles)."""
+        ts = self.train_stats
+        return {
+            "train_ticks": self.train_ticks,
+            "device_dispatches": ts["dispatches"],
+            "dispatch_serial_equiv": ts["serial_equiv"],
+            "dispatch_cut_x": round(
+                ts["serial_equiv"] / max(ts["dispatches"], 1), 2),
+            "train_len": round(
+                ts["ticks_sum"] / max(ts["trains"], 1), 2),
+            "train_compiles": len(self.train_shapes_seen),
+        }
+
+    def prefill_summary(self) -> Dict[str, float]:
+        """Per-tick prefill byte economy (logical, seed-deterministic):
+        what moved host->device for log prefill vs the full-log
+        baseline, the un-padded scatter volume, and the distinct scatter
+        buckets (the JAX package's scatter compiles)."""
+        st = self.prefill_stats
+        ticks = max(st["ticks"], 1)
+        return {
+            "device_prefill": self.device_prefill,
+            "prefill_bytes_per_tick": round(st["moved_bytes"] / ticks, 1),
+            "prefill_bytes_full_per_tick": round(
+                st["full_bytes_equiv"] / ticks, 1),
+            "prefill_bytes_cut_x": round(
+                st["full_bytes_equiv"] / max(st["moved_bytes"], 1), 2),
+            "prefill_scatter_len": st["scatter_len"],
+            "prefill_scatter_compiles": len(self.scatter_shapes_seen),
+        }
+
+    def barrier(self) -> None:
+        """Block on launched work (and settle its overflow flags). Does
+        NOT flush an open train (see ``flush_train``)."""
+        self._drain_train_flags(block=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def sync_token(self):
+        """The completion handle for everything enqueued so far: a CUDA
+        event recorded now, after the newest launch and residency write
+        (blocking on it does not serialize against later launches); on
+        the CPU the already-computed counts."""
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            return event
+        return self.docs.n
+
+    def lane_doc(self, b: int) -> SA.FlatDoc:
+        self.flush_train()
+        return SA.lane(self.docs, b)
+
+    def lane_signed(self, b: int) -> np.ndarray:
+        """±(order+1) body column of lane ``b`` (occupied rows only)."""
+        lane = self.lane_doc(b)
+        return lane.signed[:int(lane.n)].cpu().numpy()
+
+    def lane_to_string(self, b: int) -> str:
+        return SA.to_string(self.lane_doc(b))
+
+
 def make_lane_backend(engine: str, *, lanes: int, capacity: int,
                       order_capacity: int, lmax: int,
                       block_k: int = 32,
                       fuse_w: int = 1,
-                      device=None):
+                      device=None,
+                      device_prefill: bool = True):
     """Registry-driven lane-backend construction: ``engine`` must be
     registered for the ``serve`` config in ``config.ENGINE_REGISTRY``
     AND carry a ``serve_backend`` entry naming its backend class —
-    unknown or serve-less engines, and engines whose port is a later
-    slice (``pending``), raise a precise ``ValueError`` at construction
-    time (config-time strictness — runtime failures degrade,
+    unknown or serve-less engines raise a precise ``ValueError`` at
+    construction time (config-time strictness — runtime failures degrade,
     construction failures explain). ``device`` as ``resolve_device``."""
     import importlib
 
@@ -97,15 +532,13 @@ def make_lane_backend(engine: str, *, lanes: int, capacity: int,
         raise ValueError(
             f"engine {engine!r} has no serve lane backend; registered "
             f"serve engines: {serve_engines}")
-    pending = ENGINE_REGISTRY[engine].get("pending")
-    if pending:
-        raise ValueError(f"engine {engine!r} is not ported yet: {pending}")
     mod_path, cls_name = target.split(":")
     cls = getattr(importlib.import_module(
         f"{__package__.rsplit('.', 1)[0]}.{mod_path}"), cls_name)
     return cls(lanes=lanes, capacity=capacity,
                order_capacity=order_capacity, lmax=lmax,
-               block_k=block_k, fuse_w=fuse_w, device=device)
+               block_k=block_k, fuse_w=fuse_w, device=device,
+               device_prefill=device_prefill)
 
 
 def oracle_signed(oracle) -> np.ndarray:
@@ -220,9 +653,12 @@ class ContinuousBatcher:
         # byte-identical on the logical stream.
         self.sanitize_pipeline = sanitize_pipeline
         # Tick trains: with T > 1, backends that opt in
-        # (``max_train_ticks`` > 1 — the flat backend's, a later slice)
-        # buffer T ticks and launch them as one; a pure wall-clock knob
-        # (the lanes backend stays at 1).
+        # (``max_train_ticks`` > 1 — the flat backend's device-prefill
+        # path) buffer T ticks' op tensors + prefill deltas and apply them
+        # in one launch; a pure wall-clock knob (trace events, counters and
+        # the journal land at their per-tick logical positions, so logical
+        # streams are byte-identical at any train length; the lanes
+        # backend stays at 1).
         self.train_ticks = max(1, train_ticks)
         for b in residency.backends:
             if hasattr(b, "set_train_ticks"):

@@ -87,7 +87,9 @@ class LanesMixedLaneBackend:
 
     def __init__(self, lanes: int, capacity: int, order_capacity: int,
                  lmax: int, block_k: int = 64, fuse_w: int = 1,
-                 device=None):
+                 device=None, device_prefill: bool = True):
+        # device_prefill is the flat backend's surface: this backend's
+        # tables are device-resident already and ignore it.
         self.device = resolve_device(device)
         self.lanes = lanes
         self.lmax = lmax

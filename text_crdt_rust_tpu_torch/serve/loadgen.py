@@ -17,9 +17,8 @@ phase plus the server-driven REQUEST/re-delivery cycle, every document
 is bit-identical to its twin (string AND portable state digest) and
 every device lane is bit-identical to its host oracle, CLI-runnable:
 
-    python -m text_crdt_rust_tpu_torch.serve.loadgen \\
-        --engine rle-lanes-mixed --docs 200 --agents 3 --ticks 60 \\
-        --fault-rate 0.10 --seed 7
+    python -m text_crdt_rust_tpu_torch.serve.loadgen --docs 200 \\
+        --agents 3 --ticks 60 --fault-rate 0.10 --seed 7
 
 It runs on the card unless ``--device cpu`` is given. ``ServeLoadGen``
 takes the caller's clock (``clock=``, e.g. ``time.perf_counter``; the
@@ -639,8 +638,8 @@ class ServeLoadGen:
                 "stall_ms_total": tick_sum.get("pipeline_stall_ms_total"),
             },
             # Device-resident prefill: the flat backend's per-tick log-
-            # prefill byte economy (a later slice; the lanes backend
-            # reports the defaults).
+            # prefill byte economy (the lanes backend reports the
+            # defaults).
             "prefill": {
                 # Default False: a backend fleet that exposes no
                 # prefill surface (the lanes backend's tables are
@@ -655,8 +654,8 @@ class ServeLoadGen:
                 "scatter_compiles": tick_sum.get(
                     "prefill_scatter_compiles", 0),
             },
-            # Tick trains: the flat backend's device-dispatch economy (a
-            # later slice; the lanes backend reports the defaults).
+            # Tick trains: the flat backend's device-dispatch economy (the
+            # lanes backend reports the defaults).
             "train": {
                 "ticks": tick_sum.get("train_ticks", 1),
                 "device_dispatches": tick_sum.get(
@@ -712,8 +711,8 @@ class ServeLoadGen:
             },
             "server": stats,
         }
-        # Finalize obs: flush+close the trace stream (the report above
-        # already read everything).
+        # Finalize obs: stop a still-open profiler capture, flush+close
+        # the trace stream (the report above already read everything).
         self.server.close_obs()
         return report
 
@@ -817,8 +816,8 @@ def main(argv=None) -> None:
     ap.add_argument("--lanes", type=int, default=16)
     ap.add_argument("--engine", default="flat",
                     help="registry engine backing the lane batches "
-                         "(rle-lanes-mixed; flat is a later slice of the "
-                         "port and is refused)")
+                         "(any engine with a serve backend: flat, "
+                         "rle-lanes-mixed)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="run on the card (default) or on the CPU with "
                          "the kernels' plain versions")
@@ -888,21 +887,57 @@ def main(argv=None) -> None:
                     help="from tick TICK on, remap 90%% of each tick's "
                          "events onto doc index DOC — lane overflow + "
                          "residency thrash on one hot doc")
+    ap.add_argument("--profile-dir", default=None,
+                    help="opt-in torch.profiler capture directory "
+                         "(ticks 1..profile_ticks, written as trace.json)")
+    ap.add_argument("--journal-dir", default=None,
+                    help="write-ahead op journal directory: every "
+                         "admitted input is logged before it can mutate "
+                         "state; a crashed server recovers by "
+                         "re-executing the log")
+    ap.add_argument("--journal-fsync-ticks", type=int,
+                    default=d.journal_fsync_ticks,
+                    help="fsync the journal every N logical ticks "
+                         "(1 = every tick boundary)")
     ap.add_argument("--crash-at", default=None, metavar="PHASE:TICK",
-                    help="crash-injection harness: needs the write-ahead "
-                         "journal, a later slice of the port (refused)")
+                    help="crash-injection harness (serve/chaos): kill "
+                         "the server at the named phase of loadgen "
+                         "tick TICK, recover from the journal, resume, "
+                         "and compare logical streams against an "
+                         "uncrashed same-seed twin. Phases: post-admit, "
+                         "post-dispatch, mid-ckpt, mid-journal")
     ap.add_argument("--verbose", action="store_true")
     a = ap.parse_args(argv)
 
-    if a.crash_at is not None:
-        raise SystemExit(
-            "--crash-at needs the write-ahead journal and its crash "
-            "harness (serve/journal.py, serve/chaos.py), a later slice of "
-            "the port (ROADMAP Queue A)")
+    import json
+
     flash_crowd = None
     if a.flash_crowd is not None:
         tick_s, _, doc_s = a.flash_crowd.partition(":")
         flash_crowd = (int(tick_s), int(doc_s))
+
+    if a.crash_at is not None:
+        # The chaos harness owns the whole run (victim, recovery, resume,
+        # twin); it allocates its own workdir.
+        from .chaos import PHASES, run_crash_scenario
+        phase, _, tick_s = a.crash_at.partition(":")
+        if phase not in PHASES or not tick_s:
+            raise SystemExit(f"--crash-at wants PHASE:TICK with PHASE in "
+                             f"{PHASES}, got {a.crash_at!r}")
+        cell = run_crash_scenario(
+            phase, int(tick_s), ticks=a.ticks, docs=a.docs,
+            agents_per_doc=a.agents, events_per_tick=a.events_per_tick,
+            seed=a.seed, fault_rate=a.fault_rate, num_shards=a.shards,
+            lanes_per_shard=a.lanes, ckpt_format=a.ckpt,
+            fsync_ticks=a.journal_fsync_ticks, byzantine=a.byzantine,
+            flash_crowd=flash_crowd, train_ticks=a.train_ticks,
+            device=a.device)
+        cell.pop("report")
+        print(json.dumps(cell, indent=1, default=str))
+        ok = (cell["identical"] and cell["converged"]
+              and cell["at_recovery_audit"]["audit_ok"]
+              and cell["final_audit"]["audit_ok"])
+        raise SystemExit(0 if ok else 1)
 
     cfg = ServeConfig(engine=a.engine, num_shards=a.shards,
                       lanes_per_shard=a.lanes,
@@ -915,7 +950,10 @@ def main(argv=None) -> None:
                       nagle_rounds=a.nagle_rounds, lmax=a.lmax,
                       trace=not a.no_trace, trace_path=a.trace_path,
                       trace_rotate_bytes=a.trace_rotate_bytes,
-                      flow_sample_mod=a.flow_sample_mod)
+                      flow_sample_mod=a.flow_sample_mod,
+                      profile_dir=a.profile_dir,
+                      journal_dir=a.journal_dir,
+                      journal_fsync_ticks=a.journal_fsync_ticks)
     gen = ServeLoadGen(docs=a.docs, agents_per_doc=a.agents, ticks=a.ticks,
                        events_per_tick=a.events_per_tick, zipf_alpha=a.zipf,
                        fault_rate=a.fault_rate, local_prob=a.local_prob,
@@ -923,8 +961,6 @@ def main(argv=None) -> None:
                        workload=a.workload, byzantine=a.byzantine,
                        flash_crowd=flash_crowd, device=a.device)
     report = gen.run()
-    import json
-
     print(json.dumps(report, indent=1, default=str))
     if not report["converged"]:
         raise SystemExit(1)

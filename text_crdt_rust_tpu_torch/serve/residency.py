@@ -1,6 +1,6 @@
 """Doc lifecycle: admit -> resident-in-lane -> evicted-to-checkpoint
-(counterpart of ``text_crdt_rust_tpu/serve/residency.py``; the crash
-recovery's spool audit comes with the journal slice).
+(counterpart of ``text_crdt_rust_tpu/serve/residency.py``), with the
+crash recovery's spool audit (``rediscover``).
 
 An LRU policy over the shards' device lanes. The working set of hot
 documents lives in lanes (device-accelerated); colder documents fall
@@ -298,6 +298,108 @@ class LaneResidency:
                               n=oracle.n,
                               orders=oracle.get_next_order(),
                               wall=wall)
+
+    # -- verification --------------------------------------------------------
+
+    def verify_lane(self, doc: DocState) -> bool:
+        """Device lane state bit-identical to the host oracle: the same
+        ±(order+1) body column, row for row."""
+        if not doc.in_lane:
+            return True
+        import numpy as np
+
+        got = self.backends[doc.shard].lane_signed(doc.lane)
+        want = oracle_signed(doc.oracle)
+        ok = got.shape == want.shape and bool(np.array_equal(got, want))
+        if not ok:
+            if self.tracer is not None:
+                self.tracer.event("divergence", doc=doc.doc_id,
+                                  via="lane")
+            if self.recorder is not None:
+                self.recorder.on_failure(
+                    "divergence",
+                    f"device lane {doc.shard}/{doc.lane} != host oracle "
+                    f"({got.shape} vs {want.shape} rows)",
+                    doc_id=doc.doc_id, shard=doc.shard, oracle=doc.oracle)
+        return ok
+
+    # -- crash recovery -------------------------------------------------------
+
+    def rediscover(self) -> Dict[str, dict]:
+        """Audit the spool directory after a crash and advance the
+        checkpoint-file allocator past everything on disk.
+
+        Returns ``doc_id -> {"path", "local_applied"}`` for every doc
+        with a LOADABLE checkpoint (chains validated link by link: a
+        corrupt tail link truncates its chain, a corrupt BASE or full
+        snapshot refuses the whole doc's checkpoint — each counted,
+        traced, recorded).  Nothing is REGISTERED: recovery re-executes
+        the journal from genesis, so replayed evictions lay down fresh
+        checkpoint files — registering a crash-time chain here would
+        hand a replayed (earlier-order) evict a tip from its own
+        future.  (``local_applied`` is surfaced for that future
+        incremental path; genesis replay does not read it.)  Pre-crash
+        files survive untouched for forensics; the
+        advanced ``_next_ckpt_id`` keeps fresh files clear of them,
+        refused numbers included."""
+        found: Dict[str, dict] = {}
+        names = sorted(os.listdir(self.spool_dir))
+        for name in names:
+            if not (name.startswith("doc_") and name.endswith(".npz")):
+                continue
+            is_base = name.endswith(".base.npz")
+            if self.ckpt_format == "delta":
+                if not is_base:
+                    continue  # delta links walk with their base
+                file_no = int(name[len("doc_"):-len(".base.npz")])
+                stem = os.path.join(self.spool_dir,
+                                    name[:-len(".base.npz")])
+                path = stem + ".base.npz"
+            else:
+                if is_base or ".d" in name:
+                    continue  # stale delta files under full format
+                file_no = int(name[len("doc_"):-len(".npz")])
+                path = os.path.join(self.spool_dir, name)
+            self._next_ckpt_id = max(self._next_ckpt_id, file_no + 1)
+            try:
+                if self.ckpt_format == "delta":
+                    _chain, dropped, tip_meta = \
+                        checkpoint.CheckpointChain.from_disk(
+                            stem, compact_ops=self.ckpt_compact_ops,
+                            compact_links=self.ckpt_compact_links)
+                    for link_path in dropped:
+                        self.counters.incr("recovery_ckpt_links_refused")
+                        if self.tracer is not None:
+                            self.tracer.event(
+                                "residency.restore", doc=None,
+                                error=f"refused chain link {link_path}")
+                else:
+                    tip_meta, _ = checkpoint._load_npz(
+                        path, expect_kind="oracle")
+            except checkpoint.CheckpointError as e:
+                self.counters.incr("recovery_ckpt_refused")
+                if self.tracer is not None:
+                    self.tracer.event("residency.restore", doc=None,
+                                      error=str(e))
+                if self.recorder is not None:
+                    self.recorder.on_failure("checkpoint", str(e),
+                                             doc_id=None)
+                continue
+            doc_id = tip_meta.get("doc_id")
+            if not isinstance(doc_id, str):
+                # Pre-durability checkpoint without the doc-id meta:
+                # unmappable, refuse it loudly rather than guess.
+                self.counters.incr("recovery_ckpt_refused")
+                if self.tracer is not None:
+                    self.tracer.event(
+                        "residency.restore", doc=None,
+                        error=f"checkpoint {path} carries no doc_id meta")
+                continue
+            found[doc_id] = {
+                "path": path,
+                "local_applied": int(tip_meta.get("local_applied", 0)),
+            }
+        return found
 
     # -- verification --------------------------------------------------------
 

@@ -1,6 +1,6 @@
 """Doc-shard routing: wire frames and local edits -> per-doc causal queues
-(counterpart of ``text_crdt_rust_tpu/serve/router.py``; the journal hooks
-come with the journal slice).
+(counterpart of ``text_crdt_rust_tpu/serve/router.py``), with the
+write-ahead journal's admission-edge records.
 
 The router owns the ``doc_id -> (shard, lane)`` table for the server's
 B-lane device batches and the per-document host state behind it. One
@@ -173,6 +173,8 @@ class ShardRouter:
         # The caller's wall clock (seconds) for admission stamps; None =
         # no latency stamps (the logical stream does not depend on it).
         self.clock = clock
+        self.journal = None   # serve/journal.Journal (set by DocServer;
+        #                       None = durability off)
         self.admission = admission
         self.counters = counters if counters is not None else Counters()
         self.tracer = tracer
@@ -212,6 +214,11 @@ class ShardRouter:
         self.docs[doc_id] = doc
         self._shard_docs[shard] += 1
         self.counters.incr("docs_admitted")
+        if self.journal is not None:
+            # Admission ORDER is durable state: replaying admits in
+            # sequence reproduces both the least-loaded shard choice
+            # and the docs-dict iteration order the drain loop walks.
+            self.journal.admit(shard, doc_id)
         return doc
 
     def doc(self, doc_id: str) -> DocState:
@@ -292,7 +299,8 @@ class ShardRouter:
         except AdmissionError as e:
             self._flow_reject_txns(doc_id, [txn], e.reason)
             raise
-        self._ingest_txn(doc, txn)
+        if self._ingest_txn(doc, txn) and self.journal is not None:
+            self.journal.txns(doc.shard, doc_id, [txn])
 
     def _flow_reject_txns(self, doc_id: Optional[str],
                           txns: List[RemoteTxn], reason: str) -> None:
@@ -306,9 +314,13 @@ class ShardRouter:
             self.flow.rejected(doc_id, t.id.agent, reason,
                                seq=t.id.seq, n=txn_len(t))
 
-    def _ingest_txn(self, doc: DocState, txn: RemoteTxn) -> None:
+    def _ingest_txn(self, doc: DocState, txn: RemoteTxn) -> bool:
         """Offer one admitted txn to the doc's causal buffer (with its
-        admission stamp when the server has a clock)."""
+        admission stamp when the server has a clock); returns True when
+        the buffer took it as FRESH (anything but a full duplicate) — the
+        predicate the journal records on (dup deliveries are no-ops on
+        buffer state, so replay skipping them reproduces the same
+        trajectory for a fraction of the bytes)."""
         if self.clock is not None:
             doc.submit_stamps.setdefault((txn.id.agent, txn.id.seq),
                                          self.clock())
@@ -319,6 +331,7 @@ class ShardRouter:
             self.flow.buffered(doc.doc_id, txn, "held")
         doc.last_touch_tick = self._tick
         self.enqueue_released(doc, released)
+        return doc.buffer.last_offer != "dup"
 
     def submit_local(self, doc_id: str, agent: str, pos: int,
                      del_len: int = 0, ins_content: str = "") -> None:
@@ -340,6 +353,9 @@ class ShardRouter:
             raise
         ordinal = doc.local_seen
         doc.local_seen += 1
+        if self.journal is not None:
+            self.journal.local(doc.shard, doc_id, agent, pos, del_len,
+                               ins_content, ordinal)
         self._enqueue(doc, Event(EV_LOCAL, (agent, pos, del_len,
                                             ins_content), items,
                                  self._tick, lk=lk, ordinal=ordinal,
@@ -361,6 +377,15 @@ class ShardRouter:
                 str(e), doc=doc_id, agent=e.agent, seq=e.seq,
                 n=e.n) from None
         self.counters.incr("frames_received")
+        if (self.journal is not None
+                and kind not in (codec.KIND_TXNS, codec.KIND_TXNS_MUX)):
+            # Control frames steer trajectory-relevant state (REQUEST
+            # touches the residency LRU clock, DIGEST advances
+            # peer_marks) — the input log carries them verbatim so
+            # recovery's re-execution stays exact.  TXNS frames are
+            # journaled dedup'd below instead; a mux frame on this
+            # lane is refused before it can mutate anything.
+            self.journal.frame(doc.shard, doc_id, data)
 
         if kind == codec.KIND_TXNS:
             if self.flow is not None:
@@ -381,9 +406,13 @@ class ShardRouter:
             except AdmissionError as e:
                 self._flow_reject_txns(doc_id, value, e.reason)
                 raise
+            fresh = []
             for txn in value:
                 self.admission.count_admitted(txn_len(txn))
-                self._ingest_txn(doc, txn)
+                if self._ingest_txn(doc, txn):
+                    fresh.append(txn)
+            if fresh and self.journal is not None:
+                self.journal.txns(doc.shard, doc_id, fresh)
             return []
 
         if kind == codec.KIND_REQUEST:
@@ -489,9 +518,13 @@ class ShardRouter:
                 self._flow_reject_txns(doc_id, txns, e.reason)
                 rejected.append((doc_id, str(e)))
                 continue
+            fresh = []
             for txn in txns:
                 self.admission.count_admitted(txn_len(txn))
-                self._ingest_txn(doc, txn)
+                if self._ingest_txn(doc, txn):
+                    fresh.append(txn)
+            if fresh and self.journal is not None:
+                self.journal.txns(doc.shard, doc_id, fresh)
         return rejected
 
     # -- pull / export surface ---------------------------------------------
@@ -502,6 +535,11 @@ class ShardRouter:
         corrupted frames) PLUS gaps only peer digests reveal (an agent
         whose every frame was lost). None when nothing is missing."""
         doc = self.doc(doc_id)
+        if self.journal is not None:
+            # A poll is an input, not a pure read: absorb_oracle_marks
+            # below folds the oracle's watermarks into known_marks,
+            # which narrows every later REQUEST the doc emits.
+            self.journal.poll(doc.shard, doc_id)
         wants: Dict[str, int] = {}
         for rid in doc.buffer.missing():
             wants[rid.agent] = min(wants.get(rid.agent, rid.seq), rid.seq)

@@ -4,8 +4,7 @@ admission wired behind one facade (counterpart of
 
 Usage shape (see ``serve/loadgen.py`` for the closed-loop driver):
 
-    server = DocServer(ServeConfig(engine="rle-lanes-mixed"),
-                       clock=time.perf_counter)
+    server = DocServer(ServeConfig(), clock=time.perf_counter)
     server.admit_doc("doc-7")
     server.submit_frame("doc-7", frame_bytes)       # remote peer traffic
     server.submit_local("doc-7", "editor", pos=0, ins_content="hi")
@@ -26,14 +25,17 @@ tracer, router, batcher and residency read walls from it alone, into
 the trace's ``"w"`` fields and the latency/tick summaries. Without it
 those are absent, and the logical stream is the same.
 
-Not ported yet (ROADMAP Queue A): the write-ahead journal
-(``journal_dir`` and ``recover()`` raise) and the profiler capture
-(``profile_dir`` raises).
+``journal_dir`` turns on the write-ahead journal (``serve/journal.py``)
+that ``recover()`` re-executes after a crash; ``profile_dir`` captures
+ticks 1..``profile_ticks`` with ``torch.profiler`` into a Chrome trace
+there (``trace.json``).
 """
 from __future__ import annotations
 
 import os
 from typing import Callable, Dict, List, Optional
+
+import torch
 
 from .. import resolve_device
 from ..common import RemoteTxn
@@ -62,14 +64,6 @@ class DocServer:
                 f"max_txn_len {cfg.max_txn_len} exceeds the largest step "
                 f"bucket {cfg.step_buckets[-1]}: an admitted event could "
                 f"never fit a tick")
-        if cfg.journal_dir:
-            raise ValueError(
-                "journal_dir: the write-ahead journal (serve/journal.py) "
-                "is a later slice of the port (ROADMAP Queue A)")
-        if cfg.profile_dir:
-            raise ValueError(
-                "profile_dir: the JAX package's jax.profiler capture is not "
-                "ported (ROADMAP Queue A); time the card from the caller")
         self.device = resolve_device(device)
         self.clock = clock
         # One metrics registry for the whole server (counters + gauges +
@@ -104,7 +98,8 @@ class DocServer:
                               order_capacity=cfg.order_capacity,
                               lmax=cfg.lmax, block_k=cfg.lanes_block_k,
                               fuse_w=cfg.fuse_w if cfg.fuse_steps else 1,
-                              device=self.device)
+                              device=self.device,
+                              device_prefill=cfg.device_prefill)
             for _ in range(cfg.num_shards)
         ]
         self.residency = LaneResidency(backends, self.router,
@@ -114,6 +109,17 @@ class DocServer:
                                        ckpt_compact_ops=cfg.ckpt_compact_ops,
                                        ckpt_compact_links=cfg.ckpt_compact_links,
                                        tracer=self.tracer, clock=clock)
+        # Write-ahead op journal: admission-edge durability. None (the
+        # default) = off; the loadgen/chaos drivers pin a directory so
+        # DocServer.recover() can rebuild this server.
+        self.journal = None
+        if cfg.journal_dir:
+            from .journal import Journal
+            self.journal = Journal(cfg.journal_dir, cfg.num_shards,
+                                   fsync_ticks=cfg.journal_fsync_ticks,
+                                   counters=self.counters,
+                                   tracer=self.tracer)
+            self.router.journal = self.journal
         # Flight recorder: bundles land in cfg.obs_dir, else the
         # TCR_TRACE_DIR env knob, else next to the eviction spool.
         obs_dir = (cfg.obs_dir or os.environ.get("TCR_TRACE_DIR")
@@ -136,6 +142,7 @@ class DocServer:
                                          train_ticks=cfg.train_ticks,
                                          clock=clock)
         self.tick_no = 0
+        self._profiler = None
 
     # -- traffic surface ----------------------------------------------------
 
@@ -168,7 +175,15 @@ class DocServer:
     def tick(self) -> Dict[str, float]:
         self.tick_no += 1
         self.router.set_tick(self.tick_no)
-        return self.batcher.tick(self.tick_no)
+        self._profile_hook()
+        stats = self.batcher.tick(self.tick_no)
+        if self.journal is not None:
+            # The tick boundary is the journal's fsync point AND the
+            # replay pacing marker: recovery re-runs ``tick()`` here so
+            # the apply cadence (and with it the local-vs-remote
+            # interleaving) reproduces exactly.
+            self.journal.tick(self.tick_no)
+        return stats
 
     def flush_pipeline(self) -> None:
         """Sync every in-flight pipelined tick (no-op in the serial
@@ -178,20 +193,214 @@ class DocServer:
         self.batcher.flush_pipeline()
 
     def close_obs(self) -> None:
-        """Finalize observability at end of run: sync the pipeline and
-        close the trace file. Idempotent; drivers (loadgen, probes) call
-        it on teardown."""
+        """Finalize observability at end of run: sync the pipeline, stop
+        a still-running profiler capture (a run shorter than
+        ``profile_ticks`` would otherwise never write its trace), close
+        the journal and the trace file. Idempotent; drivers (loadgen,
+        probes) call it on teardown."""
         self.flush_pipeline()
+        if self._profiler is not None:
+            try:
+                self._stop_profile()
+                self.tracer.event("profile", action="stop",
+                                  dir=self.cfg.profile_dir)
+            except Exception as e:
+                self.counters.incr("profile_errors")
+                self.tracer.event("profile", action="error",
+                                  err=f"{type(e).__name__}: {e}")
+        if self.journal is not None:
+            self.journal.close()
         self.tracer.close()
 
+    def _stop_profile(self) -> None:
+        """Stop the capture after the card finished the captured ticks'
+        launches, and write it as ``<profile_dir>/trace.json``."""
+        prof, self._profiler = self._profiler, None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(self.cfg.profile_dir, "trace.json"))
+
+    def _profile_hook(self) -> None:
+        """Opt-in ``torch.profiler`` capture: ticks 1..profile_ticks into
+        ``cfg.profile_dir`` (host activity, and the card's launches on
+        CUDA). Failure to start or stop a profiler is counted, never
+        raised — profiling must not take the serving loop down."""
+        if not self.cfg.profile_dir:
+            return
+        try:
+            if self.tick_no == 1 and self._profiler is None:
+                from torch.profiler import ProfilerActivity, profile
+
+                acts = [ProfilerActivity.CPU]
+                if self.device.type == "cuda":
+                    acts.append(ProfilerActivity.CUDA)
+                self._profiler = profile(activities=acts)
+                self._profiler.start()
+                self.tracer.event("profile", action="start",
+                                  dir=self.cfg.profile_dir)
+            elif (self._profiler is not None
+                  and self.tick_no > self.cfg.profile_ticks):
+                self._stop_profile()
+                self.tracer.event("profile", action="stop",
+                                  dir=self.cfg.profile_dir)
+        except Exception as e:
+            self._profiler = None
+            self.counters.incr("profile_errors")
+            self.tracer.event("profile", action="error",
+                              err=f"{type(e).__name__}: {e}")
+
     def recover(self) -> Dict[str, int]:
-        """Rebuild a crashed server by re-executing its journal: the
-        write-ahead journal is a later slice of the port (ROADMAP Queue
-        A), so this raises."""
-        raise NotImplementedError(
-            "DocServer.recover() re-executes the write-ahead journal "
-            "(serve/journal.py), a later slice of the port (ROADMAP "
-            "Queue A)")
+        """Rebuild a crashed server by re-executing its input log.  Call
+        on a FRESH server
+        constructed with the dead server's ``spool_dir``/``journal_dir``.
+
+        The server is a deterministic state machine, so recovery is
+        re-execution: scan the journal (valid prefix per shard; typed
+        refusals counted + traced, their suffixes already repaired
+        away at Journal reopen so post-recovery appends survive a
+        second crash), audit the checkpoint spool
+        (corruption reported, file allocator advanced past the crashed
+        process's files), then replay the merged record stream through
+        the NORMAL admission -> buffer -> batcher path with journaling
+        suspended.  ADMIT records reproduce shard assignment and drain
+        order; TXNS/LOCAL/FRAME/POLL records re-submit the same inputs;
+        TICK markers re-run ``tick()`` so the apply cadence — residency
+        trajectory, local-edit position resolution, and the in-flight
+        pipelined ticks that were dispatched but never synced at crash
+        time — re-derives exactly.  Replayed evictions lay the
+        checkpoint chains down again (fresh files; the crashed
+        process's spool stays untouched for forensics), and replayed
+        restores read them back — the checkpoint path exercises itself.
+        Returns replay stats."""
+        from ..net import codec
+        from . import journal as J
+        from .admission import AdmissionError
+
+        if self.journal is None:
+            raise ValueError(
+                "recover() needs cfg.journal_dir (durability was off)")
+        if self.router.docs:
+            raise ValueError(
+                "recover() must run on a fresh server, before any traffic")
+        records, fresh_errors = J.scan(self.cfg.journal_dir)
+        # Refusals were detected — and the refused suffixes repaired
+        # (truncated/quarantined, so post-recovery segments can never
+        # be dropped behind them on the NEXT crash's scan) — when this
+        # server's Journal reopened the directory.  Those were counted
+        # at reopen; report them through the recovery channel too.
+        # ``fresh_errors`` (disk mutated between reopen and recover)
+        # should be empty, but if not, count them like any refusal.
+        for err in fresh_errors:
+            self.counters.incr("journal_refusals")
+        errors = list(self.journal.repair_errors) + fresh_errors
+        for err in errors:
+            self.tracer.event("journal.refuse", segment=err.segment,
+                              offset=err.offset, reason=err.reason)
+            if self.recorder is not None:
+                self.recorder.on_failure("journal", str(err))
+        found = self.residency.rediscover()
+        stats = {"records": len(records), "refusals": len(errors),
+                 "docs": 0, "ckpts_found": len(found), "ops": 0,
+                 "txns_replayed": 0, "locals_replayed": 0,
+                 "frames_replayed": 0, "polls_replayed": 0,
+                 "ticks": 0, "readmissions": 0, "shard_mismatches": 0,
+                 "local_gaps": 0}
+        with self.journal.suspend():
+            for rec in records:
+                if rec.kind == J.REC_ADMIT:
+                    doc_id = rec.body.decode("utf-8")
+                    doc = self.router.admit_doc(doc_id)
+                    stats["docs"] += 1
+                    if doc.shard != rec.shard:
+                        # Replayed least-loaded choice disagreeing with
+                        # the recorded one would reorder every later
+                        # drain — loud, never silent.
+                        stats["shard_mismatches"] += 1
+                        self.counters.incr("recovery_shard_mismatches")
+                elif rec.kind == J.REC_TXNS:
+                    try:
+                        kind, groups, _, _ = codec.decode_frame_ex(
+                            bytes(rec.body))
+                    except codec.CodecError as e:
+                        # CRC-chained records should never decode dirty;
+                        # if one does, refuse it loudly and keep going.
+                        self.counters.incr("journal_refusals")
+                        self.tracer.event(
+                            "journal.refuse", segment=rec.segment,
+                            offset=rec.offset,
+                            reason=f"undecodable TXNS body: {e}")
+                        continue
+                    if kind != codec.KIND_TXNS_MUX:
+                        # Same taxonomy as an undecodable body: a TXNS
+                        # record carrying a non-mux frame is a typed
+                        # per-record refusal, never a replay abort.
+                        self.counters.incr("journal_refusals")
+                        self.tracer.event(
+                            "journal.refuse", segment=rec.segment,
+                            offset=rec.offset,
+                            reason=f"TXNS body kind {kind} is not "
+                                   f"TXNS_MUX")
+                        continue
+                    for doc_id, txns in groups:
+                        for txn in txns:
+                            try:
+                                self.router.submit_txn(doc_id, txn)
+                            except AdmissionError:
+                                stats["readmissions"] += 1
+                                continue
+                            stats["txns_replayed"] += 1
+                elif rec.kind == J.REC_LOCAL:
+                    (doc_id, agent, pos, del_len, ins,
+                     ordinal) = J.decode_local_body(rec.body)
+                    doc = self.router.doc(doc_id)
+                    if ordinal != doc.local_seen:
+                        # Exactly-once audit: the rebuilt ordinal
+                        # counter must agree with the recorded one.
+                        stats["local_gaps"] += 1
+                        self.counters.incr("recovery_local_gaps")
+                    try:
+                        self.router.submit_local(doc_id, agent, pos,
+                                                 del_len, ins)
+                    except AdmissionError:
+                        stats["readmissions"] += 1
+                        continue
+                    stats["locals_replayed"] += 1
+                elif rec.kind == J.REC_FRAME:
+                    doc_id, data = J.decode_frame_body(rec.body)
+                    try:
+                        self.router.submit_frame(doc_id, data)
+                    except AdmissionError:
+                        stats["readmissions"] += 1
+                        continue
+                    stats["frames_replayed"] += 1
+                elif rec.kind == J.REC_POLL:
+                    doc_id = rec.body.decode("utf-8")
+                    try:
+                        self.router.poll_request_frame(doc_id)
+                    except AdmissionError:
+                        stats["readmissions"] += 1
+                        continue
+                    stats["polls_replayed"] += 1
+                elif rec.kind == J.REC_TICK:
+                    tick_no, _ = J._read_varint(rec.body, 0,
+                                                len(rec.body))
+                    if tick_no <= self.tick_no:
+                        continue  # one marker per shard: replay once
+                    self.tick_no = tick_no - 1
+                    self.tick()
+                    stats["ticks"] += 1
+        stats["ops"] = stats["txns_replayed"] + stats["locals_replayed"]
+        self.counters.incr("recovery_ops_replayed", stats["ops"])
+        self.counters.incr("recovery_ticks", stats["ticks"])
+        self.tracer.event("recovery.replay", records=stats["records"],
+                          ops=stats["ops"], ticks=stats["ticks"],
+                          docs=stats["docs"],
+                          ckpts=stats["ckpts_found"],
+                          refusals=stats["refusals"])
+        return stats
 
     def drain(self, max_ticks: int = 64) -> int:
         """Tick until every queue is empty (or the budget runs out);
@@ -308,6 +517,56 @@ class DocServer:
                 self.batcher.pipeline_overlap_frac(), 4)
             out["pipeline_stall_ms_total"] = round(
                 self.batcher.sync_stall_s * 1e3, 3)
+        # Device-resident prefill: the per-tick log-prefill byte economy
+        # — what moved host->device vs the full-log round trip, the
+        # scatter volume, and the distinct scatter buckets (the JAX
+        # package's scatter compiles).  Backends without the surface
+        # (the blocked lanes backend) contribute nothing; the summed
+        # stats stay seed-deterministic.
+        pf = [b.prefill_summary() for b in self.residency.backends
+              if hasattr(b, "prefill_summary")]
+        if pf:
+            out["device_prefill"] = all(p["device_prefill"] for p in pf)
+            out["prefill_bytes_per_tick"] = round(
+                sum(p["prefill_bytes_per_tick"] for p in pf), 1)
+            out["prefill_bytes_full_per_tick"] = round(
+                sum(p["prefill_bytes_full_per_tick"] for p in pf), 1)
+            # max(.., 1): same floor as the backend's per-backend cut —
+            # a run that moved zero prefill bytes (no-insert streams)
+            # reports the full-log baseline as its cut, not a 1e9
+            # division artifact.
+            out["prefill_bytes_cut_x"] = round(
+                out["prefill_bytes_full_per_tick"]
+                / max(out["prefill_bytes_per_tick"], 1.0), 2)
+            out["prefill_scatter_len"] = sum(
+                p["prefill_scatter_len"] for p in pf)
+            out["prefill_scatter_compiles"] = sum(
+                p["prefill_scatter_compiles"] for p in pf)
+        # Tick trains: the per-tick device-dispatch economy.
+        # ``device_dispatches`` counts device dispatches issued (train
+        # launches + prefill scatters); ``dispatch_serial_equiv`` is what
+        # the serial loop would have issued for the same stream.
+        # ``train_len`` is the realized mean (flushes make partial
+        # trains); ``train_compiles`` counts distinct (T, S) train shapes
+        # — report-only, never traced, so the logical stream stays
+        # train-length-invariant.
+        tn = [b.train_summary() for b in self.residency.backends
+              if hasattr(b, "train_summary")]
+        if tn:
+            out["train_ticks"] = self.batcher.effective_train_ticks()
+            out["device_dispatches"] = sum(
+                t["device_dispatches"] for t in tn)
+            out["device_dispatches_per_tick"] = round(
+                out["device_dispatches"]
+                / max(c.get("device_ticks", 0), 1), 3)
+            out["dispatch_serial_equiv"] = sum(
+                t["dispatch_serial_equiv"] for t in tn)
+            out["dispatch_cut_x"] = round(
+                out["dispatch_serial_equiv"]
+                / max(out["device_dispatches"], 1), 2)
+            out["train_len"] = round(sum(
+                t["train_len"] for t in tn) / len(tn), 2)
+            out["train_compiles"] = sum(t["train_compiles"] for t in tn)
         # Flight-recorder visibility: how many post-mortem bundles this
         # run wrote and how many same-reason repeats were suppressed.
         out["bundles_written"] = c.get("bundles_written", 0)

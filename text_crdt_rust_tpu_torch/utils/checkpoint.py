@@ -1,6 +1,6 @@
 """Checkpoint / resume: the document state as flat numpy arrays
-(counterpart of ``text_crdt_rust_tpu/utils/checkpoint.py``; the device
-``FlatDoc`` checkpoints come with the flat slice).
+(counterpart of ``text_crdt_rust_tpu/utils/checkpoint.py``), including
+the device ``FlatDoc`` checkpoints (``save_flat_doc``/``load_flat_doc``).
 
 The reference implements no persistence, but its state is fully determined
 by the RLE logs (client_with_order + item_orders + deletes + txns
@@ -511,3 +511,71 @@ class CheckpointChain:
             raise CheckpointError(f"chain {self.stem!r} has no base")
         return replay_chain_with_meta(
             self.base_path, [link["path"] for link in self.links])
+
+
+def save_flat_doc(flat, path: str) -> None:
+    """Checkpoint a device ``FlatDoc`` (downloads once). Accepts a single
+    doc or a ``stack_docs`` batch (leading doc axis on every column,
+    including ``n``/``next_order``). The arrays and their dtypes are the
+    JAX package's: ``signed``/``n`` int32, the logs and ``next_order``
+    uint32."""
+    import torch
+
+    def u32(t):
+        return np.asarray(t.cpu().numpy()).view(np.uint32)
+
+    nxt = flat.next_order
+    if isinstance(nxt, torch.Tensor):
+        next_order = u32(nxt.to(torch.int32))
+    else:
+        next_order = np.asarray(int(nxt) & 0xFFFF_FFFF, dtype=np.uint32)
+    n = flat.n
+    arrays = dict(
+        signed=flat.signed.cpu().numpy(),
+        ol_log=u32(flat.ol_log),
+        or_log=u32(flat.or_log),
+        rank_log=u32(flat.rank_log),
+        chars_log=u32(flat.chars_log),
+        n=(n.cpu().numpy().astype(np.int32) if isinstance(n, torch.Tensor)
+           else np.asarray(int(n), dtype=np.int32)),
+        next_order=next_order,
+    )
+    _save_npz(path, {"version": FORMAT_VERSION, "kind": "flat"}, arrays)
+
+
+def load_flat_doc(path: str, device=None):
+    """Rebuild a ``FlatDoc`` from a ``save_flat_doc`` checkpoint on
+    ``device`` (as ``resolve_device``): a single doc keeps ``n`` and
+    ``next_order`` as ints, a batch as int32 tensors.
+
+    Raises ``CheckpointError`` on corruption/truncation/version mismatch.
+    """
+    _, z = _load_npz(path, expect_kind="flat")
+    try:
+        return _rebuild_flat(z, device)
+    except (KeyError, ValueError, IndexError) as e:
+        raise CheckpointError(
+            f"checkpoint {path!r}: inconsistent contents: {e}") from e
+
+
+def _rebuild_flat(z, device):
+    import torch
+
+    from .. import resolve_device
+    from ..ops.span_arrays import FlatDoc
+
+    dev = resolve_device(device)
+
+    def bits(name):
+        a = np.array(z[name], dtype=np.uint32)
+        return torch.from_numpy(a.view(np.int32)).to(dev)
+
+    n = np.asarray(z["n"], dtype=np.int32)
+    nxt = np.asarray(z["next_order"], dtype=np.uint32)
+    batched = n.ndim == 1
+    return FlatDoc(
+        signed=torch.from_numpy(np.array(z["signed"], np.int32)).to(dev),
+        ol_log=bits("ol_log"), or_log=bits("or_log"),
+        rank_log=bits("rank_log"), chars_log=bits("chars_log"),
+        n=torch.from_numpy(n.copy()).to(dev) if batched else int(n),
+        next_order=(bits("next_order") if batched else int(nxt)))

@@ -11,10 +11,15 @@ The port's equivalents:
                     span count + compaction ratio (the RLE health metric
                     that decides device array sizes), span-length
                     histogram, log entry counts;
+- ``memory_stats``— bytes per column for host oracle docs and device
+                    ``FlatDoc``s (device bytes ARE the device footprint);
+- ``run_stats``   — run-state health of the run-block replays' results;
+- ``print_stats`` — the human-readable dump;
 - ``Throughput``  — ops/sec accumulator for bench loops (wall clock from
                     the caller's clock, explicit ``ops`` counts).
 
-The document functions take an oracle ``ListCRDT``.
+The document functions take an oracle ``ListCRDT`` or a device
+``FlatDoc``.
 """
 from __future__ import annotations
 
@@ -24,13 +29,20 @@ import numpy as np
 
 
 def _spans_of(doc) -> List[Tuple[int, int, int, int]]:
-    return doc.doc_spans()
+    if hasattr(doc, "doc_spans"):
+        return doc.doc_spans()
+    from ..ops.span_arrays import doc_spans
+    return doc_spans(doc)
 
 
-def _counts_of(doc) -> Tuple[int, int]:
-    """(total items, live items) of an oracle document."""
-    n = doc.n
-    return n, int(np.count_nonzero(~doc.deleted[:n]))
+def _counts_of(doc, spans) -> Tuple[int, int]:
+    """(total items, live items) for an oracle or a ``FlatDoc``; derived
+    from the merged spans for device docs (no second download)."""
+    if hasattr(doc, "deleted"):  # oracle
+        n = doc.n
+        return n, int(np.count_nonzero(~doc.deleted[:n]))
+    lens = [s[3] for s in spans]
+    return sum(abs(ln) for ln in lens), sum(ln for ln in lens if ln > 0)
 
 
 def span_histogram(spans, bins=(1, 2, 4, 8, 16, 32, 64, 128)) -> Dict[str, int]:
@@ -52,7 +64,7 @@ def doc_stats(doc, spans=None) -> dict:
     ``spans`` to avoid re-downloading a device doc."""
     if spans is None:
         spans = _spans_of(doc)
-    items, live = _counts_of(doc)
+    items, live = _counts_of(doc, spans)
     stats = {
         "items": items,
         "live": live,
@@ -66,6 +78,87 @@ def doc_stats(doc, spans=None) -> dict:
         stats["double_delete_entries"] = doc.double_deletes.num_entries()
         stats["txn_entries"] = doc.txns.num_entries()
     return stats
+
+
+def memory_stats(doc, spans=None) -> dict:
+    """Bytes per column. For a device ``FlatDoc`` these are the actual
+    device buffer sizes; ``efficient_bytes`` is what a fully
+    RLE-compacted span store would need (16 B/span, `span.rs:126-129`) —
+    the reference's actual-vs-efficient comparison. Pass precomputed
+    ``spans`` to avoid re-downloading a device doc."""
+    if spans is None:
+        spans = _spans_of(doc)
+    if hasattr(doc, "deleted"):  # oracle numpy columns
+        cols = {k: getattr(doc, k).nbytes
+                for k in ("order", "origin_left", "origin_right",
+                          "deleted", "chars")}
+    else:
+        cols = {k: int(getattr(doc, k).numel()
+                       * getattr(doc, k).element_size())
+                for k in ("signed", "ol_log", "or_log", "rank_log",
+                          "chars_log")}
+    total = sum(cols.values())
+    return {
+        "columns": cols,
+        "total_bytes": total,
+        "efficient_bytes": 16 * len(spans),
+        "overhead": total / max(1, 16 * len(spans)),
+    }
+
+
+def run_stats(res, doc_index: int = 0) -> dict:
+    """Device RUN-state health metrics of the run-block replays' results
+    (``RleResult``/``RleMixedResult``) — the `print_stats` family
+    (`root.rs:293-326`) read off the run representation: run/live/
+    tombstone rows, chars and chars per run (the compaction ratio that
+    sizes the planes), blocks used and block fill, and the run-length
+    histogram."""
+    K = res.block_k
+    ordc = res.ordp[:, doc_index].cpu().numpy()
+    lenc = res.lenp[:, doc_index].cpu().numpy()
+    rows = res.rows[:, doc_index].cpu().numpy()
+    nlog = int(res.meta[0, doc_index])
+    blk = res.blkord[:, doc_index].cpu().numpy()
+    o_parts, l_parts = [], []
+    for sl in range(nlog):
+        b, r = int(blk[sl]), int(rows[sl])
+        o_parts.append(ordc[b * K: b * K + r])
+        l_parts.append(lenc[b * K: b * K + r])
+    o = (np.concatenate(o_parts) if o_parts else np.zeros(0, np.int32))
+    ln = (np.concatenate(l_parts) if l_parts else np.zeros(0, np.int32))
+    live = o > 0
+    spans = [(0, 0, 0, int(n if lv else -n)) for n, lv in zip(ln, live)]
+    total_rows = int(len(o))
+    return {
+        "run_rows": total_rows,
+        "live_rows": int(live.sum()),
+        "tombstone_rows": int((~live & (o != 0)).sum()),
+        "chars": int(ln.sum()),
+        "live_chars": int(ln[live].sum()),
+        "chars_per_run": round(float(ln.sum()) / max(total_rows, 1), 2),
+        "blocks_used": nlog,
+        "block_fill": round(total_rows / max(nlog * K, 1), 3),
+        "run_histogram": span_histogram(spans),
+    }
+
+
+def print_stats(doc, detailed: bool = False) -> None:
+    """Human-readable dump (`doc.rs:492-498` analog). Downloads a device
+    doc once and shares the spans across both stat passes."""
+    spans = _spans_of(doc)
+    d = doc_stats(doc, spans=spans)
+    m = memory_stats(doc, spans=spans)
+    print(f"doc: {d['items']} items ({d['live']} live, "
+          f"{d['tombstones']} tombstones), {d['merged_spans']} merged spans "
+          f"(compaction {d['compaction']:.1f}x)")
+    print(f"  memory: {m['total_bytes']:,} B actual vs "
+          f"{m['efficient_bytes']:,} B compacted "
+          f"({m['overhead']:.1f}x overhead)")
+    if detailed:
+        print(f"  span histogram: {d['span_histogram']}")
+        for k in ("deletes_entries", "double_delete_entries", "txn_entries"):
+            if k in d:
+                print(f"  {k}: {d[k]}")
 
 
 class Counters:
