@@ -1,7 +1,7 @@
 """Time the redesigned kernels (A1-A10) on one NVIDIA card.
 
     python3 chip_blocked_timing.py [tests] [a10] [a8] [a9] [a2] [a3] [a4]
-        [a6] [a1] [a7] [a5] [serve] [flat] [--reps N]
+        [a6] [a1] [a7] [a5] [serve] [flat] [configs] [--reps N]
 
 A quicker loop than ``chip_smoke.py`` while redesigning those kernels:
 it builds them (printing ptxas's registers and spills), then runs the
@@ -61,7 +61,14 @@ named phases, all by default:
   at depth 2 with trains of 1 and 4 against the JAX package's golden
   record, the wide shape, the kernel against its plain version on
   sampled launches, crash recovery, ``DeviceMirror`` and a profiler
-  capture).
+  capture);
+- ``configs``: A1's card tests at configs 2 and 3's shapes and at 20
+  doc groups (``-k "config2 or config3 or groups-20"``), then
+  ``chip_smoke.py``'s phases on A1 at the new shapes: the north star at
+  10,240 documents (512 x 20 groups) against the 512-document run, configs
+  2 and 3 (their streams and plain chains built in child processes), and
+  the native baseline of configs 1, 2 and 3 and kevin with no child
+  running.
 
 Times are medians of ``--reps`` runs (3) after 1 warm-up, CUDA events.
 The plain versions are not timed here; ``chip_smoke.py`` holds every
@@ -550,7 +557,7 @@ def phase_a5(torch, dev, reps):
 
 def main(argv=None) -> int:
     phases = ("tests", "a10", "a8", "a9", "a2", "a3", "a4", "a6", "a1",
-              "a7", "a5", "serve", "flat")
+              "a7", "a5", "serve", "flat", "configs")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="*", help=f"any of {phases} (all)")
     ap.add_argument("--reps", type=int, default=3)
@@ -673,6 +680,8 @@ def main(argv=None) -> int:
         phase_serve(torch, dev)
     if "flat" in args.phases:
         phase_flat(torch, dev)
+    if "configs" in args.phases:
+        phase_configs(torch, dev)
     return 0
 
 
@@ -735,6 +744,80 @@ def phase_flat(torch, dev) -> None:
     finally:
         pool.terminate()
     if r.returncode != 0 or max(line["max_abs_err"], e) != 0:
+        raise SystemExit(1)
+
+
+def phase_configs(torch, dev) -> None:
+    import multiprocessing
+
+    import chip_smoke
+    from text_crdt_rust_tpu_torch import (
+        baseline,
+        corpus,
+        kevin,
+        northstar,
+        random_edits,
+    )
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    from text_crdt_rust_tpu_torch.ops import rle as R
+
+    t_start = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+         "-q", "tests/test_torch_cuda.py", "-k",
+         "config2 or config3 or groups-20", "-p", "no:cacheprovider"],
+        capture_output=True, text=True)
+    print(r.stdout[-3000:], r.stderr[-2000:], flush=True)
+    card = chip_smoke.card_line()
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    try:
+        tasks = [pool.apply_async(chip_smoke.config_streams,
+                                  (which, chip_smoke.PLAIN_LANES_A1))
+                 for which in ("2", "3")]
+        run = northstar.run_northstar(batch=chip_smoke.NS_LANES, device=dev)
+        ns = chip_smoke.northstar_10k_phase(torch, dev, card, northstar, R,
+                                            _kernels, run.results[0])
+        patches, want = run.stream.patches, run.stream.want
+        del run
+        cfg2, st2 = chip_smoke.config_phase(
+            torch, dev, card, "config 2 (random edits)", tasks[0],
+            lambda st: random_edits.run_random_edits(stream=st, device=dev),
+            lambda st: random_edits.make_random_edits_replayer(
+                st, device=dev), R, _kernels, lambda st: len(st.patches))
+        cfg3, st3 = chip_smoke.config_phase(
+            torch, dev, card, "config 3 (rustcode + sveltecomponent)",
+            tasks[1], lambda st: corpus.run_corpus(stream=st, device=dev),
+            lambda st: corpus.make_corpus_replayer(st, device=dev), R,
+            _kernels, lambda st: st.n_patches)
+        pool.close()
+        pool.join()
+    finally:
+        pool.terminate()
+    lists, cols = baseline.patch_lists(patches), baseline.patch_columns(
+        patches)
+    k_cols = kevin.kevin_columns(chip_smoke.KEVIN_NATIVE)
+    n_kevin = chip_smoke.KEVIN_NATIVE
+    cells = [
+        ("config 1: automerge-paper", lambda: baseline.replay_trace(lists),
+         len(patches), "patches", lambda d: d.to_string() == want, 5),
+        ("config 1: rope",
+         lambda: baseline.rope_replay(*cols, want_content=False)[0],
+         len(patches), "patches", lambda n: n == len(want), 5),
+        ("config 2", lambda c=baseline.patch_lists(st2.patches):
+         baseline.replay_trace(c), len(st2.patches), "patches",
+         lambda d: d.to_string() == st2.want, 5)]
+    cells += [(f"config 3: {n}", lambda c=baseline.patch_lists(ps):
+               baseline.replay_trace(c), len(ps), "patches",
+               lambda d, w=w: d.to_string() == w, 5)
+              for n, ps, w in zip(st3.names, st3.patches, st3.wants)]
+    cells.append(("kevin", lambda: baseline.replay_trace(k_cols), n_kevin,
+                  "prepends", lambda d: len(d) == n_kevin, 3))
+    native = chip_smoke.baseline_phase(cells)
+    print(f"configs phase: {time.perf_counter() - t_start:.1f} s; "
+          + json.dumps({"northstar_10k": ns, "config2": cfg2,
+                        "config3": cfg3, "native": native}, default=str),
+          flush=True)
+    if r.returncode != 0:
         raise SystemExit(1)
 
 

@@ -7,7 +7,9 @@
    ``text_crdt_rust_tpu_torch/ops/csrc`` (timed as set-up), then starts
    the child processes of the CPU plain checks (``os.cpu_count()`` less
    one, at most seven, one thread each; printed): A9's, A10's and A8's
-   at once, the 5r plain chains' shards once the 5r stream exists.
+   at once, with configs 2 and 3's streams (their run-row dry runs are
+   their set-up) and A1's plain chains on two lanes of each group; the 5r
+   plain chains' shards once the 5r stream exists.
 3. Holds each kernel against its plain PyTorch version on the card, on
    the same inputs, bit for bit (the replay state is integers): a fused
    trace prefix, fused prepend bursts (W > 2), two divergent doc groups
@@ -23,6 +25,17 @@
 5. At the main path's shapes: kernel against plain version once more,
    the plain version's time, and the kernel's median time over 3 runs
    after 1 warm-up (CUDA events), with ops/s and device steps.
+5a. The north star at ``BASELINE.json``'s width, 10,240 documents (512
+   lanes x 20 doc groups in one launch), through ``northstar.run_northstar(
+   batch=512, groups=20)``, launch counts set to 0 just before and read
+   just after: it fails unless A1 launched, doc 0 reproduces
+   ``endContent``, every group equals group 0 and every lane of every
+   group equals lane 0 of phase 4's 512-document run (all eight outputs,
+   compared on the card; only one lane is expanded on the host) and the
+   native engine's text equals ``endContent``. Then A1's median over 3
+   runs after 1 warm-up (CUDA events), patches/s = 259,778 x 10,240 /
+   time, µs a step, the bound by bytes and by operations, peak device
+   memory and set-up (the compile) apart.
 6. The mixed run replay (``rle_mixed_replay``, A3) against its plain
    version on the card, bit for bit on all eight outputs: a small delete
    storm (K = 8), a mid storm (16 peers x 20 rounds, K = 32) with the fast
@@ -46,6 +59,20 @@
    fast-scan windows (blocks spanned, mean and most) and shares of its
    cycles (``clock64``), its median at 128, 256 and 512 threads a thread
    block, and the wrapper's choice with its reason.
+8a. Config 2 (``BASELINE.json`` "random_edits"): 20,000 seeded random
+   patches (19,996 steps, capacity 60,416 run rows, K = 256, NB 236) into
+   128 documents through ``random_edits.run_random_edits()`` on the
+   stream its child process built; 8b. config 3 (the ragged rustcode +
+   sveltecomponent corpus, 13,001 and 5,733 steps, two doc groups of 128
+   documents, capacity 37,376, K = 256) through ``corpus.run_corpus()``.
+   Each counted (A1 must launch), each group's doc 0 against its text,
+   every lane against lane 0, the native engine's texts, each group's run
+   rows against the dry run's final count (rustcode's 69,108-character
+   paste chained in 512-character steps must fuse back); then A1 against
+   its plain chain (the child's) on lanes 0-1 of each group, bit for bit
+   on all eight outputs, its median over 3 runs after 1 warm-up, patches/s,
+   µs a step, the bound, and its counters (splits, window loads a step,
+   cycle shares) for lane 0 of each group.
 9. The per-lane mixed replays, un-blocked (``rle_lanes_mixed``) and
    blocked (``rle_lanes_mixed_blocked``), against their plain versions on
    the card, bit for bit on all 8 and 14 outputs: divergent tiebreaks,
@@ -266,8 +293,21 @@
    that must name the kernel.
 27. The wide serve and flat launches and the 5r plain chains' shards
    (phases 11 and 12) against the kernels' outputs.
+27a. Once the child processes have drained (no child runs: the CPU
+   baseline shares the host with nothing of this script), the native C++
+   engine's single-core baseline, timed as ``bench.py`` times it (the
+   1-minute load average and the CPU model and core count printed, a
+   warning above half the cores, each sample printed): config 1 (the
+   automerge-paper trace on the native engine, which is also the north
+   star's denominator, and on the text-only rope; median of 5), both
+   config-4 storms, config 5r's document 0 (its txns) and config 5's (its
+   patches), config 2's patches, each config-3 trace (median of 5), and
+   kevin's 5,000,000 prepends (median of 3); each text checked. Then each
+   cell's ratio, the device's rate over the native rate, as measured in
+   this run, and one JSON line with them.
 28. Prints ``{"kernels": [...]}`` (the ten TPU kernels' ports and the
-   flat kernel; A7's line carries the serve runs) and, as its last line,
+   flat kernel; A1's line carries the 10,240-document north star and
+   configs 2 and 3, A7's the serve runs) and, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line; so does a host without
@@ -279,6 +319,7 @@ import atexit
 import json
 import multiprocessing
 import os
+import platform
 import statistics
 import subprocess
 import sys
@@ -499,6 +540,317 @@ def mixed_bound(staged, shape):
     active = int(((dlen > 0) | (ilen > 0) | (kind == 2)).sum())
     nops = Bn * active * (K + NBL)
     return nbytes, nops
+
+
+# -- A1 at the north star's 10,240 documents and at configs 2 and 3 -------------
+
+NS_GROUPS = 20               # BASELINE.json's 10k documents: 512 x 20 groups
+NS_LANES = 512               # documents a group (the main path's batch)
+PLAIN_LANES_A1 = 2           # lanes of configs 2 and 3's plain chains
+#: Names of A1's ``stats`` counters (``ops/rle.py`` ``STATS``).
+A1_STATS = ("splits", "window_loads", "successor_peeks", "steps",
+            "cycles_slot_locate", "cycles_run_locate", "cycles_insert_splice",
+            "cycles_delete", "cycles_split", "cycles_window_load",
+            "cycles_write_out", "cycles_all")
+BASELINE_REPS = 5            # native baseline: median of 5 (bench.py)
+KEVIN_REPS = 3               # kevin's native baseline: median of 3
+KEVIN_NATIVE = 5_000_000     # kevin's native prepends (bench.py:1563)
+
+
+def a1_bound(staged, shape):
+    """(bytes, operations) that one A1 launch must at least move and do:
+    each input read once and each output written once, and per lane one
+    K-row block plus the NBL live-prefix slots for every step with work
+    (every group's steps counted once)."""
+    G, S, Bn, CAP, K = (shape["groups"], shape["steps"], shape["batch"],
+                        shape["capacity"], shape["block_k"])
+    NBL = max(8, CAP // K)
+    nbytes = 4 * (5 * G * S + 2 * G * CAP * Bn + 2 * G * NBL * Bn
+                  + 8 * G * Bn + 2 * G * S * Bn + 8 * Bn)
+    active = int(((staged[1] > 0) | (staged[2] > 0)).sum())
+    return nbytes, active * Bn * (K + NBL), active
+
+
+def lanes_match(torch, results, ref) -> bool:
+    """Every lane of every group of ``results`` equals lane 0 of ``ref`` (a
+    result of the same stream and geometry) in every output, compared on
+    the card."""
+    names = ("ordp", "lenp", "blkord", "rows", "meta", "ol", "orr", "err")
+    for r in results:
+        for name in names:
+            a, b = getattr(r, name), getattr(ref, name)[..., :1]
+            if a.shape[:-1] != b.shape[:-1] or \
+                    not torch.equal(a, b.expand_as(a)):
+                return False
+    return True
+
+
+def config_streams(which: str, lanes: int):
+    """Runs in a child process, on the CPU: config 2's (``which`` "2") or
+    config 3's ("3") stream, built as its entry point builds it (the
+    run-row dry run is its set-up), then A1's plain version on ``lanes``
+    lanes of it, one thread. Returns the stream, the set-up seconds, the
+    staged columns, the plain outputs and the plain seconds."""
+    import torch
+
+    from text_crdt_rust_tpu_torch import corpus, random_edits
+    from text_crdt_rust_tpu_torch.ops import rle as R
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    if which == "2":
+        st = random_edits.make_random_edits_stream()
+        rep = random_edits.make_random_edits_replayer(st, lanes, "cpu")
+    else:
+        st = corpus.make_corpus_stream()
+        rep = corpus.make_corpus_replayer(st, lanes, "cpu")
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = R.rle_replay_plain(*rep.staged, **rep.shape)
+    plain_s = time.perf_counter() - t0
+    return (st, setup_s, [c.numpy() for c in rep.staged],
+            [o.numpy() for o in outs], plain_s)
+
+
+def run_rows(res) -> int:
+    """Run rows of lane 0 over the blocks in use."""
+    nlog = int(res.meta[0, 0])
+    return int(res.rows[:nlog, 0].sum())
+
+
+def northstar_10k_phase(torch, dev, card, northstar, R, _kernels, ref):
+    """The north star at 10,240 documents through ``run_northstar(batch=
+    512, groups=20)``: counted, doc 0 of group 0 against ``endContent``,
+    every group equal to group 0 and every lane of every group equal to
+    lane 0 of the 512-document run (``ref``) on the card; then A1's
+    median, rate, µs a step and bound, peak device memory and set-up
+    apart. Returns A1's numbers for the kernels line."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    stream = northstar.compile_northstar()
+    setup_s = time.perf_counter() - t0
+    docs = NS_LANES * NS_GROUPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    run = northstar.run_northstar(batch=NS_LANES, groups=NS_GROUPS,
+                                  stream=stream, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.launches.get("rle_replay", 0)
+    t0 = time.perf_counter()
+    lanes_ok = lanes_match(torch, run.results, ref)
+    compare_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    res = run.results[0]
+    log(f"north star 10k: run_northstar(batch={NS_LANES}, groups="
+        f"{NS_GROUPS}) {stream.n_patches} patches -> {stream.steps} device "
+        f"steps, {docs} documents, capacity {res.ordp.shape[0]}, K="
+        f"{res.block_k}, blocks in use {int(res.meta[0, 0])}: launches "
+        f"{dict(_kernels.launches)}; doc 0 == endContent {run.text_ok}, "
+        f"every group == group 0 {run.groups_equal}, every lane == lane 0 "
+        f"of the 512-document run {lanes_ok} (compared on the card in "
+        f"{compare_s:.2f} s), native engine == endContent {run.native_ok}; "
+        f"host wall {wall:.2f} s (replay, doc 0's readback, the native "
+        f"replay); set-up {setup_s:.2f} s (load, merge, compile, fuse); "
+        f"peak device memory {peak / 2**30:.3f} GiB above the "
+        f"{base_mem / 2**30:.3f} GiB held before")
+    if launches < 1 or not run.ok or not lanes_ok:
+        raise AssertionError(
+            f"north star 10k failed: launches {launches}, text "
+            f"{run.text_ok}, groups {run.groups_equal}, lanes {lanes_ok}, "
+            f"native {run.native_ok}")
+    del run, res
+    rep = northstar.make_northstar_replayer(stream, batch=NS_LANES,
+                                            groups=NS_GROUPS, device=dev)
+    ms = cuda_ms(torch, lambda: R.rle_replay_cuda(*rep.staged, **rep.shape),
+                 reps=3)
+    nbytes, nops, active = a1_bound(rep.staged, rep.shape)
+    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    o_ms = nops / PEAK_OPS_PER_S * 1e3
+    rate = stream.n_patches * docs / (ms / 1e3)
+    geometry = dict(thread_blocks=NS_GROUPS * NS_LANES, warps=R.WARPS,
+                    smem=R.kernel_smem_bytes(
+                        rep.shape["block_k"],
+                        max(8, rep.shape["capacity"]
+                            // rep.shape["block_k"])))
+    phase_s = time.perf_counter() - t_phase
+    log(f"replay 10k: median {ms:.3f} ms over 3 reps after 1 warm-up (CUDA "
+        f"events); {rate:.4g} patches/s ({stream.n_patches} x {docs} docs); "
+        f"{stream.steps} steps a chain, {ms * 1e3 / stream.steps:.3f} us a "
+        f"step; bound {max(b_ms, o_ms):.4f} ms ({nbytes} B: {b_ms:.4f} ms "
+        f"by bytes; {nops} ops: {o_ms:.4f} ms by operations); launch "
+        f"geometry {geometry}; phase {phase_s:.1f} s; on {card}")
+    return dict(launches=launches, docs=docs, groups=NS_GROUPS, ms=ms,
+                patches_per_s=rate, us_per_step=ms * 1e3 / stream.steps,
+                bound_ms=max(b_ms, o_ms),
+                bound_by="bytes" if b_ms >= o_ms else "operations",
+                bound_bytes_ms=b_ms, bound_ops_ms=o_ms, bytes=nbytes,
+                ops_lower_bound=nops, serial_steps=stream.steps,
+                peak_device_bytes=peak, host_wall_s=wall, setup_s=setup_s,
+                lanes_compare_s=compare_s, geometry=geometry,
+                phase_s=phase_s)
+
+
+def config_phase(torch, dev, card, label, task, run_fn, replayer, R,
+                 _kernels, n_patches_of):
+    """Config 2 or 3 on A1: waits for the child that built its stream and
+    ran the plain chain, drives the entry point (``run_fn(stream)``)
+    counted, checks texts, lanes, native texts and each group's run rows
+    against the dry run, then times the kernel, prints its counters and
+    holds its first lanes against the plain chain. Returns A1's numbers
+    for the kernels line and the stream."""
+    t_phase = time.perf_counter()
+    st, setup_s, cols_np, plain_np, plain_s = task.get()
+    wait_s = time.perf_counter() - t_phase
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    run = run_fn(st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.launches.get("rle_replay", 0)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    results = run.results if hasattr(run, "results") else [run.result]
+    streams = st.streams if hasattr(st, "streams") else [st.rle]
+    rows = [run_rows(r) for r in results]
+    want_rows = [s.final_rows for s in streams]
+    log(f"{label}: launches {dict(_kernels.launches)}; steps "
+        f"{[s.steps for s in streams]}, capacity {results[0].ordp.shape[0]}"
+        f" run rows, K={results[0].block_k}, B={results[0].batch}, blocks "
+        f"in use {[int(r.meta[0, 0]) for r in results]} of "
+        f"{results[0].num_blocks}; text ok {run.text_ok}, lanes equal "
+        f"{run.lanes_ok}, native ok {run.native_ok}; run rows {rows} "
+        f"(the dry run's {want_rows}); host wall {wall:.2f} s (replay, "
+        f"readback, the native replays); set-up {setup_s:.2f} s in a child "
+        f"process (load, merge, compile, the run-row dry run), waited "
+        f"{wait_s:.1f} s for it; peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    if launches < 1 or not run.ok or rows != want_rows:
+        raise AssertionError(f"{label} failed: launches {launches}, ok "
+                             f"{run.ok}, run rows {rows} != {want_rows}")
+    del run, results
+    rep = replayer(st)
+    if not same_inputs(torch, rep.staged, cols_np):
+        raise AssertionError(f"{label}: the child staged other inputs")
+    kern = R.rle_replay_cuda(*rep.staged, **rep.shape)
+    torch.cuda.synchronize()
+    err = char_err(torch, kern, plain_np, PLAIN_LANES_A1, OUTPUTS)
+    del kern
+    log(f"compare {label}: max_abs_err {err} against the plain version on "
+        f"lanes 0-{PLAIN_LANES_A1 - 1} of each group (all eight outputs; "
+        f"{plain_s:.1f} s in its child process)")
+    if err != 0:
+        raise AssertionError(f"{label}: A1 disagrees with its plain version")
+    ms = cuda_ms(torch, lambda: R.rle_replay_cuda(*rep.staged, **rep.shape),
+                 reps=3)
+    G, Bn = rep.shape["groups"], rep.shape["batch"]
+    stats = torch.zeros(G, Bn, R.STATS, dtype=torch.int64, device=dev)
+    R.rle_replay_cuda(*rep.staged, **rep.shape, stats=stats)
+    torch.cuda.synchronize()
+    per_group = [stats[g, 0].tolist() for g in range(G)]
+    for g, v in enumerate(per_group):
+        log(f"  {label} counters, group {g} lane 0: {R.describe_stats(v)}")
+    nbytes, nops, active = a1_bound(rep.staged, rep.shape)
+    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    o_ms = nops / PEAK_OPS_PER_S * 1e3
+    n_patches = n_patches_of(st)
+    rate = n_patches * Bn / (ms / 1e3)
+    chain = max(s.steps for s in streams)
+    phase_s = time.perf_counter() - t_phase
+    log(f"replay {label}: median {ms:.3f} ms over 3 reps after 1 warm-up "
+        f"(CUDA events); {rate:.4g} patches/s ({n_patches} x {Bn} docs); "
+        f"{active} steps with work, the longest chain {chain} steps, "
+        f"{ms * 1e3 / chain:.3f} us a step; bound {max(b_ms, o_ms):.4f} ms "
+        f"({nbytes} B: {b_ms:.4f} ms by bytes; {nops} ops: {o_ms:.4f} ms by "
+        f"operations); phase {phase_s:.1f} s; on {card}")
+    return dict(launches=launches, ms=ms, patches=n_patches,
+                patches_per_s=rate, us_per_step=ms * 1e3 / chain,
+                steps=[s.steps for s in streams], batch=Bn,
+                capacity=rep.shape["capacity"], block_k=rep.shape["block_k"],
+                bound_ms=max(b_ms, o_ms),
+                bound_by="bytes" if b_ms >= o_ms else "operations",
+                bound_bytes_ms=b_ms, bound_ops_ms=o_ms, bytes=nbytes,
+                ops_lower_bound=nops, serial_steps=active,
+                plain_ms=plain_s * 1e3, plain_lanes=PLAIN_LANES_A1,
+                max_abs_err=err, run_rows=rows, peak_device_bytes=peak,
+                host_wall_s=wall, setup_s=setup_s,
+                stats=[dict(zip(A1_STATS, v)) for v in per_group],
+                phase_s=phase_s), st
+
+
+# -- the native single-core baseline -------------------------------------------
+
+
+def host_cpu() -> str:
+    """The host CPU's model (``/proc/cpuinfo``'s "model name", else
+    ``lscpu``'s "Model name", else "not reported"), its architecture and
+    its core count."""
+    model = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.split(":", 1)[0].strip() in ("model name", "Model"):
+                    model = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    if not model:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            model = next((ln.split(":", 1)[1].strip()
+                          for ln in out.splitlines()
+                          if ln.startswith("Model name")), None)
+        except (OSError, subprocess.SubprocessError):
+            model = None
+    return (f"{model or 'model not reported'}, {platform.machine()}, "
+            f"{os.cpu_count()} cores (os.cpu_count())")
+
+
+def baseline_samples(fn, reps: int):
+    """``bench.py``'s ``_baseline_samples``: the 1-minute load average
+    (warned about above half the cores), then ``reps`` timed runs of
+    ``fn``. Returns (median seconds, samples, load average, last result)."""
+    load = os.getloadavg()[0]
+    if load > (os.cpu_count() or 1) * 0.5:
+        log(f"WARNING: loadavg {load:.2f} on {os.cpu_count()} CPUs while "
+            f"measuring the CPU baseline")
+    samples, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        samples.append(time.perf_counter() - t0)
+    return statistics.median(samples), samples, load, out
+
+
+def baseline_phase(cells):
+    """The native single-core baseline, with no child process running:
+    each cell's native replay (``fn``) timed as ``bench.py`` times it, its
+    last result checked (``check``), its rate, samples, load average and
+    the host CPU printed. ``cells``: (label, fn, ops, unit, check, reps).
+    Returns {label: numbers}."""
+    cpu = host_cpu()
+    out = {}
+    for label, fn, n_ops, unit, check, reps in cells:
+        med, samples, load, result = baseline_samples(fn, reps)
+        ok = check(result)
+        rate = n_ops / med
+        log(f"native {label}: median {med * 1e3:.3f} ms of {reps} "
+            f"({[round(s * 1e3, 3) for s in samples]} ms), {rate:.6g} "
+            f"{unit}/s ({n_ops} {unit}); text ok {ok}; loadavg 1m "
+            f"{load:.2f}; on {cpu}")
+        if not ok:
+            raise AssertionError(f"native {label}: the result differs")
+        out[label] = dict(median_s=med, samples_s=samples, ops=n_ops,
+                          unit=unit, ops_per_s=rate, loadavg_1m=load,
+                          samples_ops_per_s=[n_ops / s for s in samples],
+                          cpu=cpu)
+    return out
 
 
 # -- the per-lane mixed replays ------------------------------------------------
@@ -1684,12 +2036,16 @@ def same_inputs(torch, staged, cols_np) -> bool:
         for c, n in zip(staged, cols_np))
 
 
-def char_err(torch, kern, plain, lanes=None) -> int:
+def char_err(torch, kern, plain, lanes=None, names=None) -> int:
     """Largest absolute difference between a kernel's outputs (lanes
     ``[:lanes]`` when given) and its plain version's (tensors or numpy
-    arrays); 0 = bit-identical."""
+    arrays), output by output (``names``, by default the per-character
+    replays'); 0 = bit-identical."""
     worst = 0
-    for name, k, p in zip(CHAR_OUTPUTS, kern, plain):
+    names = CHAR_OUTPUTS if names is None else names
+    if len(kern) != len(names) or len(plain) != len(names):
+        raise AssertionError(f"expected {len(names)} outputs")
+    for name, k, p in zip(names, kern, plain):
         if lanes is not None:
             k = k[..., :lanes]
         p = torch.as_tensor(p).to(k.device)
@@ -3144,9 +3500,12 @@ def main() -> int:
         import numpy as np
 
         from text_crdt_rust_tpu_torch import (
+            baseline,
             common,
+            corpus,
             kevin,
             northstar,
+            random_edits,
             storm,
             stream,
         )
@@ -3199,6 +3558,10 @@ def main() -> int:
     plain_a10_async = pool.apply_async(plain_a10,
                                        (STORM_ROUNDS, CHAR_LANES))
     plain_a8_async = pool.apply_async(plain_a8, (PREFIX_A8, CHAR_LANES))
+    # Configs 2 and 3: their streams (the run-row dry run is ~90 s of
+    # config 2's set-up) and A1's plain chains on their first lanes.
+    config2_async = pool.apply_async(config_streams, ("2", PLAIN_LANES_A1))
+    config3_async = pool.apply_async(config_streams, ("3", PLAIN_LANES_A1))
     log(f"plain checks: {workers} child processes on {ncpu} CPUs "
         f"(os.cpu_count())")
 
@@ -3285,16 +3648,10 @@ def main() -> int:
         f"geometry {a1_geometry}; median at 1, 2, 4 warps a lane: "
         + ", ".join(f"{w}: {t:.3f} ms" for w, t in a1_warps.items()))
 
-    G, S, Bn, CAP = (shape["groups"], shape["steps"], shape["batch"],
-                     shape["capacity"])
-    K = shape["block_k"]
-    NBL = max(8, CAP // K)
-    nbytes = 4 * (5 * G * S + 2 * G * CAP * Bn + 2 * G * NBL * Bn
-                  + 8 * G * Bn + 2 * G * S * Bn + 8 * Bn)
+    Bn = shape["batch"]
     # Every step with work scans at least one K-row block and the NBL
     # live-prefix slots in every lane: a lower bound on the operations.
-    active = int(((staged[1] > 0) | (staged[2] > 0)).sum())
-    nops = active * G * Bn * (K + NBL)
+    nbytes, nops, active = a1_bound(staged, shape)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = nops / PEAK_OPS_PER_S * 1e3
     log(f"replay: median {ms:.3f} ms over 3 reps after 1 warm-up (CUDA "
@@ -3322,15 +3679,17 @@ def main() -> int:
         "bytes": nbytes,
         "ops_lower_bound": nops,
         "serial_steps": active,
-        "stats": dict(zip(("splits", "window_loads", "successor_peeks",
-                           "steps", "cycles_slot_locate",
-                           "cycles_run_locate", "cycles_insert_splice",
-                           "cycles_delete", "cycles_split",
-                           "cycles_window_load", "cycles_write_out",
-                           "cycles_all"), a1_stats)),
+        "stats": dict(zip(A1_STATS, a1_stats)),
         "geometry": a1_geometry,
         "ms_by_warps": a1_warps,
+        "patches_per_s": ops_per_s,
     }
+    ns_patches, ns_want = run.stream.patches, run.stream.want
+
+    # -- the north star at 10,240 documents --------------------------------
+    ns10k = northstar_10k_phase(torch, dev, card, northstar, R, _kernels,
+                                run.results[0])
+    del run, res
 
     # -- the mixed replay against its plain version, small shapes ----------
     mworst = 0
@@ -3458,6 +3817,28 @@ def main() -> int:
         "library_ms": None,
         "variants": per_variant,
     }
+
+    # -- configs 2 and 3 on A1 (their streams built in child processes) ------
+    cfg2, cfg2_stream = config_phase(
+        torch, dev, card, "config 2 (random edits)", config2_async,
+        lambda st: random_edits.run_random_edits(stream=st, device=dev),
+        lambda st: random_edits.make_random_edits_replayer(st, device=dev),
+        R, _kernels, lambda st: len(st.patches))
+    cfg3, cfg3_stream = config_phase(
+        torch, dev, card, "config 3 (rustcode + sveltecomponent)",
+        config3_async,
+        lambda st: corpus.run_corpus(stream=st, device=dev),
+        lambda st: corpus.make_corpus_replayer(st, device=dev),
+        R, _kernels, lambda st: st.n_patches)
+    rle_line.update(
+        launches_paths={"northstar (512 documents)": rle_line["launches"],
+                        "northstar (10,240 documents)": ns10k["launches"],
+                        "random_edits (config 2)": cfg2["launches"],
+                        "corpus (config 3)": cfg3["launches"]},
+        northstar_10k=ns10k, config2=cfg2, config3=cfg3,
+        max_abs_err=max(worst, cfg2["max_abs_err"], cfg3["max_abs_err"]),
+        matches_plain=max(worst, cfg2["max_abs_err"],
+                          cfg3["max_abs_err"]) == 0)
     # -- the per-lane mixed replays against their plain versions, small --
     a6_worst = a7_worst = 0
     cases, two_peer = lanes_cases(B, randedit, common, TestPatch, ListCRDT,
@@ -3870,6 +4251,89 @@ def main() -> int:
                                  f"at the 5r shapes")
     pool.close()
     pool.join()
+
+    # -- the native single-core baseline, no child process running -------------
+    t0 = time.perf_counter()
+    ns_lists = baseline.patch_lists(ns_patches)
+    ns_cols = baseline.patch_columns(ns_patches)
+    five, five_contents = stream.generate_5(n_docs=1)
+    five_lists = baseline.patch_lists(
+        [p for per_doc in five for p in per_doc[0]])
+    cfg2_lists = baseline.patch_lists(cfg2_stream.patches)
+    k_cols = kevin.kevin_columns(KEVIN_NATIVE)
+    n_kevin = len(k_cols[0])
+    cells = [
+        ("config 1 / north star: automerge-paper on the native engine",
+         lambda: baseline.replay_trace(ns_lists), len(ns_patches),
+         "patches", lambda d: d.to_string() == ns_want, BASELINE_REPS),
+        ("config 1: automerge-paper on the rope (text only)",
+         # bench.py's rope timing: u32 columns, no text read back.
+         lambda: baseline.rope_replay(*ns_cols, want_content=False)[0],
+         len(ns_patches), "patches",
+         lambda n: n == len(ns_want)
+         and baseline.rope_text(ns_cols) == ns_want, BASELINE_REPS),
+    ]
+    for (name, _), r in zip(variants, runs):
+        cells.append((f"config 4: {name}",
+                      lambda txns=r.stream.txns:
+                      baseline.native_remote_replay(txns),
+                      r.stream.char_ops, "char-ops",
+                      lambda d, want=r.stream.want: d.to_string() == want,
+                      BASELINE_REPS))
+    cells += [
+        ("config 5r: document 0's txns",
+         lambda: baseline.native_remote_replay(s5.all_txns[0]),
+         sum(common.txn_len(t) for t in s5.all_txns[0]), "char-ops",
+         lambda d: d.to_string() == s5.contents[0], BASELINE_REPS),
+        ("config 5: document 0's patches",
+         lambda: baseline.replay_trace(five_lists), len(five_lists[0]),
+         "patches", lambda d: d.to_string() == five_contents[0],
+         BASELINE_REPS),
+        ("config 2: random edits",
+         lambda: baseline.replay_trace(cfg2_lists),
+         len(cfg2_stream.patches), "patches",
+         lambda d: d.to_string() == cfg2_stream.want, BASELINE_REPS),
+    ]
+    for name, ps, want in zip(cfg3_stream.names, cfg3_stream.patches,
+                              cfg3_stream.wants):
+        cells.append((f"config 3: {name}",
+                      lambda cols=baseline.patch_lists(ps):
+                      baseline.replay_trace(cols), len(ps),
+                      "patches", lambda d, want=want: d.to_string() == want,
+                      BASELINE_REPS))
+    cells.append((f"kevin: {n_kevin} prepends",
+                  lambda: baseline.replay_trace(k_cols), n_kevin,
+                  "prepends",
+                  lambda d: len(d) == n_kevin
+                  and d.to_string() == " " * n_kevin, KEVIN_REPS))
+    native = baseline_phase(cells)
+    ns_native = native[cells[0][0]]["ops_per_s"]
+    ratios = {
+        "northstar (512 documents)": rle_line["patches_per_s"] / ns_native,
+        "northstar (10,240 documents)": ns10k["patches_per_s"] / ns_native,
+        "config 2": cfg2["patches_per_s"]
+        / native["config 2: random edits"]["ops_per_s"],
+        "config 3": cfg3["patches_per_s"] / statistics.mean(
+            native[f"config 3: {n}"]["ops_per_s"]
+            for n in cfg3_stream.names),
+        "config 4, insert storm": mixed_line["variants"][0]["char_ops_per_s"]
+        / native["config 4: insert storm"]["ops_per_s"],
+        "config 4, delete-heavy storm":
+            mixed_line["variants"][1]["char_ops_per_s"]
+            / native["config 4: delete-heavy storm"]["ops_per_s"],
+        "config 5r": a7_line["char_ops_per_s"]
+        / native["config 5r: document 0's txns"]["ops_per_s"],
+        "config 5": a5_line["patches_per_s"]
+        / native["config 5: document 0's patches"]["ops_per_s"],
+        "kevin": hbm_line["prepends_per_s"]
+        / native[f"kevin: {n_kevin} prepends"]["ops_per_s"],
+    }
+    for k, v in ratios.items():
+        log(f"ratio {k}: {v:.1f}x the native engine's single-core rate "
+            f"(device rate over native rate; this run's measurements)")
+    log(f"native baseline phase: {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"native_baseline": native, "ratios": ratios},
+                   default=str))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"end")
     log(json.dumps({"kernels": [rle_line, mixed_line, a6_line, a7_line,

@@ -13,7 +13,7 @@ import torch
 
 from text_crdt_rust_tpu_torch.ops import _kernels
 from text_crdt_rust_tpu_torch.ops import batch as TB
-from text_crdt_rust_tpu_torch import storm
+from text_crdt_rust_tpu_torch import corpus, random_edits, storm
 from text_crdt_rust_tpu_torch.ops import rle as TR
 from text_crdt_rust_tpu_torch.ops import rle_mixed as TRM
 from text_crdt_rust_tpu_torch.utils import randedit
@@ -64,7 +64,23 @@ CASES = {
     # K past 2,048: the window and scratch rows in 65,536 B.
     "random-k4096": lambda: ([_random(10, 400)],
                              dict(capacity=8192, block_k=4096)),
+    # Config 2's geometry (K = 256, NB 236) on its 2,000-step stream.
+    "config2-k256-nb236": lambda: (
+        [random_edits.make_random_edits_stream(2000).rle.ops],
+        dict(capacity=60416, block_k=256)),
+    # Config 3's ragged groups, rustcode's 42,493-character paste chained
+    # in 512-character steps.
+    "config3-ragged-chained": lambda: _corpus(400),
+    # Twenty divergent doc groups in one launch.
+    "groups-20": lambda: ([_random(20 + g, 60) for g in range(20)],
+                          dict(capacity=512, block_k=8, batch=4)),
 }
+
+
+def _corpus(prefix):
+    st = corpus.make_corpus_stream(prefix=prefix)
+    return ([s.ops for s in st.streams],
+            dict(capacity=st.capacity, block_k=corpus.BLOCK_K))
 
 
 @pytest.mark.parametrize("warps", [1, 2, 4])

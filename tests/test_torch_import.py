@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from text_crdt_rust_tpu_torch import (
+    corpus,
     kevin,
     northstar,
+    random_edits,
     resolve_device,
     storm,
     stream,
@@ -68,7 +70,9 @@ def test_port_imports_with_jax_blocked():
         "          'ops.blocked_mixed', 'serve.server', 'serve.loadgen',\n"
         "          'serve.lanes_backend', 'net.codec', 'obs.trace',\n"
         "          'utils.checkpoint', 'ops.flat', 'serve.journal',\n"
-        "          'serve.chaos', 'obs.ledger', 'obs.cells'):\n"
+        "          'serve.chaos', 'obs.ledger', 'obs.cells', 'baseline',\n"
+        "          'corpus', 'random_edits', 'models.native',\n"
+        "          'native.build', 'examples.soak', 'examples.stats'):\n"
         "    assert 'text_crdt_rust_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -120,6 +124,8 @@ def _ops():
     "run_storm_blocked_mixed",
     "DocServer",
     "ServeLoadGen",
+    "run_random_edits",
+    "run_corpus",
 ])
 def test_entry_point_without_device_raises_on_cpu_host(entry):
     if torch.cuda.is_available():
@@ -187,6 +193,9 @@ def test_entry_point_without_device_raises_on_cpu_host(entry):
             docs=2, ticks=1, cfg=ServeConfig(engine="rle-lanes-mixed",
                                              num_shards=1,
                                              lanes_per_shard=2)),
+        "run_random_edits": lambda: random_edits.run_random_edits(
+            steps=20, batch=2),
+        "run_corpus": lambda: corpus.run_corpus(batch=2, prefix=20),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -25,6 +25,9 @@ FIELDS = ("ordp", "lenp", "blkord", "rows", "meta", "ol", "orr", "err")
 def test_full_trace_matches_jax_and_end_content():
     run = northstar.run_northstar(batch=8, device="cpu")
     assert run.ok
+    # The original patches on the native engine (bench.py:594-598).
+    assert run.native_ok and run.native_text == run.stream.want
+    assert len(run.stream.patches) == 259778
     assert (run.stream.n_patches, run.stream.steps_merged,
             run.stream.steps) == (259778, 10712, 7352)
     res = run.results[0]

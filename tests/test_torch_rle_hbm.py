@@ -247,6 +247,8 @@ def test_run_kevin_smoke_matches_jax():
     run = kevin.run_kevin(n=512, batch=8, fuse_w=8, block_k=64,
                           device="cpu")
     assert run.ok and run.order_ok and run.lanes_equal
+    # The prepends on the native engine (bench.py:1563-1581).
+    assert run.native_ok and run.native_text == " " * 512
     res = run.result
     assert res.ordp.shape == (1088, 8) and res.ol.shape == (64, 8)
     jops, _ = JB.compile_local_patches([JPatch(0, 0, " ")] * 512, lmax=8,

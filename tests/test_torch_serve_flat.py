@@ -160,6 +160,11 @@ def test_default_config_builds_the_flat_backend():
     assert not b.dispatch_reads_device and b.max_pipeline_ticks == 8
     srv.close_obs()
     with pytest.raises(ValueError, match="unknown engine"):
+        make_lane_backend("definitely-not-an-engine", lanes=2, capacity=64,
+                          order_capacity=128, lmax=4, device="cpu")
+    # ``rle`` is registered (configs northstar, 2 and 3) but serves no
+    # lanes, as in the JAX package's registry.
+    with pytest.raises(ValueError, match="no serve lane backend"):
         make_lane_backend("rle", lanes=2, capacity=64, order_capacity=128,
                           lmax=4, device="cpu")
 

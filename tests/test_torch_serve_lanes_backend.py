@@ -449,4 +449,8 @@ def test_flat_engine_is_a_later_slice():
     flat = t_make("flat", device="cpu", **BACKEND)
     assert isinstance(flat, FlatLaneBackend) and flat.lanes == 4
     with pytest.raises(ValueError, match="unknown engine"):
+        t_make("definitely-not-an-engine", device="cpu", **BACKEND)
+    # ``rle`` is registered (configs northstar, 2 and 3) but serves no
+    # lanes, as in the JAX package's registry.
+    with pytest.raises(ValueError, match="no serve lane backend"):
         t_make("rle", device="cpu", **BACKEND)

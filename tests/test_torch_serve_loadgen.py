@@ -106,6 +106,11 @@ def test_flat_engine_and_unported_options_refuse(tmp_path):
     assert srv.residency.backends[0].engine == "flat"
     srv.close_obs()
     with pytest.raises(ValueError, match="unknown engine"):
+        DocServer(ServeConfig(engine="definitely-not-an-engine"),
+                  device="cpu")
+    # ``rle`` is registered (configs northstar, 2 and 3) but serves no
+    # lanes, as in the JAX package's registry.
+    with pytest.raises(ValueError, match="no serve lane backend"):
         DocServer(ServeConfig(engine="rle"), device="cpu")
     cfg = ServeConfig(num_shards=1, lanes_per_shard=2,
                       journal_dir=str(tmp_path / "j"),
@@ -147,6 +152,6 @@ def test_cli_runs_on_cpu_and_refuses_flat():
     assert out.returncode == 0, out.stderr[-2000:]
     report = json.loads(out.stdout)
     assert report["converged"] and report["engine"] == "flat"
-    out = _cli("--engine", "rle", "--docs", "2", "--ticks", "1",
-               "--device", "cpu")
+    out = _cli("--engine", "definitely-not-an-engine", "--docs", "2",
+               "--ticks", "1", "--device", "cpu")
     assert out.returncode != 0 and "unknown engine" in out.stderr

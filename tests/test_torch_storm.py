@@ -60,6 +60,8 @@ def test_run_storm_matches_jax_pipeline(del_prob):
     jops, jres, jtext = jax_pipeline(txns, 4, del_prob)
     assert_same(jops, jres, run.stream.ops, run.result)
     assert run.ok and jtext == receiver.to_string() == TSA.to_string(run.doc)
+    # The native engine applied the same txns (bench.py:831, :891).
+    assert run.native_ok and run.native_text == jtext
     assert run.stream.char_ops == sum(
         len(getattr(op, "ins_content", "")) + getattr(op, "len", 0)
         for t in txns for op in t.ops)

@@ -110,6 +110,8 @@ def test_run_stream_matches_the_jax_chain(smoke_stream):
             | {"ol": res.ol.numpy(), "orr": res.orr.numpy(),
                "err": res.err.numpy()}))
     assert run.ok and run.stats.resyncs == 1 and run.stats.checked == 3
+    # Document 0's txns on the native engine (bench.py:1181).
+    assert run.docs_ok and run.native_text == smoke_stream.contents[0]
     state = None
     for ci, (st, cap, ocap) in enumerate(zip(smoke_stream.stacked, caps,
                                              ocaps)):

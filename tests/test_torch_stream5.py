@@ -95,6 +95,9 @@ def test_run_stream_5_matches_the_jax_chain(smoke_stream):
             | {"ol": res.ol.numpy(), "orr": res.orr.numpy(),
                "err": res.err.numpy()}))
     assert run.ok and run.stats.resyncs == 1 and run.stats.checked == 3
+    # Document 0's patches on the native engine (bench.py:1020).
+    assert run.docs_ok and run.native_text == smoke_stream.contents[0]
+    assert len(smoke_stream.patches0) == 3 * 30
     caps = stream.stream_capacities_5(smoke_stream, 64)
     state = None
     for ci, (st, cap) in enumerate(zip(smoke_stream.stacked, caps)):

@@ -7,13 +7,18 @@ Pallas kernel of the JAX package becomes a CUDA C++ kernel for Hopper
 (``ops/csrc/``), built at first use by ``ops/_kernels.py``.
 
 Layout (the north-star local-edit replay on run and character blocks,
-kevin, the config-4 storm and the streaming configs 5r and 5):
+configs 1-3, kevin, the config-4 storm and the streaming configs 5r and
+5):
 
 - ``common``            sentinels and the remote-txn dataclasses;
 - ``utils/testdata``    the editing-trace loader;
 - ``utils/rle``         flat RLE vectors (the oracle's logs);
 - ``utils/randedit``    seeded edit streams and the storm generator;
 - ``models/oracle``     the host oracle document (``ListCRDT``);
+- ``models/native``     the native C++ engine (``native/tcr_engine.cpp``,
+                        built by ``native/build.py`` with g++ at first
+                        use): the single-core CPU baseline, and the
+                        text-only rope;
 - ``models/sync``       txn export from an oracle document;
 - ``ops/batch``         the numpy op compiler (local edits, step fusion,
                         remote txns);
@@ -41,8 +46,15 @@ kevin, the config-4 storm and the streaming configs 5r and 5):
 - ``ops/blocked_mixed`` the per-character block replay of mixed
                         local/remote streams, likewise;
 - ``convert``           numpy bridges to and from the JAX package's state;
-- ``northstar``         entry point: a full trace × batch, on ``rle``,
+- ``baseline``          config 1 and the native replays every entry
+                        point checks its text with;
+- ``northstar``         entry point: a full trace × batch × doc groups
+                        (10,240 documents at 512 × 20), on ``rle``,
                         ``rle-hbm``, ``blocked`` or ``hbm``;
+- ``random_edits``      entry point: config 2, seeded random edits ×
+                        batch on ``rle``;
+- ``corpus``            entry point: config 3, rustcode and
+                        sveltecomponent as two doc groups on ``rle``;
 - ``kevin``             entry point: millions of single-char prepends ×
                         batch on ``rle-hbm``;
 - ``storm``             entry point: the config-4 storm × batch, on
@@ -52,6 +64,11 @@ kevin, the config-4 storm and the streaming configs 5r and 5):
 - ``net``, ``obs``      the wire codec, fault channel and resync sessions;
                         the tracer, metrics registry, flight recorder and
                         per-op flow audit;
+- ``examples``          ``sync_stream`` (the causal buffer onto the
+                        per-lane engine), ``soak`` and ``stats`` (the
+                        upstream ``examples/simple.rs`` and
+                        ``examples/stats.rs`` programs on the native
+                        engine);
 - ``serve``             entry points ``DocServer`` and ``ServeLoadGen``:
                         the document server on the flat engine (the
                         default) or the blocked lanes backend (A7), its

@@ -1,31 +1,86 @@
 """Configuration (counterpart of ``text_crdt_rust_tpu/config.py``): the
-blocked-lanes geometry rule, the serve entries of the engine registry and
-the document server's ``ServeConfig``."""
+engine registry, the compiler and engine knobs, the blocked-lanes geometry
+rule, the document server's ``ServeConfig`` and the examples'
+``SoakConfig`` and ``StatsConfig``.
+
+The JAX package's ``sp-apply`` engine and ``MeshConfig`` belong to
+``parallel/``'s sharded apply, which the port does not have yet.
+"""
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
-# The serve entries of the JAX package's engine registry: the public
-# engine name -> its implementing module (relative to this package), the
-# configs that exercise it, and ``serve_backend``, the lane backend class
+# The engine registry: the public engine name -> its implementing module
+# (relative to this package), the configs that exercise it, ``fused_steps``
+# (the engine's insert splice takes FUSED W-row steps, so streams compiled
+# with ``fuse_w`` > 1 may run on it) and, for the document server's
+# backends, ``serve_backend``, the lane backend class
 # ``serve.batcher.make_lane_backend`` builds.
 ENGINE_REGISTRY = {
+    "rle":             {"module": "ops.rle", "configs": ("northstar", "2", "3"),
+                        "fused_steps": True},
+    "rle-hbm":         {"module": "ops.rle_hbm",
+                        "configs": ("northstar", "kevin"),
+                        "fused_steps": True},
+    "rle-lanes":       {"module": "ops.rle_lanes", "configs": ("5",),
+                        "fused_steps": True},
+    "rle-mixed":       {"module": "ops.rle_mixed", "configs": ("4",)},
     "rle-lanes-mixed": {"module": "ops.rle_lanes_mixed",
                         "configs": ("5r", "serve", "serve-lanes"),
                         "fused_steps": True,
                         "serve_backend":
                             "serve.lanes_backend:LanesMixedLaneBackend"},
+    "blocked":         {"module": "ops.blocked", "configs": ("northstar",)},
+    "blocked-mixed":   {"module": "ops.blocked_mixed", "configs": ("4",)},
+    "hbm":             {"module": "ops.blocked_hbm", "configs": ("northstar",)},
     "flat":            {"module": "ops.flat", "configs": ("serve",),
                         "serve_backend": "serve.batcher:FlatLaneBackend"},
 }
 ENGINE_CHOICES = tuple(ENGINE_REGISTRY)
+
+# Row labels that are not registry engine names: variants of a registry
+# engine, or host baselines (None) with no device module.
+ENGINE_ROW_ALIASES = {
+    "rle-groups": "rle",       # config 3: rle engine, doc groups
+    "rle-hbm-fused": "rle-hbm",  # kevin: fused multi-row steps
+    "native-cpp": None,        # the native C++ baseline
+    "gap-buffer": None,        # the text-only rope lower bound
+}
 
 
 def engines_for(config_key: str) -> tuple:
     """Engine names registered as valid for one config key."""
     return tuple(n for n, spec in ENGINE_REGISTRY.items()
                  if config_key in spec["configs"])
+
+
+def supports_fused_steps(engine: str) -> bool:
+    """True when ``engine`` (a registry name or a row alias) takes fused
+    W-row insert steps: the one source to consult before compiling with
+    ``fuse_w`` > 1."""
+    name = ENGINE_ROW_ALIASES.get(engine, engine)
+    if name is None:
+        return False
+    return bool(ENGINE_REGISTRY.get(name, {}).get("fused_steps", False))
+
+
+@dataclasses.dataclass
+class BatchConfig:
+    """Op-compiler knobs (``ops.batch``), the compile-side twin of
+    ``EngineConfig``.
+
+    ``fuse_w`` is the fused insert-burst width: backwards-contiguous insert
+    bursts (the kevin prepend shape) compile into steps of
+    ``rows_per_step <= fuse_w`` rows. It needs a ``fused_steps`` engine and
+    ``fuse_w <= block_k // 2 - 1`` (one leaf split must make room for a
+    whole fused step); 1 disables fusion.
+    """
+
+    lmax: int = 16             # insert-chunk width of compiled steps
+    dmax: Optional[int] = None  # per-step delete-span bound (None = off)
+    fuse_w: int = 1            # fused insert-burst width (1 = unfused)
 
 
 def lane_block_geometry(capacity: int, block_k: int) -> tuple:
@@ -36,6 +91,31 @@ def lane_block_geometry(capacity: int, block_k: int) -> tuple:
     cap = ((capacity + block_k - 1) // block_k) * block_k
     nb = cap // block_k
     return cap, nb, max(8, nb)
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """Replay-engine knobs shared by the entry points. The device is not a
+    field: every entry point takes ``device=``."""
+
+    engine: str = "rle"        # one of ENGINE_CHOICES
+    batch: int = 128           # documents in the lane dimension
+    block_k: int = 256         # rows per block (rle: RUN rows)
+    lanes_block_k: int = 64    # K of the blocked per-lane engines
+    #                            (configs 5 and 5r)
+    chunk: int = 1024          # step-count padding of a staged stream
+    capacity: int = 0          # state rows; 0 = the workload's default
+    lmax_cap: int = 512        # insert-chunk cap when compiling merged ops
+
+    def add_args(self, ap: argparse.ArgumentParser) -> None:
+        ap.add_argument("--engine", default=self.engine,
+                        choices=ENGINE_CHOICES)
+        ap.add_argument("--batch", type=int, default=self.batch)
+        ap.add_argument("--block-k", type=int, default=self.block_k)
+        ap.add_argument("--lanes-block-k", type=int,
+                        default=self.lanes_block_k)
+        ap.add_argument("--chunk", type=int, default=self.chunk)
+        ap.add_argument("--capacity", type=int, default=self.capacity)
 
 
 @dataclasses.dataclass
@@ -120,3 +200,47 @@ class ServeConfig:
     profile_dir: Optional[str] = None  # torch.profiler capture of ticks
     #                            1..profile_ticks into this directory
     profile_ticks: int = 3     # ticks per profiler capture window
+
+
+@dataclasses.dataclass
+class SoakConfig:
+    """``examples.soak``: the `examples/simple.rs:14-49` example."""
+
+    edits: int = 1_000_000
+    seed: int = 7
+    oracle_steps: int = 2_000  # per-step-checked oracle prefix
+    detailed: bool = False
+
+    @classmethod
+    def from_args(cls, argv: Optional[Sequence[str]] = None) -> "SoakConfig":
+        d = cls()
+        ap = argparse.ArgumentParser(description=cls.__doc__)
+        ap.add_argument("--edits", type=int, default=d.edits)
+        ap.add_argument("--seed", type=int, default=d.seed)
+        ap.add_argument("--oracle", type=int, default=d.oracle_steps,
+                        dest="oracle_steps",
+                        help="per-step-checked oracle prefix (0 = skip)")
+        ap.add_argument("--detailed", action="store_true")
+        a = ap.parse_args(argv)
+        return cls(edits=a.edits, seed=a.seed,
+                   oracle_steps=a.oracle_steps, detailed=a.detailed)
+
+
+@dataclasses.dataclass
+class StatsConfig:
+    """``examples.stats``: the `examples/stats.rs:39-73` example."""
+
+    trace: str = "automerge-paper"
+    engine: str = "native"     # native | oracle
+    detailed: bool = False
+
+    @classmethod
+    def from_args(cls, argv: Optional[Sequence[str]] = None) -> "StatsConfig":
+        d = cls()
+        ap = argparse.ArgumentParser(description=cls.__doc__)
+        ap.add_argument("--trace", default=d.trace)
+        ap.add_argument("--engine", default=d.engine,
+                        choices=("native", "oracle"))
+        ap.add_argument("--detailed", action="store_true")
+        a = ap.parse_args(argv)
+        return cls(trace=a.trace, engine=a.engine, detailed=a.detailed)

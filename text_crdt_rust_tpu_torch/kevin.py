@@ -3,8 +3,10 @@ document, replayed into a batch of identical documents by the HBM-plane
 run engine (``ops/rle_hbm.py``).
 
 The workload of upstream ``benches/yjs.rs:51-62``, as the JAX package's
-``bench.py`` ``cfg_kevin`` runs it on its device engine (its C++ native
-row left out): ``n`` prepends of ``" "`` at position 0. Runs cannot merge
+``bench.py`` ``cfg_kevin`` runs it: ``n`` prepends of ``" "`` at position
+0, once on the native C++ engine (``baseline.replay_trace`` of
+``kevin_columns``, checked to hold ``n`` spaces; ~3 s at 5M prepends;
+``chip_smoke.py`` times it) and on the device engine. Runs cannot merge
 backwards (each char precedes the previous one), so the state is one run
 row per prepend; the whole stream is one backwards-contiguous burst, so
 ``compile_local_patches`` fuses it into ``n / fuse_w`` W-row steps.
@@ -15,9 +17,10 @@ capacity ``ceil(2.1 n / K) K`` run rows (splits leave blocks half full);
 
     python -m text_crdt_rust_tpu_torch.kevin [--n 5000000] [--device cpu]
 
-prints one JSON line with the step count, the geometry and whether lane 0
+prints one JSON line with the step count, the geometry, whether lane 0
 reads the orders ``n .. 1`` (prepends reverse insertion order) with every
-lane equal to lane 0 (``chip_smoke.py`` times the replay).
+lane equal to lane 0, and whether the native engine holds ``n`` spaces
+(``chip_smoke.py`` times the replay).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .baseline import replay_trace
 from .ops import batch as B
 from .ops.rle import RleResult, expand_runs
 from .ops.rle_hbm import lanes_equal, make_replayer_rle_hbm
@@ -60,10 +64,15 @@ class KevinRun:
     result: RleResult
     order_ok: bool      # lane 0 expands to orders n .. 1
     lanes_equal: bool   # every lane equals lane 0 over the used blocks
+    native_text: str    # the native engine's text after the n prepends
+
+    @property
+    def native_ok(self) -> bool:
+        return self.native_text == " " * self.stream.n
 
     @property
     def ok(self) -> bool:
-        return self.order_ok and self.lanes_equal
+        return self.order_ok and self.lanes_equal and self.native_ok
 
 
 def compile_kevin(n: int = 5_000_000, fuse_w: int = 64) -> KevinStream:
@@ -71,6 +80,13 @@ def compile_kevin(n: int = 5_000_000, fuse_w: int = 64) -> KevinStream:
     ops, _ = B.compile_local_patches([TestPatch(0, 0, " ")] * n,
                                      lmax=fuse_w, fuse_w=fuse_w)
     return KevinStream(ops=ops, n=n, fuse_w=fuse_w)
+
+
+def kevin_columns(n: int):
+    """The native replay's four u32 columns of ``n`` prepends of ``" "``
+    (``bench.py:1563-1567``)."""
+    return (np.zeros(n, np.uint32), np.zeros(n, np.uint32),
+            np.ones(n, np.uint32), np.full(n, ord(" "), np.uint32))
 
 
 def kevin_capacity(n: int, block_k: int) -> int:
@@ -112,14 +128,17 @@ def run_kevin(n: int = 5_000_000, batch: int = 128, fuse_w: int = 64,
               block_k: Optional[int] = None, device=None,
               stream: Optional[KevinStream] = None) -> KevinRun:
     """Compile (unless a compiled ``stream`` is given) and replay kevin
-    into ``batch`` identical documents, and check them."""
+    into ``batch`` identical documents, check them, and replay the
+    prepends once on the native engine."""
     dev = resolve_device(device)
     if stream is None:
         stream = compile_kevin(n, fuse_w)
     res = make_kevin_replayer(stream, batch, block_k, device=dev)()
     order_ok, equal = check_kevin(res, stream.n)
     return KevinRun(stream=stream, result=res, order_ok=order_ok,
-                    lanes_equal=equal)
+                    lanes_equal=equal,
+                    native_text=replay_trace(
+                        kevin_columns(stream.n)).to_string())
 
 
 def main(argv=None) -> int:
@@ -143,7 +162,7 @@ def main(argv=None) -> int:
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "order_ok": run.order_ok, "lanes_equal": run.lanes_equal,
-        "ok": run.ok}))
+        "native_ok": run.native_ok, "ok": run.ok}))
     return 0 if run.ok else 1
 
 

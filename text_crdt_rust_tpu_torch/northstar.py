@@ -1,17 +1,24 @@
 """The north-star replay on the port: a whole editing trace replayed into
 a batch of identical documents by the run-block replay.
 
-The pipeline of the JAX package's ``bench.py`` ``cfg_northstar`` (its C++
-native baseline left out): load the trace, RLE-merge its patches, compile
-them into op tensors, fuse steps (W-row bursts, replace pairs), replay on
-``batch`` lanes x ``groups`` doc groups, expand doc 0 to a ``FlatDoc`` and
-check its text against the trace's ``endContent``.
+The pipeline of the JAX package's ``bench.py`` ``cfg_northstar``: load the
+trace, replay its original patches on the native C++ engine
+(``baseline.native_replay``) and check that text against the trace's
+``endContent``, RLE-merge the patches, compile them into op tensors, fuse
+steps (W-row bursts, replace pairs), replay on ``batch`` lanes x
+``groups`` doc groups, expand doc 0 of group 0 to a ``FlatDoc`` and check
+its text against ``endContent``. Every other group replays the same
+stream and must equal group 0 in every output, compared on the device, so
+no other lane is expanded on the host: ``run_northstar(batch=512,
+groups=20)`` is the ``BASELINE.json`` north star at 10,240 documents in
+one launch (``bench.py:619-627``).
 
     python -m text_crdt_rust_tpu_torch.northstar [--batch 512] [--device cpu]
         [--engine rle|rle-hbm|blocked|hbm]
 
-prints one JSON line with the step counts and whether every group's
-doc 0 reproduced the trace (``chip_smoke.py`` times the replay).
+prints one JSON line with the step counts, whether doc 0 reproduced the
+trace, whether every group equals group 0 and whether the native engine's
+text equals the trace's (``chip_smoke.py`` times the replay).
 
 Two engines replay it: ``rle`` (``ops/rle.py``, K = 128, capacity 20,992
 run rows, the default) and ``rle-hbm`` (``ops/rle_hbm.py``, the planes in
@@ -33,18 +40,20 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from . import resolve_device
+from .baseline import native_replay
 from .ops import batch as B
 from .ops import span_arrays as SA
 from .ops.rle import make_replayer_rle, rle_to_flat
 from .ops.blocked import blocked_to_flat, make_replayer
 from .ops.blocked_hbm import make_replayer_hbm
 from .ops.rle_hbm import make_replayer_rle_hbm
-from .utils.testdata import flatten_patches, load_testing_data, trace_path
+from .utils.testdata import TestPatch, flatten_patches, load_testing_data, \
+    trace_path
 
 
 #: Engine -> (replayer, default block_k, default capacity in run rows).
@@ -74,6 +83,8 @@ class NorthstarStream:
     steps_merged: int     # steps after merge_patches + compile
     fuse: Optional[B.FuseStats]
     ins_total: int = 0    # inserted characters
+    patches: List[TestPatch] = dataclasses.field(default_factory=list)
+    #                       the original patches (the native replay's)
 
     @property
     def steps(self) -> int:
@@ -87,7 +98,17 @@ class NorthstarRun:
     stream: NorthstarStream
     results: list              # one per doc group: RleResult or BlockedResult
     doc: SA.FlatDoc            # doc 0 of group 0, expanded
-    ok: bool                   # every group's doc 0 reproduced ``want``
+    text_ok: bool              # doc 0 of group 0 reproduced ``want``
+    groups_equal: bool         # every group equals group 0 on the device
+    native_text: str           # the native engine's text
+
+    @property
+    def native_ok(self) -> bool:
+        return self.native_text == self.stream.want
+
+    @property
+    def ok(self) -> bool:
+        return self.text_ok and self.groups_equal and self.native_ok
 
 
 def apply_patches(patches) -> str:
@@ -117,7 +138,7 @@ def compile_northstar(trace: str = "automerge-paper",
                                          dmax=CHAR_LMAX)
         return NorthstarStream(ops=ops, want=want, n_patches=len(plist),
                                steps_merged=ops.num_steps, fuse=None,
-                               ins_total=ins_total)
+                               ins_total=ins_total, patches=plist)
     merged = B.merge_patches(plist)
     lmax = max([len(p.ins_content) for p in merged] + [1])
     ops, _ = B.compile_local_patches(merged, lmax=lmax, dmax=None)
@@ -127,7 +148,7 @@ def compile_northstar(trace: str = "automerge-paper",
         ops, fstats = B.fuse_steps(ops, fuse_w=fuse_w)
     return NorthstarStream(ops=ops, want=want, n_patches=len(plist),
                            steps_merged=steps_merged, fuse=fstats,
-                           ins_total=ins_total)
+                           ins_total=ins_total, patches=plist)
 
 
 def char_geometry(ins_total: int, capacity: Optional[int] = None):
@@ -166,24 +187,41 @@ def make_northstar_replayer(stream: NorthstarStream, batch: int = 512,
                 block_k=block_k, device=device)
 
 
+def groups_equal(results) -> bool:
+    """Every group's result equals group 0's in every tensor output,
+    compared on their device (the groups replay one stream)."""
+    first = results[0]
+    for r in results[1:]:
+        for f in dataclasses.fields(first):
+            a, b = getattr(first, f.name), getattr(r, f.name)
+            if isinstance(a, torch.Tensor) and not torch.equal(a, b):
+                return False
+    return True
+
+
 def run_northstar(trace: str = "automerge-paper", batch: int = 512,
                   capacity: Optional[int] = None,
                   block_k: Optional[int] = None, fuse_w: int = 8,
                   groups: int = 1, patches: Optional[int] = None,
-                  device=None, engine: str = "rle") -> NorthstarRun:
-    """Compile and replay a trace into ``batch`` x ``groups`` identical
-    documents on ``engine``, and check every group's doc 0 against the
-    trace."""
+                  device=None, engine: str = "rle",
+                  stream: Optional[NorthstarStream] = None) -> NorthstarRun:
+    """Compile (unless a compiled ``stream`` is given) and replay a trace
+    into ``batch`` x ``groups`` identical documents on ``engine``; check
+    doc 0 of group 0 against the trace, every group against group 0 on the
+    device, and the native engine's text against the trace."""
     dev = resolve_device(device)
-    stream = compile_northstar(trace, patches, fuse_w, engine)
+    if stream is None:
+        stream = compile_northstar(trace, patches, fuse_w, engine)
     results = make_northstar_replayer(stream, batch, capacity, block_k,
                                       groups, dev, engine)()
     if not isinstance(results, list):
         results = [results]
     to_flat = blocked_to_flat if engine in CHAR_ENGINES else rle_to_flat
-    docs = [to_flat(stream.ops, r) for r in results]
-    ok = all(SA.to_string(d) == stream.want for d in docs)
-    return NorthstarRun(stream=stream, results=results, doc=docs[0], ok=ok)
+    doc = to_flat(stream.ops, results[0])
+    return NorthstarRun(stream=stream, results=results, doc=doc,
+                        text_ok=SA.to_string(doc) == stream.want,
+                        groups_equal=groups_equal(results),
+                        native_text=native_replay(stream.patches).to_string())
 
 
 def main(argv=None) -> int:
@@ -216,7 +254,8 @@ def main(argv=None) -> int:
         "engine": args.engine, "batch": args.batch, "groups": args.groups,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
-        "ok": run.ok}))
+        "text_ok": run.text_ok, "groups_equal": run.groups_equal,
+        "native_ok": run.native_ok, "ok": run.ok}))
     return 0 if run.ok else 1
 
 

@@ -2,9 +2,10 @@
 transactions replayed into a batch of identical documents by the mixed
 run replay (``ops.rle_mixed``).
 
-The pipeline of the JAX package's ``bench.py`` ``cfg_4`` (its C++ native
-baseline left out): generate the storm with the oracle
-(``utils.randedit.make_storm``), compile its txns against the sorted
+The pipeline of the JAX package's ``bench.py`` ``cfg_4``: generate the
+storm with the oracle (``utils.randedit.make_storm``), apply its txns on
+the native C++ engine (``baseline.native_remote_replay``) and check that
+text against the oracle receiver's, compile the txns against the sorted
 agent table (``lmax = min(16, 2*run_len)``; deletes chunked at 16 orders
 in the insert storm, whole in the delete-heavy one), size the run
 capacity by bench.py's rule (3 rows per step, whole blocks), replay on
@@ -14,8 +15,9 @@ the oracle receiver's.
     python -m text_crdt_rust_tpu_torch.storm [--del-prob 0.35] [--device cpu]
         [--rounds 200] [--batch 128] [--engine rle-mixed|blocked-mixed]
 
-prints one JSON line with the step and op counts and whether doc 0
-reproduced the oracle (``chip_smoke.py`` times the replay).
+prints one JSON line with the step and op counts, whether doc 0
+reproduced the oracle and whether the native engine's text equals it
+(``chip_smoke.py`` times the replay).
 
 ``--engine blocked-mixed`` replays the insert storm on the per-character
 engine (``ops/blocked_mixed.py``) at ``bench.py --engine
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .baseline import native_remote_replay
 from .common import RemoteTxn, txn_len
 from .ops import batch as B
 from .ops import span_arrays as SA
@@ -68,7 +71,16 @@ class StormRun:
     stream: StormStream
     result: Union[RleMixedResult, BlockedResult]
     doc: SA.FlatDoc      # doc 0, expanded
-    ok: bool             # doc 0 reproduced ``want``
+    text_ok: bool        # doc 0 reproduced ``want``
+    native_text: str     # the native engine's text
+
+    @property
+    def native_ok(self) -> bool:
+        return self.native_text == self.stream.want
+
+    @property
+    def ok(self) -> bool:
+        return self.text_ok and self.native_ok
 
 
 def storm_capacity(ops: B.OpTensors, block_k: int) -> int:
@@ -138,8 +150,8 @@ def run_storm(n_peers: int = 16, rounds: int = 200, run_len: int = 4,
               block_k: Optional[int] = None, fast_integrate: bool = True,
               device=None, engine: str = "rle-mixed") -> StormRun:
     """Generate, compile and replay a storm into ``batch`` identical
-    documents on ``engine``, and check doc 0 against the oracle
-    receiver."""
+    documents on ``engine``, and check doc 0 and the native engine's text
+    against the oracle receiver's."""
     dev = resolve_device(device)
     stream = make_storm_stream(n_peers, rounds, run_len, seed, del_prob)
     res = make_storm_replayer(stream, batch, block_k, fast_integrate, dev,
@@ -148,7 +160,9 @@ def run_storm(n_peers: int = 16, rounds: int = 200, run_len: int = 4,
     to_flat = blocked_to_flat if engine == "blocked-mixed" else rle_to_flat
     doc = to_flat(stream.ops, res)
     return StormRun(stream=stream, result=res, doc=doc,
-                    ok=SA.to_string(doc) == stream.want)
+                    text_ok=SA.to_string(doc) == stream.want,
+                    native_text=native_remote_replay(
+                        stream.txns).to_string())
 
 
 def main(argv=None) -> int:
@@ -171,7 +185,7 @@ def main(argv=None) -> int:
         "char_ops": run.stream.char_ops, "batch": args.batch,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
-        "ok": run.ok}))
+        "text_ok": run.text_ok, "native_ok": run.native_ok, "ok": run.ok}))
     return 0 if run.ok else 1
 
 

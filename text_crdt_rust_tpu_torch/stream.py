@@ -2,8 +2,8 @@
 applying its own stream chunk after chunk with the device state carried
 across chunks and a host checkpoint every few chunks.
 
-Config 5r (``bench.py`` ``cfg_5_remote``, its C++ native baseline left
-out), on the blocked per-lane MIXED engine: each of ``n_docs`` documents
+Config 5r (``bench.py`` ``cfg_5_remote``), on the blocked per-lane MIXED
+engine: each of ``n_docs`` documents
 gets its own peer: ``utils.randedit.continue_patches`` continues a random
 delete-heavy edit stream (``ins_prob`` 0.45) from ``random.Random(seed_base
 + d)``, and ``utils.randedit.PeerSynth`` turns it into that peer's remote
@@ -14,7 +14,8 @@ from the row invariant (``batch.row_growth_bound`` of the cumulative
 compiled steps, whole K-row blocks, at least 4 blocks) and order
 capacities from ``lmax * steps_per_chunk`` per chunk. ``run_stream`` then
 checks every ``n_docs // 8``-th document against the oracle in signed
-state and text.
+state and text, and document 0's txns applied on the native C++ engine
+(``baseline.native_remote_replay``) against document 0's text.
 
 Config 5 (``bench.py`` ``cfg_5``), on the blocked per-lane LOCAL engine:
 each document replays its own fresh local edits, ``continue_patches`` from
@@ -24,7 +25,8 @@ each chunk's orders following the last). Run capacities grow per chunk
 from ``row_growth_bound(steps_per_chunk * (c + 1))`` in whole blocks, at
 least 4. ``run_stream_5`` checks every ``n_docs // 8``-th document's
 text, rebuilt from its runs and the staged chars, against the string
-simulation.
+simulation, and document 0's patches replayed on the native engine
+(``baseline.native_replay``) against document 0's text.
 
 ``stream_loop`` chains either config's chunks on the device, checks every
 chunk's error flags and round-trips the state through an ``.npz``
@@ -49,6 +51,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .baseline import native_remote_replay, native_replay
 from .common import RemoteTxn, txn_len
 from .config import lane_block_geometry
 from .models.oracle import ListCRDT
@@ -57,6 +60,7 @@ from .ops import rle_lanes as RL
 from .ops import rle_lanes_mixed as RLM
 from .ops.rle_lanes import expand_lane
 from .utils.randedit import PeerSynth, continue_patches
+from .utils.testdata import TestPatch
 
 #: ``state()`` keys of the two 5r engines (the checkpoint's array names).
 STATE_KEYS = {
@@ -275,7 +279,16 @@ class StreamRun:
     stream: object            # a Stream5r or a Stream5
     result: object            # the last chunk's result
     stats: LoopStats
-    ok: bool                  # every sampled document equals the oracle
+    docs_ok: bool             # every sampled document equals the oracle
+    native_text: str          # document 0 on the native engine
+
+    @property
+    def native_ok(self) -> bool:
+        return self.native_text == self.stream.contents[0]
+
+    @property
+    def ok(self) -> bool:
+        return self.docs_ok and self.native_ok
 
 
 def run_stream(n_docs: int = 2048, chunks: int = 8,
@@ -287,7 +300,7 @@ def run_stream(n_docs: int = 2048, chunks: int = 8,
                on_chunk: Optional[Callable] = None) -> StreamRun:
     """Generate (unless ``stream`` is given), compile and apply the
     config-5r streams chunk by chunk, then check the sampled documents
-    against the oracle."""
+    against the oracle and document 0 on the native engine."""
     dev = resolve_device(device)
     if stream is None:
         stream = make_stream_5r(n_docs, chunks, steps_per_chunk, seed_base)
@@ -297,7 +310,9 @@ def run_stream(n_docs: int = 2048, chunks: int = 8,
             runners, resync_every, os.path.join(tmp, "resync.npz"),
             STATE_KEYS[engine], clock=clock, on_chunk=on_chunk)
     return StreamRun(stream=stream, result=res, stats=stats,
-                     ok=check_docs(stream, res))
+                     docs_ok=check_docs(stream, res),
+                     native_text=native_remote_replay(
+                         stream.all_txns[0]).to_string())
 
 
 # -- config 5: divergent per-document local streams ------------------------------
@@ -313,6 +328,8 @@ class Stream5:
     contents: List[str]               # each document's final text
     stacked: List[B.OpTensors]        # per chunk, [S_c, n_docs]
     n_patches: int                    # all documents, all chunks
+    patches0: List[TestPatch] = dataclasses.field(default_factory=list)
+    #                                   document 0's patches, every chunk
 
     @property
     def chunks(self) -> int:
@@ -369,7 +386,9 @@ def compile_5(chunk_patches, contents: List[str]) -> Stream5:
         stacked.append(B.stack_ops(opses))
     return Stream5(n_docs=n_docs, steps_per_chunk=steps_per_chunk,
                    lmax=lmax, contents=contents, stacked=stacked,
-                   n_patches=n_patches)
+                   n_patches=n_patches,
+                   patches0=[p for per_doc in chunk_patches
+                             for p in per_doc[0]])
 
 
 def make_stream_5(n_docs: int = 2048, chunks: int = 8,
@@ -435,7 +454,8 @@ def run_stream_5(n_docs: int = 2048, chunks: int = 8,
                  clock: Optional[Callable[[], float]] = None,
                  on_chunk: Optional[Callable] = None) -> StreamRun:
     """Generate (unless ``stream`` is given), compile and apply the config-5
-    streams chunk by chunk, then check the sampled documents' texts."""
+    streams chunk by chunk, then check the sampled documents' texts and
+    document 0 on the native engine."""
     dev = resolve_device(device)
     if stream is None:
         stream = make_stream_5(n_docs, chunks, steps_per_chunk, seed_base)
@@ -445,7 +465,8 @@ def run_stream_5(n_docs: int = 2048, chunks: int = 8,
             runners, resync_every, os.path.join(tmp, "resync.npz"),
             STATE_KEYS_5[engine], clock=clock, on_chunk=on_chunk)
     return StreamRun(stream=stream, result=res, stats=stats,
-                     ok=check_docs_5(stream, res))
+                     docs_ok=check_docs_5(stream, res),
+                     native_text=native_replay(stream.patches0).to_string())
 
 
 def step_latency_5(runners, real_steps: List[int],
@@ -496,7 +517,7 @@ def main(argv=None) -> int:
         "resyncs": run.stats.resyncs,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
-        "ok": run.ok}))
+        "docs_ok": run.docs_ok, "native_ok": run.native_ok, "ok": run.ok}))
     return 0 if run.ok else 1
 
 

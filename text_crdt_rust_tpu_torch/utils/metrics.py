@@ -18,8 +18,8 @@ The port's equivalents:
 - ``Throughput``  — ops/sec accumulator for bench loops (wall clock from
                     the caller's clock, explicit ``ops`` counts).
 
-The document functions take an oracle ``ListCRDT`` or a device
-``FlatDoc``.
+The document functions take an oracle ``ListCRDT``, a native engine's
+``NativeListCRDT`` or a device ``FlatDoc``.
 """
 from __future__ import annotations
 
@@ -92,6 +92,8 @@ def memory_stats(doc, spans=None) -> dict:
         cols = {k: getattr(doc, k).nbytes
                 for k in ("order", "origin_left", "origin_right",
                           "deleted", "chars")}
+    elif hasattr(doc, "memory_bytes"):  # the native engine's own count
+        cols = {"native_engine": int(doc.memory_bytes())}
     else:
         cols = {k: int(getattr(doc, k).numel()
                        * getattr(doc, k).element_size())
