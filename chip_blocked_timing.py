@@ -1,7 +1,7 @@
 """Time the redesigned kernels (A1-A10) on one NVIDIA card.
 
     python3 chip_blocked_timing.py [tests] [a10] [a8] [a9] [a2] [a3] [a4]
-        [a6] [a1] [a7] [a5] [serve] [flat] [configs] [--reps N]
+        [a6] [a1] [a7] [a5] [serve] [flat] [configs] [sp] [--reps N]
 
 A quicker loop than ``chip_smoke.py`` while redesigning those kernels:
 it builds them (printing ptxas's registers and spills), then runs the
@@ -68,7 +68,14 @@ named phases, all by default:
   10,240 documents (512 x 20 groups) against the 512-document run, configs
   2 and 3 (their streams and plain chains built in child processes), and
   the native baseline of configs 1, 2 and 3 and kevin with no child
-  running.
+  running;
+- ``sp``: the long-context card tests (``-k "sp_doc or streamed"``),
+  which collectives gloo takes on CUDA tensors (a two-rank world sharing
+  the card), then ``chip_smoke.py``'s phase 27b alone: config ``sp`` at
+  sp = 1 over NCCL (the whole trace, the 20,000-patch prefix, A1's
+  parity), the four-rank world (one NCCL rank a card on a machine with
+  four, else four processes sharing the card over gloo), the sharded flat
+  apply, the dry run and ``StreamedRuns`` on a 2^27-row memmapped plane.
 
 Times are medians of ``--reps`` runs (3) after 1 warm-up, CUDA events.
 The plain versions are not timed here; ``chip_smoke.py`` holds every
@@ -557,7 +564,7 @@ def phase_a5(torch, dev, reps):
 
 def main(argv=None) -> int:
     phases = ("tests", "a10", "a8", "a9", "a2", "a3", "a4", "a6", "a1",
-              "a7", "a5", "serve", "flat", "configs")
+              "a7", "a5", "serve", "flat", "configs", "sp")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="*", help=f"any of {phases} (all)")
     ap.add_argument("--reps", type=int, default=3)
@@ -682,6 +689,8 @@ def main(argv=None) -> int:
         phase_flat(torch, dev)
     if "configs" in args.phases:
         phase_configs(torch, dev)
+    if "sp" in args.phases:
+        phase_sp(torch, dev)
     return 0
 
 
@@ -817,6 +826,55 @@ def phase_configs(torch, dev) -> None:
           + json.dumps({"northstar_10k": ns, "config2": cfg2,
                         "config3": cfg3, "native": native}, default=str),
           flush=True)
+    if r.returncode != 0:
+        raise SystemExit(1)
+
+
+def gloo_cuda_job(ctx) -> dict:
+    """Which collectives this PyTorch's gloo takes on CUDA tensors (a
+    world job: every rank tries each on its card)."""
+    import torch
+    import torch.distributed as dist
+    x = torch.arange(3, dtype=torch.int32, device=ctx.device) + ctx.rank
+    out = {}
+    for name, fn in (
+            ("all_gather", lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(ctx.world_size)], x)),
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                x.new_empty(ctx.world_size * 3), x)),
+            ("all_reduce", lambda: dist.all_reduce(x.clone()))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # the error is the answer
+            out[name] = f"{type(e).__name__}: {str(e)[:200]}"
+    return out
+
+
+def phase_sp(torch, dev) -> None:
+    import numpy as np
+
+    import chip_smoke
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    from text_crdt_rust_tpu_torch.ops import flat as F
+    from text_crdt_rust_tpu_torch.parallel import launch
+
+    r = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+         "-q", "tests/test_torch_cuda.py", "-k", "sp_doc or streamed",
+         "-p", "no:cacheprovider"], capture_output=True, text=True)
+    print(r.stdout[-3000:], r.stderr[-2000:], flush=True)
+    with launch.World(2, "gloo", "cuda:0", timeout=120) as w:
+        print(f"gloo on CUDA tensors ({torch.__version__}): "
+              f"{w.run(gloo_cuda_job)}", flush=True)
+    t0 = time.perf_counter()
+    plans = chip_smoke.sp_plans()
+    print(f"config sp plans (run-row dry runs): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    a1, f1, _ = chip_smoke.sp_phase(torch, dev, chip_smoke.card_line(), np,
+                                    _kernels, F, plans)
+    print(f"sp phase: A1 {a1}, F1 {f1}", flush=True)
     if r.returncode != 0:
         raise SystemExit(1)
 

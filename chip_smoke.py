@@ -305,6 +305,24 @@
    kevin's 5,000,000 prepends (median of 3); each text checked. Then each
    cell's ratio, the device's rate over the native rate, as measured in
    this run, and one JSON line with them.
+27b. Config sp and the rest of the long-context layer (``parallel/``,
+   ``ops/stream_scan``; torch operations and collectives, no TPU kernel
+   behind them), the run-row dry runs made in a child process: ``sp.py``'s
+   stages on the whole automerge-paper trace (10,712 steps, 4 chunks) in a
+   world of one rank on the card over NCCL, then on its 20,000-patch prefix;
+   the text against ``endContent`` and the native engine's, ``expand()``
+   against the order column A1 gives for the same compile (counted: A1 must
+   launch). Then a world of four ranks (one a card over NCCL where there
+   are four cards, else four processes sharing the card over gloo, which
+   is printed): the prefix at sp = 4 sized to take one ``auto_reshard``
+   retry, equal to the sp = 1 run; ``make_sharded_apply`` (dp = 2, sp = 2)
+   on 8 documents x the 2,000-patch prefix, F1 counted in the ranks,
+   against the unsharded apply; and ``dryrun_multichip(4)``'s job. Each
+   replay's wall (this script's clock), steps/s and collectives a step.
+   Last, ``StreamedRuns`` on a 2^27-row memmapped plane (1 GiB; the north
+   star's final runs repeated with dense order offsets) in a temporary
+   directory: ``live_total`` and 1,000 seeded rank and 1,000 order lookups
+   against numpy, the time a lookup and a tile upload.
 28. Prints ``{"kernels": [...]}`` (the ten TPU kernels' ports and the
    flat kernel; A1's line carries the 10,240-document north star and
    configs 2 and 3, A7's the serve runs) and, as its last line,
@@ -3489,6 +3507,347 @@ def check_flat_wide(pending):
     return worst, secs
 
 
+# -- config sp: the long-context layer (parallel/, ops/stream_scan) -------
+
+SP_PREFIX = 20_000         # the sp = 4 run's trace prefix (911 steps)
+SP_RANKS = 4               # ranks of the sp = 4 run, the sharded apply and
+#                            the dry run
+SHARDED = dict(patches=2000, batch=8, capacity=4096)  # F1 under the mesh
+STREAM_ROWS = 1 << 27      # StreamedRuns' plane: 1 GiB in two int32 planes
+STREAM_TILE = 1 << 20      # the default tile (128 tiles)
+STREAM_LOOKUPS = 1000      # seeded rank lookups, and as many order lookups
+FLAT_FIELDS = ("signed", "ol_log", "or_log", "rank_log", "chars_log", "n",
+               "next_order")
+
+
+def sp_plans():
+    """Config sp's plans, each a run-row dry run (~13 s for the whole
+    trace, in a child process): the whole trace at sp = 1, the prefix at
+    sp = 1, and the prefix at sp = 4 with slack 1 (room for an even
+    rebalance plus one chunk only, so an early chunk overflows shard 0 and
+    takes the retry)."""
+    from text_crdt_rust_tpu_torch import sp
+    return (sp.plan_sp(None, 1), sp.plan_sp(SP_PREFIX, 1),
+            sp.plan_sp(SP_PREFIX, SP_RANKS, slack=1.0))
+
+
+def sharded_inputs(patches: int, batch: int, capacity: int):
+    """A batch of fresh documents and the trace prefix tiled over it (lmax
+    8, not prefilled: ``make_sharded_apply`` prefills), and its text."""
+    from text_crdt_rust_tpu_torch import sp
+    from text_crdt_rust_tpu_torch.ops import batch as B
+    from text_crdt_rust_tpu_torch.ops import span_arrays as SA
+    ps, want = sp.trace_patches(patches)
+    ops, _ = B.compile_local_patches(ps, lmax=8)
+    docs = SA.stack_docs(SA.make_flat_doc(capacity, device="cpu"), batch)
+    return docs, B.tile_ops(ops, batch), want
+
+
+def sharded_apply_job(ctx, dp: int, sp_n: int, patches: int, batch: int,
+                      capacity: int):
+    """A world job: ``sharded_inputs`` through ``make_sharded_apply`` on a
+    ``(dp, sp_n)`` mesh, the launch counts set to 0 just before and read
+    just after; returns the whole result gathered (numpy), rank 0's
+    launches and the mesh's collective calls."""
+    import torch
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    from text_crdt_rust_tpu_torch.parallel import mesh as M
+    docs, ops, _ = sharded_inputs(patches, batch, capacity)
+    mesh = M.make_mesh(n_devices=dp * sp_n, dp=dp, sp=sp_n,
+                       device=ctx.device)
+    apply = M.make_sharded_apply(mesh)
+    mine, mine_ops = M.shard_docs(docs, mesh), M.shard_ops(ops, mesh)
+    _kernels.reset_launches()
+    out = apply(mine, mine_ops)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+    whole = M.gather_docs(out, mesh)
+    return ({f: getattr(whole, f).cpu().numpy() for f in FLAT_FIELDS},
+            launches, dict(mesh.calls))
+
+
+def streamed_plane(np, o1, l1, rows: int, path: str):
+    """Memmapped run planes ``[2, rows]`` int32: the north star's final
+    runs repeated, each copy's orders made dense (the runs' order
+    intervals closed up, without the gaps the deletes' orders leave) and
+    offset by the copy's index times one copy's order count, so every
+    order lives in one row and the tiles' order envelopes prune. Returns
+    the memmap, one copy's rows, its orders and its dense row starts."""
+    o1 = np.asarray(o1, np.int64)
+    l1 = np.asarray(l1, np.int64)
+    n1 = len(o1)
+    by_start = np.argsort(np.abs(o1) - 1, kind="stable")
+    dense = np.empty(n1, np.int64)
+    dense[by_start] = np.concatenate(([0], np.cumsum(l1[by_start])[:-1]))
+    per_copy = int(l1.sum())
+    copies = -(-rows // n1)
+    if copies * per_copy >= 2 ** 31 - 1:
+        raise AssertionError("the repeated plane's orders overflow int32")
+    mm = np.memmap(path, np.int32, "w+", shape=(2, rows))
+    sign = np.sign(o1)
+    step = 1024
+    for k0 in range(0, copies, step):
+        k = np.arange(k0, min(copies, k0 + step), dtype=np.int64)[:, None]
+        a = k0 * n1
+        b = min(rows, a + k.shape[0] * n1)
+        mm[0, a:b] = (sign * (dense + 1 + k * per_copy)).ravel()[:b - a]
+        mm[1, a:b] = np.broadcast_to(l1, (k.shape[0], n1)).ravel()[:b - a]
+    mm.flush()
+    return mm, n1, per_copy, (dense, by_start)
+
+
+def streamed_runs_phase(torch, dev, np, runs, card):
+    """``StreamedRuns`` on a 2^27-row memmapped plane (``streamed_plane``)
+    in a temporary directory, removed after: ``live_total``, then
+    ``STREAM_LOOKUPS`` seeded rank lookups and as many order lookups, and
+    the out-of-range sentinels, each held against numpy on the host; the
+    time a lookup, a tile upload and the host pass (the caller's clock; the
+    plane was just written, so its reads are warm)."""
+    import tempfile
+
+    from text_crdt_rust_tpu_torch.ops.stream_scan import StreamedRuns
+    with tempfile.TemporaryDirectory(prefix="tcr_stream_") as tmp:
+        t0 = time.perf_counter()
+        mm, n1, per_copy, (dense, by_start) = streamed_plane(
+            np, runs[0], runs[1], STREAM_ROWS, os.path.join(tmp, "planes"))
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sr = StreamedRuns(mm[0], mm[1], tile=STREAM_TILE, device=dev)
+        host_pass_s = time.perf_counter() - t0
+        # numpy on the host: the global live prefix (int64).
+        lv = np.where(mm[0] > 0, mm[1], 0).astype(np.int64)
+        cum = np.cumsum(lv)
+        total = int(cum[-1])
+        if sr.live_total() != total:
+            raise AssertionError(f"live_total {sr.live_total()} != {total}")
+        rng = np.random.default_rng(15)
+        ranks = rng.integers(1, total + 1, size=STREAM_LOOKUPS)
+        want_rows = np.searchsorted(cum, ranks, side="left")
+        want_offs = ranks - (cum[want_rows] - lv[want_rows])
+        t0 = time.perf_counter()
+        got = [sr.position_of_live_rank(int(r)) for r in ranks]
+        rank_s = time.perf_counter() - t0
+        rank_uploads = sr.uploads
+        bad = sum(1 for g, r, o in zip(got, want_rows, want_offs)
+                  if g != (int(r), int(o)))
+        # Orders: the copy, then the row of the copy's dense start; each
+        # row found is checked to hold its order on the plane itself.
+        copies = -(-STREAM_ROWS // n1)
+        orders = rng.integers(0, copies * per_copy, size=STREAM_LOOKUPS)
+        sorted_starts = dense[by_start]
+        want_pos = []
+        for o in orders.tolist():
+            k, d = divmod(o, per_copy)
+            j = int(by_start[np.searchsorted(sorted_starts, d, "right") - 1])
+            row = k * n1 + j
+            if row >= STREAM_ROWS:
+                want_pos.append(-1)
+                continue
+            so = abs(int(mm[0, row])) - 1
+            if not so <= o < so + int(mm[1, row]):
+                raise AssertionError(f"reference row {row} misses {o}")
+            want_pos.append(int(cum[row] - lv[row]) + (o - so)
+                            if mm[0, row] > 0 else -1)
+        uploads0 = sr.uploads
+        t0 = time.perf_counter()
+        got_pos = [sr.order_to_position(int(o)) for o in orders]
+        order_s = time.perf_counter() - t0
+        order_uploads = sr.uploads - uploads0
+        bad += sum(1 for g, w in zip(got_pos, want_pos) if g != w)
+        edges = (sr.position_of_live_rank(0), sr.position_of_live_rank(
+            total + 1), sr.order_to_position(copies * per_copy + 5),
+            sr.order_to_position(-3))
+        if edges != ((-1, 0), (-1, 0), -1, -1):
+            raise AssertionError(f"out-of-range sentinels {edges}")
+        # Each tile differs from the one before it, so each uploads (the
+        # first may be the cached one: it is not timed).
+        t_up = []
+        for t in range(9):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sr.device_tile(t * 15)
+            torch.cuda.synchronize()
+            t_up.append((time.perf_counter() - t0) * 1e3)
+        t_up = t_up[1:]
+        out = dict(rows=STREAM_ROWS, tile=STREAM_TILE, tiles=sr.ntiles,
+                   copies=copies, copy_rows=n1, live_total=total,
+                   lookups=STREAM_LOOKUPS, mismatches=bad,
+                   build_s=build_s, host_pass_s=host_pass_s,
+                   rank_ms_per_lookup=rank_s * 1e3 / STREAM_LOOKUPS,
+                   order_ms_per_lookup=order_s * 1e3 / STREAM_LOOKUPS,
+                   rank_uploads=rank_uploads, order_uploads=order_uploads,
+                   upload_ms_median=statistics.median(t_up),
+                   upload_ms=t_up, warm=True)
+        del sr, mm, lv, cum
+    log(f"StreamedRuns: {STREAM_ROWS} rows ({STREAM_ROWS * 8 / 2 ** 30:.0f} "
+        f"GiB memmapped, {out['tiles']} tiles of {STREAM_TILE}, "
+        f"{out['copies']} copies of the north star's {n1} final runs with "
+        f"dense order offsets), live total {total}; {STREAM_LOOKUPS} rank "
+        f"and {STREAM_LOOKUPS} order lookups against numpy: {bad} "
+        f"mismatches; {out['rank_ms_per_lookup']:.3f} ms a rank lookup "
+        f"({rank_uploads} uploads), {out['order_ms_per_lookup']:.3f} ms an "
+        f"order lookup ({order_uploads} uploads), a tile upload "
+        f"{out['upload_ms_median']:.3f} ms (median of 8, pageable host "
+        f"memory, warm page cache), host pass {host_pass_s:.2f} s, plane "
+        f"build {build_s:.2f} s; on {card}")
+    if bad:
+        raise AssertionError(f"StreamedRuns: {bad} lookups disagree with "
+                             "numpy")
+    return out
+
+
+def doc_on(doc, dev):
+    """A copy of a batched ``FlatDoc`` on ``dev``."""
+    import dataclasses
+    return dataclasses.replace(doc, **{f: getattr(doc, f).to(dev)
+                                       for f in FLAT_FIELDS})
+
+
+def sp_stages(world, plan, label, rec, card):
+    """``sp.py``'s three stages on ``world`` (the replay timed on this
+    script's clock); the record goes into ``rec[label]``; returns the
+    read-back."""
+    from text_crdt_rust_tpu_torch import sp
+    t0 = time.perf_counter()
+    shape = world.run(sp.sp_prepare, plan)
+    prep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = world.run(sp.sp_replay)
+    wall = time.perf_counter() - t0
+    rd = world.run(sp.sp_read)
+    steps = shape["steps"]
+    rec[label] = dict(
+        patches=plan.patches, steps=steps, chunks=plan.chunks, sp=plan.nsp,
+        shard_rows=plan.shard_rows, rows=rd["rows"],
+        reshards=rep["reshards"], wall_s=wall, set_up_s=prep,
+        steps_per_s=steps / wall, ms_per_step=wall * 1e3 / steps,
+        patches_per_s=plan.patches / wall,
+        collectives_per_step=rep["collectives"] / steps, calls=rep["calls"],
+        backend=shape["backend"], device=shape["device"],
+        shared_card=shape["shared_card"])
+    log(f"config sp {label}: {plan.patches} patches -> {steps} steps in "
+        f"{plan.chunks} chunks, sp={plan.nsp} ({shape['backend']}, "
+        f"{shape['device']}"
+        f"{', shared card' if shape['shared_card'] else ''}), "
+        f"{plan.shard_rows} rows a shard, rows {rd['rows']}, reshards "
+        f"{rep['reshards']}: replay {wall:.2f} s ({steps / wall:.0f} "
+        f"steps/s, {wall * 1e3 / steps:.3f} ms a step, "
+        f"{plan.patches / wall:.0f} patches/s), "
+        f"{rep['collectives'] / steps:.3f} collectives a step "
+        f"{rep['calls']}; set-up {prep:.2f} s (world start and compile); "
+        f"on {card}")
+    return rd
+
+
+def sp_four_ranks(torch, dev, card, np, F, plan_pre4, rd1, rec):
+    """The four-rank world: the prefix at sp = 4 (one ``auto_reshard``
+    retry) against the sp = 1 read-back ``rd1``, ``make_sharded_apply``
+    (dp = 2, sp = 2) against the unsharded apply, and the dry run's job.
+    Returns (F1's launches in the sharded apply, in the dry run, the
+    sharded apply's max_abs_err)."""
+    from text_crdt_rust_tpu_torch import sp
+    from text_crdt_rust_tpu_torch.ops import span_arrays as SA
+    from text_crdt_rust_tpu_torch.parallel import dryrun, launch
+    if torch.cuda.device_count() >= SP_RANKS:
+        backend, device = "nccl", None
+        how = "one rank a card over NCCL"
+    else:
+        backend, device = "gloo", "cuda:0"
+        how = ("four processes sharing cuda:0 over gloo: no link between "
+               "cards is measured")
+    log(f"config sp, sp={SP_RANKS}: {how}")
+    _, want_pre = sp.trace_patches(SP_PREFIX)
+    label = f"{SP_PREFIX}-patch prefix, sp={SP_RANKS}"
+    with launch.World(SP_RANKS, backend, device, timeout=600) as w4:
+        rd4 = sp_stages(w4, plan_pre4, label, rec, card)
+        same = dict(expand=bool(np.array_equal(rd4["expand"],
+                                               rd1["expand"])),
+                    text=rd4["text"] == rd1["text"] == want_pre,
+                    resharded=rec[label]["reshards"] >= 1)
+        log(f"config sp, sp={SP_RANKS} against sp=1 on the prefix: {same}")
+        if not all(same.values()):
+            raise AssertionError(f"sp={SP_RANKS} run differs: {same}")
+        t0 = time.perf_counter()
+        got, f1_sharded, calls = w4.run(sharded_apply_job, 2, 2, **SHARDED)
+        sh_s = time.perf_counter() - t0
+        docs, ops, want_sh = sharded_inputs(**SHARDED)
+        ref = F.apply_ops_batch(doc_on(docs, dev), ops)
+        worst = max(max_abs_err([torch.as_tensor(got[f])],
+                                [getattr(ref, f).cpu()])
+                    for f in FLAT_FIELDS)
+        text_ok = SA.to_string(SA.lane(ref, 0)) == want_sh
+        log(f"make_sharded_apply (dp=2, sp=2) over the {SP_RANKS} ranks, "
+            f"{SHARDED['batch']} documents x the {SHARDED['patches']}-patch "
+            f"prefix, capacity {SHARDED['capacity']}: against the unsharded "
+            f"apply max_abs_err {worst}, text {text_ok}, rank 0's launches "
+            f"{f1_sharded}, collective calls {calls}, {sh_s:.2f} s")
+        if worst or not text_ok or f1_sharded.get("flat_replay", 0) < 1:
+            raise AssertionError("the sharded flat apply failed")
+        t0 = time.perf_counter()
+        dr = w4.run(dryrun.dryrun_job, SP_RANKS)
+        dr_s = time.perf_counter() - t0
+        log(f"{dryrun.summary(dr)}; rank 0's launches {dr['launches']}; "
+            f"{dr_s:.2f} s")
+        if dr["launches"].get("flat_replay", 0) < 1:
+            raise AssertionError("the dry run did not launch the flat kernel")
+    rec["sharded_apply"] = dict(max_abs_err=worst, launches=f1_sharded,
+                                calls=calls, s=sh_s, backend=backend)
+    rec["dryrun"] = dict(launches=dr["launches"], s=dr_s,
+                         summary=dryrun.summary(dr))
+    return (f1_sharded.get("flat_replay", 0),
+            dr["launches"].get("flat_replay", 0), worst)
+
+
+def sp_phase(torch, dev, card, np, _kernels, F, plans):
+    """Config sp and the rest of the long-context layer (docstring, 27b):
+    returns (A1's parity fields, F1's fields, the phase's record)."""
+    from text_crdt_rust_tpu_torch import sp
+    from text_crdt_rust_tpu_torch.baseline import native_replay
+    from text_crdt_rust_tpu_torch.parallel import launch
+    plan_full, plan_pre1, plan_pre4 = plans
+    rec = {}
+    t_phase = time.perf_counter()
+    # -- sp = 1: one rank on the card over NCCL -----------------------------
+    with launch.World(1, "nccl", None, timeout=600) as w1:
+        rd = sp_stages(w1, plan_full, "whole trace, sp=1", rec, card)
+        rd1 = sp_stages(w1, plan_pre1, f"{SP_PREFIX}-patch prefix, sp=1",
+                        rec, card)
+    ps, want = sp.trace_patches(None)
+    native_text = native_replay(ps).to_string()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    par_expand, par_text = sp.rle_parity(ps, plan_full.peak_rows, dev)
+    torch.cuda.synchronize()
+    par_s = time.perf_counter() - t0
+    a1_launches = _kernels.launches.get("rle_replay", 0)
+    checks = dict(text=rd["text"] == want, native=native_text == want,
+                  a1_orders=bool(np.array_equal(par_expand, rd["expand"])),
+                  a1_text=par_text == want,
+                  rows=rd["rows"] == [plan_full.final_rows],
+                  a1_launched=a1_launches >= 1)
+    log(f"config sp whole trace: text == endContent {checks['text']}, "
+        f"native engine {checks['native']}, expand() == A1's order column "
+        f"of the same compile {checks['a1_orders']} (A1 text "
+        f"{checks['a1_text']}, launches {a1_launches}, {par_s:.2f} s), "
+        f"rows == the dry run's final {checks['rows']}")
+    if not all(checks.values()):
+        raise AssertionError(f"config sp failed its checks: {checks}")
+    rec["whole trace checks"] = checks
+    # -- sp = 4 on the prefix, the sharded apply and the dry run -------------
+    f1_sharded, f1_dryrun, worst = sp_four_ranks(torch, dev, card, np, F,
+                                                 plan_pre4, rd1, rec)
+    # -- StreamedRuns on a 2^27-row memmapped plane ------------------------
+    rec["streamed_runs"] = streamed_runs_phase(torch, dev, np, rd["runs"],
+                                               card)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"long-context phase: {rec['phase_s']:.1f} s")
+    log(json.dumps({"config_sp": rec}, default=str))
+    a1 = dict(launches_sp_parity=a1_launches, sp_parity_s=par_s)
+    f1 = dict(launches_sharded_apply=f1_sharded, launches_dryrun=f1_dryrun,
+              sharded_apply_max_abs_err=worst)
+    return a1, f1, rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3517,6 +3876,7 @@ def main() -> int:
         from text_crdt_rust_tpu_torch.ops import blocked as TBL
         from text_crdt_rust_tpu_torch.ops import blocked_hbm as TBH
         from text_crdt_rust_tpu_torch.ops import blocked_mixed as TBM
+        from text_crdt_rust_tpu_torch.ops import flat as F
         from text_crdt_rust_tpu_torch.ops import rle as R
         from text_crdt_rust_tpu_torch.ops import rle_hbm as TH
         from text_crdt_rust_tpu_torch.ops import rle_lanes as RL
@@ -3562,6 +3922,8 @@ def main() -> int:
     # config 2's set-up) and A1's plain chains on their first lanes.
     config2_async = pool.apply_async(config_streams, ("2", PLAIN_LANES_A1))
     config3_async = pool.apply_async(config_streams, ("3", PLAIN_LANES_A1))
+    # Config sp's run-row dry runs (~13 s for the whole trace).
+    sp_plans_async = pool.apply_async(sp_plans)
     log(f"plain checks: {workers} child processes on {ncpu} CPUs "
         f"(os.cpu_count())")
 
@@ -4249,6 +4611,7 @@ def main() -> int:
         if e != 0:
             raise AssertionError(f"{label} disagrees with its plain version "
                                  f"at the 5r shapes")
+    sp_plan_list = sp_plans_async.get()
     pool.close()
     pool.join()
 
@@ -4334,6 +4697,11 @@ def main() -> int:
     log(f"native baseline phase: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"native_baseline": native, "ratios": ratios},
                    default=str))
+    # -- config sp: parallel/ and ops/stream_scan on the card ----------------
+    a1_sp, f1_sp, _ = sp_phase(torch, dev, card, np, _kernels, F,
+                               sp_plan_list)
+    rle_line.update(a1_sp)
+    flat_line.update(f1_sp)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"end")
     log(json.dumps({"kernels": [rle_line, mixed_line, a6_line, a7_line,

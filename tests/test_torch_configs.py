@@ -265,8 +265,8 @@ def test_northstar_twenty_groups_equal_one():
 
 # -- the engine registry ------------------------------------------------------------
 
-#: Engines of the JAX package the port does not have yet (``parallel/``).
-MISSING = ("sp-apply",)
+#: Engines of the JAX package the port does not have yet (none left).
+MISSING = ()
 
 
 def test_registry_equals_the_jax_package():
@@ -283,7 +283,7 @@ def test_registry_equals_the_jax_package():
         if name not in MISSING:
             assert TC.supports_fused_steps(name) == \
                 JC.supports_fused_steps(name), name
-    assert TC.engines_for("sp") == ()
+    assert TC.engines_for("sp") == ("sp-apply",)
     # Every registered module exists in the port.
     import importlib
     for spec in TC.ENGINE_REGISTRY.values():
@@ -291,7 +291,7 @@ def test_registry_equals_the_jax_package():
 
 
 def test_config_knobs_equal_the_jax_package():
-    for cls in ("BatchConfig", "SoakConfig", "StatsConfig"):
+    for cls in ("BatchConfig", "SoakConfig", "StatsConfig", "MeshConfig"):
         tj = dataclasses.asdict(getattr(JC, cls)())
         assert dataclasses.asdict(getattr(TC, cls)()) == tj, cls
     eng = dataclasses.asdict(JC.EngineConfig())

@@ -1008,3 +1008,46 @@ def test_flat_serve_backend_on_the_card_matches_plain(card):
     for f in ("signed", "ol_log", "or_log", "rank_log", "chars_log", "n",
               "next_order"):
         assert torch.equal(getattr(kb.docs, f).cpu(), getattr(pb.docs, f))
+
+
+def test_sp_doc_one_nccl_rank_matches_cpu(card):
+    """Config sp's ``SpDoc`` in a one-rank NCCL world on the card equals the
+    same run on one gloo CPU rank (run rows, expanded orders, text), and a
+    two-rank world sharing the card over gloo equals it too; the A1 parity
+    holds on the card."""
+    from text_crdt_rust_tpu_torch import sp
+
+    plan1 = sp.plan_sp(3000, 1)
+    kern = sp.run_sp(backend="nccl", plan=plan1)
+    plain = sp.run_sp(backend="gloo", device="cpu", plan=plan1,
+                      parity=False)
+    assert kern.ok and kern.parity_ok and plain.ok
+    assert kern.shape["device"] == "cuda:0"
+    for k in ("expand", "text", "rows"):
+        assert np.array_equal(np.asarray(kern.read[k]),
+                              np.asarray(plain.read[k])), k
+    two = sp.run_sp(backend="gloo", device="cuda:0",
+                    plan=sp.plan_sp(3000, 2, slack=1.0), parity=False)
+    assert two.ok and two.shape["shared_card"]
+    assert np.array_equal(two.read["expand"], kern.read["expand"])
+
+
+def test_streamed_runs_on_the_card_match_cpu(card):
+    """``StreamedRuns`` with its tiles on the card answers as on the CPU."""
+    from text_crdt_rust_tpu_torch.ops.stream_scan import StreamedRuns
+
+    rng = np.random.default_rng(4)
+    rows = 50_000
+    lens = rng.integers(1, 9, rows).astype(np.int32)
+    starts = np.concatenate(([0], np.cumsum(lens)[:-1]))
+    sign = np.where(rng.random(rows) < 0.7, 1, -1)
+    perm = rng.permutation(rows)
+    ordp = (sign * (starts[perm] + 1)).astype(np.int32)
+    lenp = lens[perm]
+    on = StreamedRuns(ordp, lenp, tile=4096, device=card)
+    off = StreamedRuns(ordp, lenp, tile=4096, device="cpu")
+    assert on.live_total() == off.live_total()
+    for r in rng.integers(0, on.live_total() + 2, 300).tolist():
+        assert on.position_of_live_rank(r) == off.position_of_live_rank(r)
+    for o in rng.integers(-1, int(lens.sum()) + 2, 300).tolist():
+        assert on.order_to_position(o) == off.order_to_position(o)

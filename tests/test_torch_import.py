@@ -30,7 +30,11 @@ from text_crdt_rust_tpu_torch.ops import rle_lanes as TL
 from text_crdt_rust_tpu_torch.ops import rle_lanes_mixed as TLM
 from text_crdt_rust_tpu_torch.ops import rle_mixed as TRM
 from text_crdt_rust_tpu_torch.ops import span_arrays as TSA
+from text_crdt_rust_tpu_torch import sp
 from text_crdt_rust_tpu_torch.config import ServeConfig
+from text_crdt_rust_tpu_torch.ops.stream_scan import StreamedRuns
+from text_crdt_rust_tpu_torch.parallel import dryrun
+from text_crdt_rust_tpu_torch.parallel.launch import World
 from text_crdt_rust_tpu_torch.serve import DocServer
 from text_crdt_rust_tpu_torch.serve.loadgen import ServeLoadGen
 from text_crdt_rust_tpu_torch.utils.testdata import TestPatch
@@ -72,7 +76,10 @@ def test_port_imports_with_jax_blocked():
         "          'utils.checkpoint', 'ops.flat', 'serve.journal',\n"
         "          'serve.chaos', 'obs.ledger', 'obs.cells', 'baseline',\n"
         "          'corpus', 'random_edits', 'models.native',\n"
-        "          'native.build', 'examples.soak', 'examples.stats'):\n"
+        "          'native.build', 'examples.soak', 'examples.stats',\n"
+        "          'ops.stream_scan', 'parallel.launch', 'parallel.mesh',\n"
+        "          'parallel.sp_runs', 'parallel.sp_apply',\n"
+        "          'parallel.dryrun', 'sp'):\n"
         "    assert 'text_crdt_rust_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -126,6 +133,10 @@ def _ops():
     "ServeLoadGen",
     "run_random_edits",
     "run_corpus",
+    "StreamedRuns",
+    "World",
+    "run_sp",
+    "dryrun_multichip",
 ])
 def test_entry_point_without_device_raises_on_cpu_host(entry):
     if torch.cuda.is_available():
@@ -196,6 +207,11 @@ def test_entry_point_without_device_raises_on_cpu_host(entry):
         "run_random_edits": lambda: random_edits.run_random_edits(
             steps=20, batch=2),
         "run_corpus": lambda: corpus.run_corpus(batch=2, prefix=20),
+        "StreamedRuns": lambda: StreamedRuns(np.asarray([1], np.int32),
+                                             np.asarray([1], np.int32)),
+        "World": lambda: World(1, "nccl"),
+        "run_sp": lambda: sp.run_sp(100, 1, backend="nccl"),
+        "dryrun_multichip": lambda: dryrun.dryrun_multichip(2, "nccl"),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -1,10 +1,7 @@
 """Configuration (counterpart of ``text_crdt_rust_tpu/config.py``): the
 engine registry, the compiler and engine knobs, the blocked-lanes geometry
-rule, the document server's ``ServeConfig`` and the examples'
-``SoakConfig`` and ``StatsConfig``.
-
-The JAX package's ``sp-apply`` engine and ``MeshConfig`` belong to
-``parallel/``'s sharded apply, which the port does not have yet.
+rule, the multi-rank ``MeshConfig``, the document server's ``ServeConfig``
+and the examples' ``SoakConfig`` and ``StatsConfig``.
 """
 from __future__ import annotations
 
@@ -37,6 +34,8 @@ ENGINE_REGISTRY = {
     "hbm":             {"module": "ops.blocked_hbm", "configs": ("northstar",)},
     "flat":            {"module": "ops.flat", "configs": ("serve",),
                         "serve_backend": "serve.batcher:FlatLaneBackend"},
+    # One huge document sharded over the sp axis (config sp, ``sp.py``).
+    "sp-apply":        {"module": "parallel.sp_apply", "configs": ("sp",)},
 }
 ENGINE_CHOICES = tuple(ENGINE_REGISTRY)
 
@@ -116,6 +115,19 @@ class EngineConfig:
                         default=self.lanes_block_k)
         ap.add_argument("--chunk", type=int, default=self.chunk)
         ap.add_argument("--capacity", type=int, default=self.capacity)
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """Multi-rank sharding shape (``parallel.make_mesh``)."""
+
+    n_devices: int = 8
+    dp: int = 0                # 0 = derive: n_devices // sp
+    sp: int = 1                # sequence/span-parallel axis
+
+    def resolved(self) -> tuple:
+        dp = self.dp or (self.n_devices // max(self.sp, 1))
+        return dp, self.sp
 
 
 @dataclasses.dataclass
