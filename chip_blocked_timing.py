@@ -61,7 +61,8 @@ named phases, all by default:
   at depth 2 with trains of 1 and 4 against the JAX package's golden
   record, the wide shape, the kernel against its plain version on
   sampled launches, crash recovery, ``DeviceMirror`` and a profiler
-  capture);
+  capture), then its phase 26a (the trace analytics on the depth-1 and
+  depth-2 acceptance runs' kept traces);
 - ``configs``: A1's card tests at configs 2 and 3's shapes and at 20
   doc groups (``-k "config2 or config3 or groups-20"``), then
   ``chip_smoke.py``'s phases on A1 at the new shapes: the north star at
@@ -743,8 +744,9 @@ def phase_flat(torch, dev) -> None:
     pool = multiprocessing.get_context("spawn").Pool(4)
     try:
         t0 = time.perf_counter()
-        line, pending = chip_smoke.flat_phase(torch, dev, card, _kernels, B,
-                                              randedit, np, pool)
+        line, pending, traces = chip_smoke.flat_phase(
+            torch, dev, card, _kernels, B, randedit, np, pool)
+        chip_smoke.analytics_phase(traces, card)
         e, secs = chip_smoke.check_flat_wide(pending)
         line.update(wide_plain_s=secs)
         print(f"flat phase: {time.perf_counter() - t0:.1f} s, max_abs_err "

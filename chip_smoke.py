@@ -291,6 +291,17 @@
    record's documents) with green crash audits; ``DeviceMirror`` on a
    3-agent history; and a ``torch.profiler`` capture (``profile_dir``)
    that must name the kernel.
+26a. The port's trace analytics (``obs/analyze.py``) on the events the
+   depth-1 and depth-2 acceptance runs of phase 26 kept (their walls from
+   this script's clock; the runs are not repeated): the phase breakdown
+   with its stall budget and the host-against-device overlap report,
+   printed with the card; the recompile timeline, which fails on a
+   ``device.compile`` after the first 10 ticks or on a (shard, bucket)
+   compiled twice; the per-op flow census, which fails unless its
+   conservation audit accounts for every span; the Chrome export, written
+   to a temporary file and read back as trace-event JSON; the depth-1
+   events written as JSONL, read back with ``load_events`` and diffed
+   against themselves (must be None); then the phase's seconds.
 27. The wide serve and flat launches and the 5r plain chains' shards
    (phases 11 and 12) against the kernels' outputs.
 27a. Once the child processes have drained (no child runs: the CPU
@@ -3233,8 +3244,9 @@ def flat_phase(torch, dev, card, _kernels, B, randedit, np, pool):
     the JAX package's golden record, the wide shape, the kernel against
     its plain version on sampled launches, crash recovery at the ledger's
     recovery shape (all four phases) and at the acceptance shape,
-    ``DeviceMirror`` and a profiler capture. Returns the kernel's line and
-    the wide run's pending plain checks."""
+    ``DeviceMirror`` and a profiler capture. Returns the kernel's line,
+    the wide run's pending plain checks and the depth-1 and depth-2
+    acceptance runs' kept traces (phase 26a's input)."""
     import hashlib
     import tempfile
 
@@ -3256,7 +3268,7 @@ def flat_phase(torch, dev, card, _kernels, B, randedit, np, pool):
         raise AssertionError("the flat golden record is of another shape")
     launches = FlatLaunches(torch, F.flat_replay_cuda)
     F.flat_replay_cuda = launches
-    runs, kept_acc, main_counts = {}, [], None
+    runs, kept_acc, main_counts, traces = {}, [], None, {}
 
     def keep_acc(shape, k):
         _, T, S, _ = shape
@@ -3299,6 +3311,10 @@ def flat_phase(torch, dev, card, _kernels, B, randedit, np, pool):
             if main_counts is None:
                 main_counts = counts
             runs[f"acceptance_depth{depth}_train{train}"] = nums
+            if train == 1:
+                # Phase 26a reads these kept traces (walls from this
+                # script's clock) instead of running the shape again.
+                traces[depth] = gen.server.tracer.events
             del gen, report
 
         torch.cuda.synchronize()
@@ -3483,7 +3499,113 @@ def flat_phase(torch, dev, card, _kernels, B, randedit, np, pool):
         "profiler_hits": hits,
         "phase_s": time.perf_counter() - t_phase,
     }
-    return line, wide_pending
+    return line, wide_pending, traces
+
+
+#: Phase 26a's steady-state rule: every ``device.compile`` (a shard's
+#: first tick at a step bucket) lands in the first ticks of a run, each
+#: (shard, bucket) at most once; a later one is a recompile.
+ANALYTICS_WARMUP_TICKS = 10
+#: Trace-event phases a Chrome/Perfetto importer accepts in the export.
+CHROME_PHASES = ("X", "i", "M", "s", "t", "f")
+
+
+def analytics_phase(traces, card):
+    """Phase 26a: the port's trace analytics (``obs/analyze.py``) on the
+    events phase 26's acceptance runs kept on the card (depths 1 and 2,
+    walls from this script's clock): the phase breakdown with its stall
+    budget and the overlap report, printed; the recompile timeline (no
+    compile after the warm-up ticks, none repeated); the per-op flow
+    census with its conservation audit (every span accounted); the Chrome
+    export written to a temporary file and read back as trace-event JSON;
+    the depth-1 events written as JSONL, read back with ``load_events``
+    and diffed against themselves (must be None). Returns the phase's
+    record."""
+    import tempfile
+
+    from text_crdt_rust_tpu_torch.obs import analyze as A
+    from text_crdt_rust_tpu_torch.obs.flow import flow_report
+    from text_crdt_rust_tpu_torch.obs.trace import event_line
+
+    t_phase = time.perf_counter()
+    if sorted(traces) != [1, 2] or not all(traces.values()):
+        raise AssertionError("phase 26a needs the depth-1 and depth-2 "
+                             "acceptance traces")
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="tcr_analytics_") as tmp:
+        for depth, events in sorted(traces.items()):
+            t0 = time.perf_counter()
+            ph = A.phase_breakdown(events)
+            budget = A.stall_budget(ph)
+            ov = A.overlap_report(events)
+            comp = A.recompile_timeline(events)
+            flow = flow_report(events, expect_terminal=True)
+            path = os.path.join(tmp, f"chrome_d{depth}.json")
+            with open(path, "w") as f:
+                json.dump(A.chrome_trace(events), f)
+            with open(path) as f:
+                chrome = json.load(f)
+            tes = chrome.get("traceEvents") or []
+            chrome_ok = bool(tes) and all(
+                "name" in te and te.get("ph") in CHROME_PHASES
+                and "pid" in te
+                and (te["ph"] == "M" or isinstance(te.get("ts"),
+                                                   (int, float)))
+                and te.get("dur", 0) >= 0 for te in tes)
+            pairs = [(c["shard"], c["bucket"]) for c in comp["timeline"]]
+            late = [c for c in comp["timeline"]
+                    if c["tick"] > ANALYTICS_WARMUP_TICKS]
+            shares = {p: r["share_pct"] for p, r in ph["phases"].items()}
+            log(f"analytics depth {depth}: {len(events)} events, "
+                f"{ph['ticks']} ticks, {ph['wall_ms_total']:.3f} ms of "
+                f"measured phase wall; shares {shares}; stall budget "
+                f"{budget['phase']} {budget['wall_ms']:.3f} ms = "
+                f"{budget['share_pct']} %; overlap: host "
+                f"{ov['host_ms']:.3f} ms, dispatch {ov['dispatch_ms']:.3f} "
+                f"ms, sync stall {ov['stall_ms']:.3f} ms, window "
+                f"{ov['win_ms']:.3f} ms, overlap_frac {ov['overlap_frac']}, "
+                f"idle gap per tick {ov['idle_gap_ms']}; on {card}")
+            log(f"analytics depth {depth}: {comp['compiles']} compiles "
+                f"{pairs} (last at tick {comp['last_compile_tick']} of "
+                f"{comp['run_last_tick']}; warm-up "
+                f"{ANALYTICS_WARMUP_TICKS} ticks); flow audit "
+                f"{flow['audit_ok']}, spans {flow['spans']}, age at apply "
+                f"{flow['ages_ticks']} ticks; chrome export "
+                f"{len(tes)} trace events, {os.path.getsize(path)} B, "
+                f"valid {chrome_ok}; {time.perf_counter() - t0:.2f} s")
+            if late or len(set(pairs)) != len(pairs) or not pairs:
+                raise AssertionError(
+                    f"analytics depth {depth}: device.compile after the "
+                    f"warm-up or repeated: {comp['timeline']}")
+            if not flow["audit_ok"]:
+                raise AssertionError(
+                    f"analytics depth {depth}: flow audit failed: "
+                    f"{flow['findings'][:3]}")
+            if not chrome_ok:
+                raise AssertionError(f"analytics depth {depth}: the "
+                                     f"chrome export is not trace-event "
+                                     f"JSON")
+            rec[f"depth{depth}"] = dict(
+                events=len(events), stall_budget=budget,
+                overlap_frac=ov["overlap_frac"], stall_ms=ov["stall_ms"],
+                win_ms=ov["win_ms"], idle_gap_ms=ov["idle_gap_ms"],
+                compiles=comp["compiles"],
+                last_compile_tick=comp["last_compile_tick"],
+                flow_spans=flow["spans"], chrome_events=len(tes))
+        path = os.path.join(tmp, "trace_d1.jsonl")
+        with open(path, "w") as f:
+            for ev in traces[1]:
+                f.write(event_line(ev) + "\n")
+        diff = A.trace_diff(traces[1], A.load_events([path]))
+        log(f"analytics: depth-1 trace written ({os.path.getsize(path)} B) "
+            f"and read back, diff against itself {diff}")
+        if diff is not None:
+            raise AssertionError(f"analytics: the depth-1 trace read back "
+                                 f"differs: {diff}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"analytics phase (26a): {rec['phase_s']:.2f} s; on {card}")
+    log(json.dumps({"analytics": rec}, default=str))
+    return rec
 
 
 def check_flat_wide(pending):
@@ -4553,9 +4675,12 @@ def main() -> int:
     log(f"serve phase: {time.perf_counter() - t0:.1f} s")
     # -- ServeConfig()'s document server on the flat kernel --------------------
     t0 = time.perf_counter()
-    flat_line, flat_wide = flat_phase(torch, dev, card, _kernels, B,
-                                      randedit, np, pool)
+    flat_line, flat_wide, flat_traces = flat_phase(
+        torch, dev, card, _kernels, B, randedit, np, pool)
     log(f"flat serve phase: {time.perf_counter() - t0:.1f} s")
+    # -- 26a: the trace analytics on the flat runs' kept traces -------------
+    analytics_phase(flat_traces, card)
+    del flat_traces
     # -- the per-lane local replays and the config-5 path ----------------------
     a4_worst, a5_worst = local_lanes_phase(torch, dev, B, RL, randedit,
                                            TestPatch, np)

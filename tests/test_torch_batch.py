@@ -164,3 +164,39 @@ def test_merge_fused_origins_equal():
     TB.merge_fused_origins(logs[2], logs[3], tops, ol, orr)
     assert np.array_equal(logs[0], logs[2])
     assert np.array_equal(logs[1], logs[3])
+
+
+@pytest.mark.parametrize("fuse_w", [1, 4])
+def test_row_growth_bound_ops_equal(fuse_w):
+    """The JAX package's own cases (``tests/test_rle_fused.py``): eight
+    single-char prepends, unfused and fused at W = 4."""
+    tp = [TT.TestPatch(0, 0, "x")] * 8
+    jops, tops = _compile_both(_jax_patches(tp), tp, lmax=8, fuse_w=fuse_w)
+    assert TB.row_growth_bound_ops(tops) == JB.row_growth_bound_ops(jops)
+    want = 1 + 2 * (4 + 1) if fuse_w == 4 else TB.row_growth_bound(8)
+    assert TB.row_growth_bound_ops(tops) == want
+
+
+def test_compile_trace_and_row_bound_on_automerge_paper():
+    """``compile_trace`` bit for bit, and the row bound of the whole
+    trace unfused and fused at W = 8, against the JAX package."""
+    jd, td = _load("automerge-paper")
+    jops, jnext = JB.compile_trace(jd)
+    tops, tnext = TB.compile_trace(td)
+    assert jnext == tnext
+    assert_ops_equal(jops, tops)
+    assert TB.row_growth_bound_ops(tops) == JB.row_growth_bound_ops(jops) \
+        == TB.row_growth_bound(tops.num_steps)
+    jops, jnext = JB.compile_trace(jd, rank=3, lmax=4)
+    tops, tnext = TB.compile_trace(td, rank=3, lmax=4)
+    assert jnext == tnext
+    assert_ops_equal(jops, tops)
+    jm = JB.merge_patches(JT.flatten_patches(jd))
+    tm = TB.merge_patches(TT.flatten_patches(td))
+    lmax = max(len(p.ins_content) for p in tm)
+    jf, _ = JB.fuse_steps(JB.compile_local_patches(jm, lmax=lmax)[0],
+                          fuse_w=8)
+    tf, _ = TB.fuse_steps(TB.compile_local_patches(tm, lmax=lmax)[0],
+                          fuse_w=8)
+    assert TB.row_growth_bound_ops(tf) == JB.row_growth_bound_ops(jf)
+    assert TB.row_growth_bound_ops(tf) > TB.row_growth_bound(tf.num_steps)

@@ -291,7 +291,8 @@ def test_registry_equals_the_jax_package():
 
 
 def test_config_knobs_equal_the_jax_package():
-    for cls in ("BatchConfig", "SoakConfig", "StatsConfig", "MeshConfig"):
+    for cls in ("BatchConfig", "SoakConfig", "StatsConfig", "MeshConfig",
+                "StreamConfig"):
         tj = dataclasses.asdict(getattr(JC, cls)())
         assert dataclasses.asdict(getattr(TC, cls)()) == tj, cls
     eng = dataclasses.asdict(JC.EngineConfig())
@@ -302,3 +303,28 @@ def test_config_knobs_equal_the_jax_package():
         edits=500, seed=3, oracle_steps=100)
     assert TC.StatsConfig.from_args(["--trace", "rustcode"]).trace == \
         "rustcode"
+
+
+def test_stream_config_sets_the_resync_cadence():
+    """``run_stream_5``/``run_stream`` take ``StreamConfig`` where they
+    took the bare cadence: the same run either way. The cadence has one
+    source: giving ``resync_every`` beside ``config`` raises."""
+    from text_crdt_rust_tpu_torch import stream as TS
+
+    s5 = TS.make_stream_5(4, 3, 10, 1000)
+    bare = TS.run_stream_5(stream=s5, block_k=64, resync_every=2,
+                           device="cpu")
+    run = TS.run_stream_5(stream=s5, block_k=64,
+                          config=TC.StreamConfig(resync_every=2),
+                          device="cpu")
+    assert run.ok and bare.ok
+    assert run.stats.resyncs == bare.stats.resyncs == 1
+    for a, b in zip(run.result.state(), bare.result.state()):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        TS.run_stream_5(stream=s5, block_k=64, resync_every=2,
+                        config=TC.StreamConfig(), device="cpu")
+    s5r = TS.make_stream_5r(4, 3, 10, 7000)
+    run = TS.run_stream(stream=s5r, config=TC.StreamConfig(), device="cpu")
+    assert run.ok and run.stats.resyncs == 2
+    assert TS.run_stream(stream=s5r, device="cpu").stats.resyncs == 0

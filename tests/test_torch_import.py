@@ -79,7 +79,14 @@ def test_port_imports_with_jax_blocked():
         "          'native.build', 'examples.soak', 'examples.stats',\n"
         "          'ops.stream_scan', 'parallel.launch', 'parallel.mesh',\n"
         "          'parallel.sp_runs', 'parallel.sp_apply',\n"
-        "          'parallel.dryrun', 'sp'):\n"
+        "          'parallel.dryrun', 'sp', 'obs.analyze',\n"
+        "          'analysis', 'analysis.tcrlint', 'analysis.dataflow',\n"
+        "          'analysis.lint', 'analysis.checks_wallclock',\n"
+        "          'analysis.checks_determinism', 'analysis.checks_schema',\n"
+        "          'analysis.checks_recompile', 'analysis.checks_exceptions',\n"
+        "          'analysis.checks_pyflakes', 'analysis.checks_pipeline',\n"
+        "          'analysis.checks_mirror', 'analysis.checks_shape',\n"
+        "          'analysis.checks_claims'):\n"
         "    assert 'text_crdt_rust_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -131,6 +131,17 @@ class MeshConfig:
 
 
 @dataclasses.dataclass
+class StreamConfig:
+    """The streaming apply loop of configs 5 and 5r (``stream.py``):
+    field for field the JAX package's. ``run_stream``/``run_stream_5``
+    read ``resync_every``; ``checkpoint_dir`` is kept for parity and read
+    nowhere, as in the JAX package."""
+
+    resync_every: int = 1      # chunks between host<->device resyncs
+    checkpoint_dir: Optional[str] = None
+
+
+@dataclasses.dataclass
 class ServeConfig:
     """The continuous-batching document server (``serve/``): the JAX
     package's fields and defaults.

@@ -37,7 +37,7 @@ from ..common import (
     txn_len,
 )
 from ..utils.rle import KOrderSpan, Rle
-from ..utils.testdata import TestPatch
+from ..utils.testdata import TestData, TestPatch, flatten_patches
 
 # Op kinds (shared with the JAX package's device dispatch).
 KIND_LOCAL = 0        # delete del_len live chars at pos, then insert at pos
@@ -448,6 +448,14 @@ def compile_local_patches(
     if fuse_shapes == "all":
         ops, _ = fuse_steps(ops, fuse_w=fuse_w, dmax=dmax)
     return ops, next_order
+
+
+def compile_trace(data: TestData, rank: int = 0, lmax: int = 16
+                  ) -> Tuple[OpTensors, int]:
+    """The whole trace's local patches compiled as one stream (the
+    ``benches/yjs.rs`` replay): ``compile_local_patches`` of
+    ``flatten_patches(data)``."""
+    return compile_local_patches(flatten_patches(data), rank=rank, lmax=lmax)
 
 
 # -- generalized step fusion --------------------------------------------------
@@ -1032,6 +1040,16 @@ def row_growth_bound(num_steps: int) -> int:
     steps never needs more than ``1 + 2*S`` rows. The growing per-chunk
     capacities of the streaming configs derive from it."""
     return 1 + 2 * num_steps
+
+
+def row_growth_bound_ops(ops: OpTensors) -> int:
+    """Fused-aware sound row bound of ONE compiled stream: a plain step
+    splices at most 2 new rows (``row_growth_bound``), a fused W-row step
+    at most W + 1 (W new runs and one split tail). Equals
+    ``row_growth_bound(num_steps)`` on an unfused stream."""
+    w = np.maximum(
+        np.asarray(ops.rows_per_step, dtype=np.int64).reshape(-1), 1)
+    return 1 + int(np.maximum(2, w + 1).sum())
 
 
 def _map_fields(fn, *streams: OpTensors) -> OpTensors:

@@ -53,7 +53,7 @@ import torch
 from . import resolve_device
 from .baseline import native_remote_replay, native_replay
 from .common import RemoteTxn, txn_len
-from .config import lane_block_geometry
+from .config import StreamConfig, lane_block_geometry
 from .models.oracle import ListCRDT
 from .ops import batch as B
 from .ops import rle_lanes as RL
@@ -291,24 +291,38 @@ class StreamRun:
         return self.docs_ok and self.native_ok
 
 
+def _cadence(resync_every: Optional[int],
+             config: Optional[StreamConfig]) -> int:
+    """The resync cadence from ``config`` or the bare ``resync_every``
+    (4 where neither is given); giving both is an error."""
+    if config is not None:
+        if resync_every is not None:
+            raise ValueError("give resync_every or config, not both")
+        return config.resync_every
+    return 4 if resync_every is None else resync_every
+
+
 def run_stream(n_docs: int = 2048, chunks: int = 8,
                steps_per_chunk: int = 100, seed_base: int = 7000,
-               block_k: int = 64, resync_every: int = 4,
+               block_k: int = 64, resync_every: Optional[int] = None,
                engine: str = "blocked", device=None,
                stream: Optional[Stream5r] = None,
                clock: Optional[Callable[[], float]] = None,
-               on_chunk: Optional[Callable] = None) -> StreamRun:
+               on_chunk: Optional[Callable] = None,
+               config: Optional[StreamConfig] = None) -> StreamRun:
     """Generate (unless ``stream`` is given), compile and apply the
     config-5r streams chunk by chunk, then check the sampled documents
-    against the oracle and document 0 on the native engine."""
+    against the oracle and document 0 on the native engine. The resync
+    cadence comes from ``config`` or from ``resync_every``, not both."""
     dev = resolve_device(device)
     if stream is None:
         stream = make_stream_5r(n_docs, chunks, steps_per_chunk, seed_base)
     runners = make_stream_replayers(stream, block_k, engine, dev)
     with tempfile.TemporaryDirectory(prefix="tcr_stream_") as tmp:
         res, stats = stream_loop(
-            runners, resync_every, os.path.join(tmp, "resync.npz"),
-            STATE_KEYS[engine], clock=clock, on_chunk=on_chunk)
+            runners, _cadence(resync_every, config),
+            os.path.join(tmp, "resync.npz"), STATE_KEYS[engine],
+            clock=clock, on_chunk=on_chunk)
     return StreamRun(stream=stream, result=res, stats=stats,
                      docs_ok=check_docs(stream, res),
                      native_text=native_remote_replay(
@@ -448,22 +462,24 @@ def check_docs_5(stream: Stream5, res) -> bool:
 
 def run_stream_5(n_docs: int = 2048, chunks: int = 8,
                  steps_per_chunk: int = 100, seed_base: int = 1000,
-                 block_k: int = 64, resync_every: int = 4,
+                 block_k: int = 64, resync_every: Optional[int] = None,
                  engine: str = "blocked", device=None,
                  stream: Optional[Stream5] = None,
                  clock: Optional[Callable[[], float]] = None,
-                 on_chunk: Optional[Callable] = None) -> StreamRun:
+                 on_chunk: Optional[Callable] = None,
+                 config: Optional[StreamConfig] = None) -> StreamRun:
     """Generate (unless ``stream`` is given), compile and apply the config-5
     streams chunk by chunk, then check the sampled documents' texts and
-    document 0 on the native engine."""
+    document 0 on the native engine. The cadence as in ``run_stream``."""
     dev = resolve_device(device)
     if stream is None:
         stream = make_stream_5(n_docs, chunks, steps_per_chunk, seed_base)
     runners = stream_replayers_5(stream, block_k, engine, dev)
     with tempfile.TemporaryDirectory(prefix="tcr_stream5_") as tmp:
         res, stats = stream_loop(
-            runners, resync_every, os.path.join(tmp, "resync.npz"),
-            STATE_KEYS_5[engine], clock=clock, on_chunk=on_chunk)
+            runners, _cadence(resync_every, config),
+            os.path.join(tmp, "resync.npz"), STATE_KEYS_5[engine],
+            clock=clock, on_chunk=on_chunk)
     return StreamRun(stream=stream, result=res, stats=stats,
                      docs_ok=check_docs_5(stream, res),
                      native_text=native_replay(stream.patches0).to_string())
