@@ -70,13 +70,16 @@ named phases, all by default:
   2 and 3 (their streams and plain chains built in child processes), and
   the native baseline of configs 1, 2 and 3 and kevin with no child
   running;
-- ``sp``: the long-context card tests (``-k "sp_doc or streamed"``),
-  which collectives gloo takes on CUDA tensors (a two-rank world sharing
-  the card), then ``chip_smoke.py``'s phase 27b alone: config ``sp`` at
-  sp = 1 over NCCL (the whole trace, the 20,000-patch prefix, A1's
-  parity), the four-rank world (one NCCL rank a card on a machine with
-  four, else four processes sharing the card over gloo), the sharded flat
-  apply, the dry run and ``StreamedRuns`` on a 2^27-row memmapped plane.
+- ``sp``: the long-context card tests (``-k "sp_doc or sp_kernel or
+  streamed"``: S1 against the plain version at sp = 1 and 2), which
+  collectives gloo takes on CUDA tensors (a two-rank world sharing the
+  card), then ``chip_smoke.py``'s phase 27b alone: config ``sp`` at sp = 1
+  over NCCL on S1 (the whole trace, the 20,000-patch prefix, each chunk
+  against the plain version, A1's parity), the four-rank world (one NCCL
+  rank a card on a machine with four, else four processes sharing the
+  card over gloo; S1 a segment, each chunk against the plain version),
+  the sharded flat apply, the dry run and ``StreamedRuns`` on a
+  2^27-row memmapped plane, and S1's entry of the kernels line.
 
 Times are medians of ``--reps`` runs (3) after 1 warm-up, CUDA events.
 The plain versions are not timed here; ``chip_smoke.py`` holds every
@@ -864,8 +867,9 @@ def phase_sp(torch, dev) -> None:
 
     r = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
-         "-q", "tests/test_torch_cuda.py", "-k", "sp_doc or streamed",
-         "-p", "no:cacheprovider"], capture_output=True, text=True)
+         "-q", "tests/test_torch_cuda.py", "-k",
+         "sp_doc or sp_kernel or streamed", "-p", "no:cacheprovider"],
+        capture_output=True, text=True)
     print(r.stdout[-3000:], r.stderr[-2000:], flush=True)
     with launch.World(2, "gloo", "cuda:0", timeout=120) as w:
         print(f"gloo on CUDA tensors ({torch.__version__}): "
@@ -874,9 +878,10 @@ def phase_sp(torch, dev) -> None:
     plans = chip_smoke.sp_plans()
     print(f"config sp plans (run-row dry runs): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    a1, f1, _ = chip_smoke.sp_phase(torch, dev, chip_smoke.card_line(), np,
-                                    _kernels, F, plans)
+    a1, f1, s1 = chip_smoke.sp_phase(torch, dev, chip_smoke.card_line(),
+                                     np, _kernels, F, plans)
     print(f"sp phase: A1 {a1}, F1 {f1}", flush=True)
+    print(json.dumps({"kernels": [s1]}, default=str), flush=True)
     if r.returncode != 0:
         raise SystemExit(1)
 

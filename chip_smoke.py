@@ -317,25 +317,34 @@
    cell's ratio, the device's rate over the native rate, as measured in
    this run, and one JSON line with them.
 27b. Config sp and the rest of the long-context layer (``parallel/``,
-   ``ops/stream_scan``; torch operations and collectives, no TPU kernel
-   behind them), the run-row dry runs made in a child process: ``sp.py``'s
-   stages on the whole automerge-paper trace (10,712 steps, 4 chunks) in a
-   world of one rank on the card over NCCL, then on its 20,000-patch prefix;
-   the text against ``endContent`` and the native engine's, ``expand()``
-   against the order column A1 gives for the same compile (counted: A1 must
-   launch). Then a world of four ranks (one a card over NCCL where there
-   are four cards, else four processes sharing the card over gloo, which
-   is printed): the prefix at sp = 4 sized to take one ``auto_reshard``
-   retry, equal to the sp = 1 run; ``make_sharded_apply`` (dp = 2, sp = 2)
-   on 8 documents x the 2,000-patch prefix, F1 counted in the ranks,
-   against the unsharded apply; and ``dryrun_multichip(4)``'s job. Each
-   replay's wall (this script's clock), steps/s and collectives a step.
-   Last, ``StreamedRuns`` on a 2^27-row memmapped plane (1 GiB; the north
+   ``ops/stream_scan``), the run-row dry runs made in a child process:
+   ``sp.py``'s stages on the whole automerge-paper trace (10,712 steps, 4
+   chunks) in a world of one rank on the card over NCCL, on S1
+   (``ops/csrc/sp_replay.cu``: one launch a chunk; the launch counts set
+   to 0 just before the replay and read just after, at least one a
+   chunk; a one-rank group's collectives are made in place, so the
+   collectives a step count only each chunk's closing OR), then on its
+   20,000-patch prefix; the text against ``endContent`` and the native
+   engine's, ``expand()`` against the order column A1 gives for the same
+   compile (counted: A1 must launch). After each replay, every chunk again
+   through S1 and through its plain version from the same input state
+   (CUDA events around each): every output equal, the whole ``[R]``
+   planes (rows past ``rows``), ``rows``, the tables, both logs and the
+   error bits. Then a world of four ranks (one a card over NCCL where
+   there are four cards, else four processes sharing the card over gloo,
+   which is printed): the prefix at sp = 4 sized to take one
+   ``auto_reshard`` retry, on S1 a segment between the collectives, equal
+   to the sp = 1 run and, chunk by chunk, to the plain version (the
+   flagged attempt included); ``make_sharded_apply`` (dp = 2, sp = 2) on 8
+   documents x the 2,000-patch prefix, F1 counted in the ranks, against
+   the unsharded apply; and ``dryrun_multichip(4)``'s job. Each replay's
+   wall (this script's clock), steps/s and collectives a step. Last,
+   ``StreamedRuns`` on a 2^27-row memmapped plane (1 GiB; the north
    star's final runs repeated with dense order offsets) in a temporary
    directory: ``live_total`` and 1,000 seeded rank and 1,000 order lookups
    against numpy, the time a lookup and a tile upload.
-28. Prints ``{"kernels": [...]}`` (the ten TPU kernels' ports and the
-   flat kernel; A1's line carries the 10,240-document north star and
+28. Prints ``{"kernels": [...]}`` (the ten TPU kernels' ports, the
+   flat kernel and S1, its time the whole trace's 4 chunks on the card; A1's line carries the 10,240-document north star and
    configs 2 and 3, A7's the serve runs) and, as its last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -3688,6 +3697,115 @@ def sharded_apply_job(ctx, dp: int, sp_n: int, patches: int, batch: int,
             launches, dict(mesh.calls))
 
 
+SP_OUTPUTS = ("ordp", "lenp", "rows", "oll", "orl", "rkl", "ols", "ors",
+              "err")
+
+
+def sp_chunks_job(ctx):
+    """A world job after ``sp.sp_prepare``: each chunk of the prepared
+    stream through S1 (``SpReplay`` on the card: one launch at sp = 1, one
+    a segment at sp > 1) and through the plain version from the same
+    input state, each timed with CUDA events; then ``apply_stream``
+    commits the chunk as the main path does (a capacity flag reshards and
+    retries). These launches are comparisons, not the main path's. On a
+    fresh ``SpDoc`` of the prepared geometry. Returns per chunk (rank 0's
+    times; the group's worst difference over the nine outputs, the whole
+    ``[R]`` planes included; S1's launches on this rank; the error bits;
+    the rows before and after over all shards; the step phases with work)."""
+    import numpy as np
+    import torch
+
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    from text_crdt_rust_tpu_torch.parallel.sp_apply import OP_FIELDS, SpDoc
+
+    st = ctx.store.get("sp")
+    if st is None:
+        return None
+    old, mesh = st["doc"], st["mesh"]
+    doc = SpDoc(mesh, old.R, old.OTS, auto_reshard=True)
+    rep = doc._replay
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b), res
+
+    out = []
+    for part in st["parts"]:
+        cols = [np.asarray(getattr(part, f), dtype=np.uint32).view(np.int32)
+                for f in OP_FIELDS]
+        kind, dl, il = cols[0], cols[2], cols[7]
+        phases = int(((kind == 0) & (dl > 0)).sum()
+                     + ((kind == 0) & (il > 0)).sum()
+                     + ((kind == 2) & (dl > 0)).sum()
+                     + ((kind == 1) & (il > 0)).sum())
+        state = (doc.ordp, doc.lenp, doc.rows, doc.oll, doc.orl, doc.rkl)
+        rows_in = int(mesh.sum(doc.rows)[0])
+        _kernels.reset_launches()
+        s1_ms, kern = timed(lambda: rep(*state, *cols))
+        launches = _kernels.launches.get("sp_replay", 0)
+        plain_ms, plain = timed(lambda: rep.plain(*state, cols))
+        worst = 0
+        for name, k, p in zip(SP_OUTPUTS, kern, plain):
+            k, p = k.reshape(-1), p.reshape(-1)
+            if k.shape != p.shape:
+                raise AssertionError(f"S1's {name} has shape {k.shape}, "
+                                     f"the plain version's {p.shape}")
+            if k.numel():
+                worst = max(worst, int((k.to(torch.int64)
+                                        - p.to(torch.int64)).abs().max()))
+        worst = int(mesh.all_gather(torch.tensor(
+            [worst], dtype=torch.int64, device=mesh.device)).max())
+        rows_out = int(mesh.sum(plain[2])[0])
+        out.append(dict(steps=int(kind.shape[0]), s1_ms=s1_ms,
+                        plain_ms=plain_ms, max_abs_err=worst,
+                        launches=launches, err=int(plain[-1]),
+                        rows_in=rows_in, rows_out=rows_out, phases=phases,
+                        R=doc.R, OTS=doc.OTS, nsp=mesh.sp))
+        doc.apply_stream(part)
+    return out
+
+
+def sp_bound(chunks):
+    """(bytes, operations) S1 must at least move and do over ``chunks``
+    (``sp_chunks_job``'s records): each rank's planes and tables read and
+    written once, the op columns read and the logs written once; per step
+    phase with work, 3 operations (a prefix term, a compare, a move) on
+    each row in use (the mean of the chunk's rows before and after). The
+    real floor is the serial chain of steps, not these."""
+    nbytes = nops = 0
+    for c in chunks:
+        nbytes += 4 * (c["nsp"] * (4 * c["R"] + 6 * c["OTS"] + 4)
+                       + 11 * c["steps"])
+        nops += 3 * c["phases"] * (c["rows_in"] + c["rows_out"]) // 2
+    return nbytes, nops
+
+
+def sp_check(chunks, label, card):
+    """Log ``sp_chunks_job``'s records; fail on any difference or a chunk
+    that did not launch S1. Returns (S1 ms, plain ms, worst error)."""
+    s1 = sum(c["s1_ms"] for c in chunks)
+    plain = sum(c["plain_ms"] for c in chunks)
+    worst = max(c["max_abs_err"] for c in chunks)
+    steps = sum(c["steps"] for c in chunks)
+    log(f"S1 against the plain version, {label}: {len(chunks)} chunks, "
+        f"{steps} steps, from the same input states: max_abs_err {worst} "
+        f"over every output (whole [R] planes, rows, tables, both logs, "
+        f"error bits {[c['err'] for c in chunks]}); S1 {s1:.3f} ms "
+        f"({s1 / steps:.5f} ms a step; launches a chunk "
+        f"{[c['launches'] for c in chunks]}), plain {plain:.1f} ms "
+        f"(CUDA events); rows {[c['rows_out'] for c in chunks]}; on {card}")
+    if worst or any(c["launches"] < 1 for c in chunks):
+        raise AssertionError(f"S1 disagrees with the plain version on "
+                             f"{label}")
+    return s1, plain, worst
+
+
 def streamed_plane(np, o1, l1, rows: int, path: str):
     """Memmapped run planes ``[2, rows]`` int32: the north star's final
     runs repeated, each copy's orders made dense (the runs' order
@@ -3838,6 +3956,7 @@ def sp_stages(world, plan, label, rec, card):
     wall = time.perf_counter() - t0
     rd = world.run(sp.sp_read)
     steps = shape["steps"]
+    what = sp.collectives_what(plan.nsp, rep["launches"])
     rec[label] = dict(
         patches=plan.patches, steps=steps, chunks=plan.chunks, sp=plan.nsp,
         shard_rows=plan.shard_rows, rows=rd["rows"],
@@ -3845,6 +3964,7 @@ def sp_stages(world, plan, label, rec, card):
         steps_per_s=steps / wall, ms_per_step=wall * 1e3 / steps,
         patches_per_s=plan.patches / wall,
         collectives_per_step=rep["collectives"] / steps, calls=rep["calls"],
+        collectives_what=what, launches=rep["launches"],
         backend=shape["backend"], device=shape["device"],
         shared_card=shape["shared_card"])
     log(f"config sp {label}: {plan.patches} patches -> {steps} steps in "
@@ -3855,18 +3975,22 @@ def sp_stages(world, plan, label, rec, card):
         f"{rep['reshards']}: replay {wall:.2f} s ({steps / wall:.0f} "
         f"steps/s, {wall * 1e3 / steps:.3f} ms a step, "
         f"{plan.patches / wall:.0f} patches/s), "
-        f"{rep['collectives'] / steps:.3f} collectives a step "
-        f"{rep['calls']}; set-up {prep:.2f} s (world start and compile); "
-        f"on {card}")
+        f"{rep['collectives'] / steps:.4f} collectives a step "
+        f"{rep['calls']} ({what}); rank 0's launches {rep['launches']}; "
+        f"set-up {prep:.2f} s (world start and compile); on {card}")
+    if rep["launches"].get("sp_replay", 0) < plan.chunks:
+        raise AssertionError(f"config sp {label} did not run on S1: "
+                             f"launches {rep['launches']}")
     return rd
 
 
 def sp_four_ranks(torch, dev, card, np, F, plan_pre4, rd1, rec):
     """The four-rank world: the prefix at sp = 4 (one ``auto_reshard``
-    retry) against the sp = 1 read-back ``rd1``, ``make_sharded_apply``
-    (dp = 2, sp = 2) against the unsharded apply, and the dry run's job.
-    Returns (F1's launches in the sharded apply, in the dry run, the
-    sharded apply's max_abs_err)."""
+    retry) against the sp = 1 read-back ``rd1`` and, chunk by chunk, S1
+    against the plain version; ``make_sharded_apply`` (dp = 2, sp = 2)
+    against the unsharded apply, and the dry run's job. Returns (F1's
+    launches in the sharded apply, in the dry run, the sharded apply's
+    max_abs_err, the S1 check's chunks)."""
     from text_crdt_rust_tpu_torch import sp
     from text_crdt_rust_tpu_torch.ops import span_arrays as SA
     from text_crdt_rust_tpu_torch.parallel import dryrun, launch
@@ -3889,6 +4013,9 @@ def sp_four_ranks(torch, dev, card, np, F, plan_pre4, rd1, rec):
         log(f"config sp, sp={SP_RANKS} against sp=1 on the prefix: {same}")
         if not all(same.values()):
             raise AssertionError(f"sp={SP_RANKS} run differs: {same}")
+        chunks4 = w4.run(sp_chunks_job)
+        sp_check(chunks4, label, card)
+        rec[label]["s1_chunks"] = chunks4
         t0 = time.perf_counter()
         got, f1_sharded, calls = w4.run(sharded_apply_job, 2, 2, **SHARDED)
         sh_s = time.perf_counter() - t0
@@ -3917,12 +4044,12 @@ def sp_four_ranks(torch, dev, card, np, F, plan_pre4, rd1, rec):
     rec["dryrun"] = dict(launches=dr["launches"], s=dr_s,
                          summary=dryrun.summary(dr))
     return (f1_sharded.get("flat_replay", 0),
-            dr["launches"].get("flat_replay", 0), worst)
+            dr["launches"].get("flat_replay", 0), worst, chunks4)
 
 
 def sp_phase(torch, dev, card, np, _kernels, F, plans):
     """Config sp and the rest of the long-context layer (docstring, 27b):
-    returns (A1's parity fields, F1's fields, the phase's record)."""
+    returns (A1's parity fields, F1's fields, S1's kernels-line entry)."""
     from text_crdt_rust_tpu_torch import sp
     from text_crdt_rust_tpu_torch.baseline import native_replay
     from text_crdt_rust_tpu_torch.parallel import launch
@@ -3932,8 +4059,12 @@ def sp_phase(torch, dev, card, np, _kernels, F, plans):
     # -- sp = 1: one rank on the card over NCCL -----------------------------
     with launch.World(1, "nccl", None, timeout=600) as w1:
         rd = sp_stages(w1, plan_full, "whole trace, sp=1", rec, card)
-        rd1 = sp_stages(w1, plan_pre1, f"{SP_PREFIX}-patch prefix, sp=1",
-                        rec, card)
+        chunks_full = w1.run(sp_chunks_job)
+        sp_check(chunks_full, "whole trace, sp=1", card)
+        label1 = f"{SP_PREFIX}-patch prefix, sp=1"
+        rd1 = sp_stages(w1, plan_pre1, label1, rec, card)
+        chunks_pre1 = w1.run(sp_chunks_job)
+        sp_check(chunks_pre1, label1, card)
     ps, want = sp.trace_patches(None)
     native_text = native_replay(ps).to_string()
     _kernels.reset_launches()
@@ -3956,8 +4087,8 @@ def sp_phase(torch, dev, card, np, _kernels, F, plans):
         raise AssertionError(f"config sp failed its checks: {checks}")
     rec["whole trace checks"] = checks
     # -- sp = 4 on the prefix, the sharded apply and the dry run -------------
-    f1_sharded, f1_dryrun, worst = sp_four_ranks(torch, dev, card, np, F,
-                                                 plan_pre4, rd1, rec)
+    f1_sharded, f1_dryrun, worst, chunks_pre4 = sp_four_ranks(
+        torch, dev, card, np, F, plan_pre4, rd1, rec)
     # -- StreamedRuns on a 2^27-row memmapped plane ------------------------
     rec["streamed_runs"] = streamed_runs_phase(torch, dev, np, rd["runs"],
                                                card)
@@ -3967,7 +4098,64 @@ def sp_phase(torch, dev, card, np, _kernels, F, plans):
     a1 = dict(launches_sp_parity=a1_launches, sp_parity_s=par_s)
     f1 = dict(launches_sharded_apply=f1_sharded, launches_dryrun=f1_dryrun,
               sharded_apply_max_abs_err=worst)
-    return a1, f1, rec
+    return a1, f1, sp_line(rec, chunks_full, chunks_pre1, chunks_pre4)
+
+
+def sp_line(rec, chunks_full, chunks_pre1, chunks_pre4):
+    """S1's entry of the kernels line: the main path's launches (the whole
+    trace at sp = 1), the whole trace's chunks re-run on S1 and on the
+    plain version (CUDA events), the bound, and the prefix at sp = 1 and
+    sp = 4."""
+    whole = rec["whole trace, sp=1"]
+    s1 = sum(c["s1_ms"] for c in chunks_full)
+    steps = sum(c["steps"] for c in chunks_full)
+    nbytes, nops = sp_bound(chunks_full)
+    bb = nbytes / PEAK_BYTES_PER_S * 1e3
+    bo = nops / PEAK_OPS_PER_S * 1e3
+    pre4 = rec[f"{SP_PREFIX}-patch prefix, sp={SP_RANKS}"]
+
+    def prefix(chunks, r):
+        return dict(steps=r["steps"], ms_per_step_wall=r["ms_per_step"],
+                    reshards=r["reshards"], launches_rank0=r["launches"],
+                    collectives_per_step=r["collectives_per_step"],
+                    collectives_what=r["collectives_what"],
+                    backend=r["backend"], shared_card=r["shared_card"],
+                    s1_ms=sum(c["s1_ms"] for c in chunks),
+                    plain_ms=sum(c["plain_ms"] for c in chunks),
+                    max_abs_err=max(c["max_abs_err"] for c in chunks))
+
+    return {
+        "name": "sp_replay",
+        "route": "cuda",
+        "source": "text_crdt_rust_tpu_torch/ops/csrc/sp_replay.cu",
+        "replaces": "text_crdt_rust_tpu/parallel/sp_apply.py:487",
+        "jax_counterpart": "text_crdt_rust_tpu/parallel/sp_apply.py::"
+                           "make_sp_apply (jax.jit of a shard_map: lax.scan "
+                           "of step :454-489, lax.while_loop YATA scan "
+                           ":342-402; no pallas_call)",
+        "launches": whole["launches"].get("sp_replay", 0),
+        "launches_path": "sp.sp_replay on config sp's whole trace at sp = 1 "
+                         "(one NCCL rank, 4 chunks, one launch a chunk)",
+        "ms": s1,
+        "ms_per_step": s1 / steps,
+        "ms_what": "the whole trace's 4 chunks re-run on S1 from their "
+                   "input states (CUDA events around each SpReplay call, "
+                   "summed)",
+        "main_path_wall_s": whole["wall_s"],
+        "plain_ms": sum(c["plain_ms"] for c in chunks_full),
+        "bound_ms": max(bb, bo),
+        "bound_by": "bytes" if bb >= bo else "operations",
+        "bound_bytes_ms": bb,
+        "bound_ops_ms": bo,
+        "library_ms": None,
+        "library_why": "no PyTorch call computes a CRDT step chain",
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in chunks_full + chunks_pre1 + chunks_pre4),
+        "prefix_sp1": prefix(chunks_pre1,
+                             rec[f"{SP_PREFIX}-patch prefix, sp=1"]),
+        "prefix_sp4": prefix(chunks_pre4, pre4),
+        "phase_s": rec["phase_s"],
+    }
 
 
 def main() -> int:
@@ -4823,15 +5011,18 @@ def main() -> int:
     log(json.dumps({"native_baseline": native, "ratios": ratios},
                    default=str))
     # -- config sp: parallel/ and ops/stream_scan on the card ----------------
-    a1_sp, f1_sp, _ = sp_phase(torch, dev, card, np, _kernels, F,
-                               sp_plan_list)
+    a1_sp, f1_sp, s1_line = sp_phase(torch, dev, card, np, _kernels, F,
+                                     sp_plan_list)
     rle_line.update(a1_sp)
     flat_line.update(f1_sp)
+    s1_line["ptxas"] = [ln.strip() for ln in reports.get(
+        "sp_replay", "").splitlines() if "registers" in ln or "spill" in ln]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"end")
     log(json.dumps({"kernels": [rle_line, mixed_line, a6_line, a7_line,
                                 a4_line, a5_line, hbm_line, a8_line,
-                                a9_line, a10_line, flat_line]},
+                                a9_line, a10_line, flat_line,
+                                s1_line]},
                     default=str))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1023,6 +1023,13 @@ def test_sp_doc_one_nccl_rank_matches_cpu(card):
                       parity=False)
     assert kern.ok and kern.parity_ok and plain.ok
     assert kern.shape["device"] == "cuda:0"
+    # S1: one launch a stream attempt at sp = 1, nothing on the CPU.
+    assert kern.replay["launches"]["sp_replay"] == (
+        plan1.chunks + kern.replay["reshards"])
+    assert plain.replay["launches"].get("sp_replay", 0) == 0
+    # Mesh calls: each attempt's closing OR (and a reshard's read-back).
+    assert kern.replay["collectives"] <= (
+        plan1.chunks + 2 * kern.replay["reshards"])
     for k in ("expand", "text", "rows"):
         assert np.array_equal(np.asarray(kern.read[k]),
                               np.asarray(plain.read[k])), k
@@ -1030,6 +1037,129 @@ def test_sp_doc_one_nccl_rank_matches_cpu(card):
                     plan=sp.plan_sp(3000, 2, slack=1.0), parity=False)
     assert two.ok and two.shape["shared_card"]
     assert np.array_equal(two.read["expand"], kern.read["expand"])
+    assert two.replay["launches"]["sp_replay"] > two.plan.chunks
+
+
+def _sp_cols(ops, chunk=None):
+    """Op-column blocks ``[9, S]`` (int32 bits) of ``ops``, whole or cut
+    every ``chunk`` steps."""
+    from text_crdt_rust_tpu_torch.parallel.sp_apply import OP_FIELDS
+    cols = np.stack([np.asarray(getattr(ops, f), np.uint32).view(np.int32)
+                     for f in OP_FIELDS])
+    step = chunk or cols.shape[1]
+    return [cols[:, i:i + step] for i in range(0, cols.shape[1], step)]
+
+
+def _sp_local(patches, lmax=8):
+    return TB.compile_local_patches(TB.merge_patches(patches), lmax=lmax,
+                                    dmax=None)[0]
+
+
+def _sp_remote(txns, lmax=8):
+    table = TB.AgentTable(sorted({t.id.agent for t in txns}))
+    return TB.compile_remote_txns(txns, table, lmax=lmax, dmax=None)[0]
+
+
+def _sp_order_miss():
+    from text_crdt_rust_tpu_torch.common import RemoteId, RemoteIns, RemoteTxn
+    root = RemoteId("ROOT", 0xFFFFFFFF)
+    txns = [RemoteTxn(id=RemoteId("a", 0), parents=[],
+                      ops=[RemoteIns(root, root, "ab")]),
+            RemoteTxn(id=RemoteId("a", 2), parents=[],
+                      ops=[RemoteIns(RemoteId("a", 1), root, "cd")])]
+    cols = _sp_cols(_sp_remote(txns))[0].copy()
+    cols[4, 1] = 90                     # an absent origin
+    return [cols]
+
+
+def _sp_tombstone_split():
+    """A remote insert between two deleted characters: it splits a
+    tombstone run, whose tail keeps its sign."""
+    from text_crdt_rust_tpu_torch.common import (RemoteDel, RemoteId,
+                                                 RemoteIns, RemoteTxn)
+    root = RemoteId("ROOT", 0xFFFFFFFF)
+    seen = [RemoteId("amy", 5)]
+    txns = [RemoteTxn(id=RemoteId("amy", 0), parents=[],
+                      ops=[RemoteIns(root, root, "abcdef")]),
+            RemoteTxn(id=RemoteId("bob", 0), parents=seen,
+                      ops=[RemoteDel(RemoteId("amy", 1), 3)]),
+            RemoteTxn(id=RemoteId("cat", 0), parents=seen,
+                      ops=[RemoteDel(RemoteId("amy", 2), 3)]),
+            RemoteTxn(id=RemoteId("bob", 3), parents=seen,
+                      ops=[RemoteIns(RemoteId("amy", 2), RemoteId("amy", 3),
+                                     "XY")])]
+    return _sp_cols(_sp_remote(txns))
+
+
+def _sp_storm(seed, del_prob=0.0):
+    return _sp_remote(randedit.make_storm(4, 8, 3, seed=seed,
+                                          del_prob=del_prob)[0])
+
+
+_SP_RANDOM = lambda: _sp_local(randedit.random_patches(
+    random.Random(1), 300)[0])
+
+#: name -> (rows a shard, table rows a shard, op-column blocks, stale rows
+#: past ``rows`` (sp = 1), an even reload after each block, the error bit
+#: the last block raises, 0 for none)
+SP_CASES = {
+    "local": lambda: (1024, 64, _sp_cols(_SP_RANDOM(), 64), None, False, 0),
+    "local-capacity": lambda: (24, 64, _sp_cols(_SP_RANDOM(), 64), None,
+                               False, 1),
+    "local-resharded": lambda: (480, 64, _sp_cols(_SP_RANDOM(), 64), None,
+                                True, 0),
+    "bad-delete": lambda: (32, 64, _sp_cols(_sp_local(
+        [TestPatch(0, 0, "ab"), TestPatch(0, 5, "")])), None, False, 2),
+    "storm": lambda: (96, 1024, _sp_cols(_sp_storm(5), 16), None, True, 0),
+    "storm-deletes": lambda: (128, 1024, _sp_cols(_sp_storm(7, 0.4), 16),
+                              None, True, 0),
+    "storm-deletes-capacity": lambda: (20, 1024, _sp_cols(
+        _sp_storm(7, 0.4), 16), None, False, 1),
+    "two-peer": lambda: (128, 1024, _sp_cols(_sp_remote(
+        randedit.make_two_peer_merge(3, rounds=6)[0], lmax=4), 24), None,
+        True, 0),
+    "order-miss": lambda: (16, 64, _sp_order_miss(), None, False, 8),
+    "tombstone-split": lambda: (16, 64, _sp_tombstone_split(), None, False,
+                                0),
+    "stale-rows": lambda: (256, 64, _sp_cols(_sp_local(
+        randedit.random_patches(random.Random(4), 60)[0]), 30),
+        (200, [5, -9, 77], [3, 1, 2]), False, 0),
+}
+
+
+@pytest.fixture(scope="module")
+def sp_worlds():
+    """A one-rank NCCL world and two ranks sharing the card over gloo."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from text_crdt_rust_tpu_torch.parallel.launch import World
+    w1 = World(1, "nccl", timeout=300)
+    w2 = World(2, "gloo", "cuda:0", timeout=300)
+    yield {1: w1, 2: w2}
+    w1.close()
+    w2.close()
+
+
+@pytest.mark.parametrize("name, nsp", [(n, k) for n in sorted(SP_CASES)
+                                       for k in (1, 2)
+                                       if not (n == "stale-rows" and k > 1)])
+def test_sp_kernel_matches_plain(sp_worlds, name, nsp):
+    """S1 (one launch a block at sp = 1, one a segment at sp = 2) leaves
+    every output as the plain version does from the same state, bit for
+    bit: the whole ``[R]`` planes (rows past ``rows`` too), ``rows``, the
+    tables, both logs and the error bits; the error paths included."""
+    import torch_world_jobs as jobs
+
+    R, OTS, streams, stale, reshard, last_err = SP_CASES[name]()
+    got = sp_worlds[nsp].run(jobs.sp_kernel_job, nsp, R, OTS, None,
+                             streams, stale, reshard)
+    for err, rows, bad, launches in got:
+        assert bad == [], (name, nsp, bad)
+        assert launches == 1 if nsp == 1 else launches > 1
+    if last_err:
+        assert got[-1][0] & last_err, got[-1]
+    else:
+        assert got[-1][0] == 0 and len(got) == len(streams)
 
 
 def test_streamed_runs_on_the_card_match_cpu(card):

@@ -79,6 +79,7 @@ def test_port_imports_with_jax_blocked():
         "          'native.build', 'examples.soak', 'examples.stats',\n"
         "          'ops.stream_scan', 'parallel.launch', 'parallel.mesh',\n"
         "          'parallel.sp_runs', 'parallel.sp_apply',\n"
+        "          'parallel.sp_kernel',\n"
         "          'parallel.dryrun', 'sp', 'obs.analyze',\n"
         "          'analysis', 'analysis.tcrlint', 'analysis.dataflow',\n"
         "          'analysis.lint', 'analysis.checks_wallclock',\n"

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from text_crdt_rust_tpu_torch import convert
 from text_crdt_rust_tpu_torch.ops import span_arrays as TSA
 from text_crdt_rust_tpu_torch.parallel.mesh import (
     gather_docs,
@@ -52,7 +53,9 @@ def doc_from_numpy(cols: dict, batched: bool) -> TSA.FlatDoc:
 def sp_doc_job(ctx, nsp, shard_rows, order_rows, auto_reshard, script):
     """Run ``script`` on a fresh ``SpDoc`` over an ``sp = nsp`` mesh. Each
     entry: ``("load", ordp, lenp)``, ``("tables", oll, orl, rkl)``,
-    ``("apply", ops)`` (a ``RuntimeError`` is kept as ``("error", msg)``
+    ``("planes", planes, ol_log, or_log)`` (a JAX ``SpDoc``'s gathered
+    state, ``convert.sp_doc_from_numpy``), ``("apply", ops)`` (a
+    ``RuntimeError`` is kept as ``("error", msg)``
     and ends the script), ``("read",)`` (planes, expand and origin logs)
     or ``("text",)`` (the content of the streams applied so far). Returns
     the list of each entry's result."""
@@ -69,6 +72,9 @@ def sp_doc_job(ctx, nsp, shard_rows, order_rows, auto_reshard, script):
         elif kind == "tables":
             doc.load_tables(*entry[1:])
             out.append(None)
+        elif kind == "planes":
+            convert.sp_doc_from_numpy(doc, *entry[1:])
+            out.append(None)
         elif kind == "apply":
             try:
                 doc.apply_stream(entry[1])
@@ -82,6 +88,9 @@ def sp_doc_job(ctx, nsp, shard_rows, order_rows, auto_reshard, script):
             out.append(doc.to_string(applied))
         elif kind == "read":
             out.append({"planes": doc.planes(), "expand": doc.expand(),
+                        "dtypes": sorted({str(getattr(doc, k).dtype) for k
+                                          in ("ordp", "lenp", "rows", "oll",
+                                              "orl", "rkl")}),
                         "ol_log": dict(doc.ol_log),
                         "or_log": dict(doc.or_log)})
         else:
@@ -186,3 +195,57 @@ def counted_sp_replay(ctx):
     with Count() as c:
         sp.sp_replay(ctx)
     return steps, sum(c.n.values()), c.n["aten._local_scalar_dense"]
+
+
+SP_OUTPUTS = ("ordp", "lenp", "rows", "oll", "orl", "rkl", "ols", "ors",
+              "err")
+
+
+def sp_kernel_job(ctx, nsp, shard_rows, order_rows, runs, streams,
+                  stale=None, reshard=False):
+    """S1 against the plain version on one ``SpDoc``'s state over an
+    ``sp = nsp`` mesh on the card: for each op-column block of
+    ``streams`` (int32 ``[9, S]``), ``SpReplay`` (S1: one launch at sp = 1,
+    one a segment at sp > 1) and ``SpReplay.plain`` from the same state;
+    the plain result is committed when clean (``reshard``: then an even
+    reload, so later streams cross shards). ``runs`` loads a document
+    first; ``stale`` = (row, ordp, lenp) writes nonzero rows past
+    ``rows``. Returns per stream (error bits, rows a shard, outputs that
+    differ on any rank, S1's launches on this rank)."""
+    import torch
+
+    from text_crdt_rust_tpu_torch.ops import _kernels
+
+    mesh = make_mesh(n_devices=nsp, dp=1, sp=nsp, device=ctx.device)
+    if not mesh.member:
+        return None
+    doc = SpDoc(mesh, shard_rows, order_rows)
+    if runs is not None:
+        doc.load(*runs)
+    if stale is not None:
+        at, o, ln = stale
+        doc.ordp[at:at + len(o)] = torch.as_tensor(o, dtype=torch.int32)
+        doc.lenp[at:at + len(o)] = torch.as_tensor(ln, dtype=torch.int32)
+    rep = doc._replay
+    out = []
+    for cols in streams:
+        state = (doc.ordp, doc.lenp, doc.rows, doc.oll, doc.orl, doc.rkl)
+        _kernels.reset_launches()
+        kern = rep(*state, *cols)
+        torch.cuda.synchronize()
+        launches = _kernels.launches.get("sp_replay", 0)
+        plain = rep.plain(*state, cols)
+        mask = sum(1 << i for i, (k, p) in enumerate(zip(kern, plain))
+                   if not torch.equal(k.reshape(-1).cpu(),
+                                      p.reshape(-1).cpu()))
+        mask = int(mesh.bor(torch.tensor([mask], dtype=torch.int32,
+                                         device=mesh.device))[0])
+        bad = [n for i, n in enumerate(SP_OUTPUTS) if mask >> i & 1]
+        rows = mesh.all_gather(plain[2]).reshape(-1).tolist()
+        out.append((int(plain[-1]), rows, bad, launches))
+        if int(plain[-1]):
+            break
+        doc.ordp, doc.lenp, doc.rows, doc.oll, doc.orl, doc.rkl = plain[:6]
+        if reshard:
+            doc.load(*doc.runs())
+    return out

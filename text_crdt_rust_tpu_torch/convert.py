@@ -17,7 +17,10 @@ arrays, so a state the JAX package left can warm-start the port's next
 chunk, and back. ``lane_backend_to_numpy`` / ``lane_backend_from_numpy``
 do the same for a serve ``LanesMixedLaneBackend``: the 11-tuple plus its
 host mirrors (the rank table, the run-row bound, the fresh-lane marks)
-and the last tick's exact row counts.
+and the last tick's exact row counts. ``sp_doc_from_numpy`` loads an
+``SpDoc``'s gathered planes (the JAX ``SpDoc``'s global arrays) into the
+port's shards as they are, so both packages continue one document from the
+same mid-stream state.
 """
 from __future__ import annotations
 
@@ -193,3 +196,34 @@ def lane_backend_from_numpy(backend, fields: Dict[str, np.ndarray]) -> None:
         np.array(prev, dtype=np.int32)).to(backend.device))
     backend._prev_res = backend._prev_token = None
     backend._prev_checked = True
+
+
+#: An ``SpDoc``'s gathered planes (``SpDoc.planes()``, the JAX ``SpDoc``'s
+#: global arrays) and the rows a shard each holds.
+SP_PLANES = {"ordp": "R", "lenp": "R", "rows": 1, "oll": "OTS",
+             "orl": "OTS", "rkl": "OTS"}
+
+
+def sp_doc_from_numpy(doc, planes: Dict[str, np.ndarray], ol_log=None,
+                      or_log=None) -> None:
+    """Load either package's gathered ``SpDoc`` state (``ordp``/``lenp``
+    ``[sp * R]``, ``rows`` ``[sp]``, ``oll``/``orl``/``rkl`` ``[sp * OTS]``,
+    int32; the JAX ``SpDoc``'s global arrays) into the port's ``doc``
+    exactly: this rank's shard of each, its rows past ``rows`` and its
+    table slice as they are (``SpDoc.load`` re-packs evenly instead), on
+    the mesh's device; and the origin logs when given. Every rank of the
+    group calls it with the same arrays."""
+    s = doc.mesh.index("sp")
+    sizes = {"R": doc.R, "OTS": doc.OTS, 1: 1}
+    for name, size in SP_PLANES.items():
+        n = sizes[size]
+        a = np.asarray(planes[name]).astype(np.int32).reshape(-1)
+        if a.shape != (doc.nsp * n,):
+            raise ValueError(f"{name} holds {a.shape[0]} entries, not "
+                             f"{doc.nsp} x {n}")
+        setattr(doc, name, torch.from_numpy(a[s * n:(s + 1) * n].copy())
+                .to(doc.mesh.device))
+    if ol_log is not None:
+        doc.ol_log = {int(k): int(v) for k, v in ol_log.items()}
+    if or_log is not None:
+        doc.or_log = {int(k): int(v) for k, v in or_log.items()}

@@ -10,6 +10,8 @@ on ``torch.distributed``:
                  over ``sp``: shard-local scans plus one small collective;
 - ``sp_apply`` — the write side, ``SpDoc``: local and remote edits on the
                  same layout (config ``sp``'s ``sp-apply`` engine);
+- ``sp_kernel`` — S1, its step program as one CUDA kernel
+                 (``ops/csrc/sp_replay.cu``), and its wrappers;
 - ``dryrun``   — the multi-rank dry run over all of the above;
 - ``causal``   — the causal receive buffer for out-of-order remote txns.
 """

@@ -11,8 +11,8 @@ ORDER RANGE: shard ``s`` owns orders ``[s*OTS, (s+1)*OTS)``.
 
 Each step runs the phases of the JAX ``step`` in its order — local delete,
 local insert, remote delete, remote insert (the YATA integrate loop), table
-upkeep — as shard-local torch work on the rank's ``[R]`` rows and ``[OTS]``
-table slice between the mesh's collectives (``parallel/mesh.py``):
+upkeep — as shard-local work on the rank's ``[R]`` rows and ``[OTS]`` table
+slice between the mesh's collectives (``parallel/mesh.py``):
 
 - **local delete** (`mutations.rs:520-570`): every shard clips the live
   span ``[p, p+d)`` against its carry-adjusted cumsum and flips or
@@ -30,16 +30,26 @@ table slice between the mesh's collectives (``parallel/mesh.py``):
   active);
 - at the end of the stream, one all-gather ORs the error bits.
 
+The phases are cut at their collectives into segments (``_Shard``'s
+methods, ``SEG_*`` of ``parallel/sp_kernel.py``); ``drive`` runs a
+stream's segments in order and makes the collectives between them.
+``_Shard``'s segments in torch are the plain version, the specification;
+on CUDA tensors ``SpReplay`` runs S1 (``ops/csrc/sp_replay.cu``): the whole
+stream in one launch at sp = 1, where each collective of a one-rank group
+is the identity that S1 makes in place (``Mesh.calls`` then counts only
+the closing OR), and at sp > 1 ``drive`` over ``sp_kernel.KernelSegments``,
+one launch for the work between two collectives.
+
 What differs from the JAX program, without changing a result bit:
 
 - the op stream is host data replicated on every rank, so a phase that the
-  step's kind and lengths switch off is skipped on the host (the JAX scan
-  runs it masked, as a no-op, with its collectives);
+  step's kind and lengths switch off is skipped (the JAX scan runs it
+  masked, as a no-op, with its collectives);
 - the scalars one JAX phase psums apart ride one sum here, and the remote
   insert's probes reuse the raw carry computed when the scan starts (the
   scan mutates nothing), where the JAX program all-gathers it again;
-- the integrate loop's predicate is read to the host once an iteration
-  (``.item()``); it is computed from collective results only, so every rank
+- at sp > 1 the integrate loop's predicate is read to the host once an
+  iteration; it is computed from collective results only, so every rank
   leaves at the same iteration.
 
 Indices computed on the device are read as JAX reads them (negative counts
@@ -65,8 +75,30 @@ from ..ops.batch import (
     OpTensors,
     require_unfused,
 )
+from . import sp_kernel as SK
 from .mesh import Mesh
-from .sp_runs import carry_of, cumsum32, first_true, pick, sum32, take
+from .sp_kernel import (
+    SEG_FINISH,
+    SEG_INIT,
+    SEG_LD_COVER,
+    SEG_LD_SPLIT,
+    SEG_LD_TOTAL,
+    SEG_LI_END,
+    SEG_LI_HEAD,
+    SEG_LI_SPLICE,
+    SEG_RD_COVER,
+    SEG_RD_SPLIT,
+    SEG_RI_END,
+    SEG_RI_LEFT,
+    SEG_RI_NEXT,
+    SEG_RI_OLEFT,
+    SEG_RI_RUN,
+    SEG_RI_SPLICE,
+    SEG_RI_START,
+    SEG_RI_TABS,
+    SEG_RI_TOTAL,
+)
+from .sp_runs import cumsum32, first_true, pick, sum32, take
 
 I32 = torch.int32
 ROOT_I = int(np.uint32(ROOT_ORDER).view(np.int32))  # -1
@@ -95,10 +127,15 @@ def _flag(cond: torch.Tensor, bit: int) -> torch.Tensor:
 
 
 class _Shard:
-    """One rank's state during a stream and the phases of a step."""
+    """One rank's state during a stream and the segments of a step: the
+    plain version, the specification S1 (``ops/csrc/sp_replay.cu``) is held
+    to. A segment is the shard-local work between two collectives; it
+    reads the last collective's result (``recv``) and leaves the next
+    one's input (``send``). ``drive`` runs them in the JAX ``step`` order
+    and makes the collectives."""
 
     def __init__(self, mesh: Mesh, R: int, OTS: int, ordp, lenp, nrows,
-                 oll, orl, rkl):
+                 oll, orl, rkl, cols: np.ndarray):
         self.mesh, self.R, self.OTS = mesh, R, OTS
         dev = ordp.device
         self.sidx = mesh.index("sp")
@@ -108,6 +145,48 @@ class _Shard:
         self.ordp, self.lenp, self.nrows = ordp, lenp, nrows
         self.oll, self.orl, self.rkl = oll, orl, rkl
         self.err = torch.zeros((), dtype=I32, device=dev)
+        self.cols = cols
+        S = cols.shape[1]
+        self.ols = torch.zeros(S, dtype=I32, device=dev)
+        self.ors = torch.zeros(S, dtype=I32, device=dev)
+        self.yes = torch.ones((), dtype=torch.bool, device=dev)
+        self.send = self.recv = None
+        self._segments = {
+            SEG_INIT: lambda s, op: None,
+            SEG_LD_TOTAL: self.ld_total, SEG_LD_COVER: self.ld_cover,
+            SEG_LD_SPLIT: self.ld_split,
+            SEG_LI_HEAD: self.li_head, SEG_LI_SPLICE: self.li_splice,
+            SEG_LI_END: self.li_end,
+            SEG_RD_COVER: self.rd_cover, SEG_RD_SPLIT: self.rd_split,
+            SEG_RI_TOTAL: self.ri_total, SEG_RI_LEFT: self.ri_left,
+            SEG_RI_START: self.ri_start, SEG_RI_RUN: self.ri_run,
+            SEG_RI_TABS: self.ri_tabs, SEG_RI_OLEFT: self.ri_oleft,
+            SEG_RI_NEXT: self.ri_next, SEG_RI_SPLICE: self.ri_splice,
+            SEG_RI_END: self.ri_end, SEG_FINISH: self.finish}
+
+    # ---- the driver's interface -------------------------------------------
+
+    def run(self, code: int, s: int) -> None:
+        op = (tuple(self.cols[:, s].tolist()) if s < self.cols.shape[1]
+              else None)
+        self._segments[code](s, op)
+
+    def gather(self) -> None:
+        self.recv = self.mesh.all_gather(self.send)
+
+    def sum(self) -> None:
+        self.recv = self.mesh.sum(self.send)
+
+    def more(self) -> bool:
+        """The integrate loop's predicate, read to the host; computed from
+        collective results only, so every rank leaves at the same
+        iteration."""
+        return bool(~self.done & (self.cursor < self.n))
+
+    def result(self):
+        err = self.mesh.bor(self.send)[0]
+        return (self.ordp, self.lenp, self.nrows.reshape(1), self.oll,
+                self.orl, self.rkl, self.ols, self.ors, err)
 
     # ---- by-order tables (sharded by order range) ------------------------
 
@@ -130,6 +209,21 @@ class _Shard:
         return torch.where(hit, torch.where(self.tab_g == st, head_val,
                                             self.tab_g - 1), tab)
 
+    def upkeep(self, s, op, ins_on, head_ol, run_or) -> None:
+        """Table upkeep (replicated values, masked to the order-range
+        owners) and step ``s``'s log entries: a local insert records the
+        origins it discovered, a remote insert its given ones; a
+        capacity-blocked splice records nothing."""
+        rk, il, st = op[6], op[7], op[8]
+        self.oll = torch.where(ins_on, self.tab_write_chain(
+            self.oll, st, il, head_ol), self.oll)
+        self.orl = torch.where(ins_on, self.tab_write_run(
+            self.orl, st, il, run_or), self.orl)
+        self.rkl = torch.where(ins_on, self.tab_write_run(
+            self.rkl, st, il, rk), self.rkl)
+        self.ols[s] = head_ol
+        self.ors[s] = run_or
+
     # ---- order -> raw position -------------------------------------------
 
     def raw_pos_terms(self, o, raw_carry, rawcum):
@@ -144,14 +238,23 @@ class _Shard:
         return (torch.where(found_l, raw_carry + raw_before + off, 0),
                 found_l.to(I32))
 
-    def cursor_after(self, o, need, raw_carry, rawcum):
-        """The replicated raw cursor just after order ``o`` (0 for ROOT),
-        flagging an unknown or absent order when ``need``."""
-        is_root = o == ROOT_I
+    def cursor_terms(self, o, need) -> None:
+        """The first half of the replicated raw cursor just after order
+        ``o``: flags an unknown order when ``need`` and sends this shard's
+        (raw position term, found)."""
         self.err = self.err | _flag(need & (o == TAB_UNKNOWN),
                                     ERR_ORDER_MISS)
-        p, f = self.raw_pos_terms(torch.clamp(o, min=0), raw_carry, rawcum)
-        red = self.mesh.sum(torch.stack([p, f]).to(I32))
+        p, f = self.raw_pos_terms(torch.clamp(o, min=0), self.carry,
+                                  self.rawcum)
+        self.send = torch.stack([p, f]).to(I32)
+        self.cursor_of = (o, need)
+
+    def cursor_done(self):
+        """The second half: the cursor (0 for ROOT) from the summed terms,
+        flagging an absent order when ``need``."""
+        o, need = self.cursor_of
+        red = self.recv
+        is_root = o == ROOT_I
         self.err = self.err | _flag(need & ~is_root & (red[1] == 0),
                                     ERR_ORDER_MISS)
         return torch.where(is_root, 0, red[0] + 1)
@@ -205,34 +308,67 @@ class _Shard:
         a1 = self.apply_partial(act & (npart == 2), i1, cs, ce)
         self.nrows = self.nrows + torch.where(act, a1 + a2, 0)
 
-    def do_delete(self, p: int, d: int):
-        """Local delete of live span [p, p+d): every shard retires its
-        intersection in one clip pass."""
-        ordp, lenp = self.ordp, self.lenp
-        lv = torch.where(ordp > 0, lenp, 0)
-        local = cumsum32(lv)
-        carry, _ = carry_of(self.mesh, local[-1])
-        before = carry + local - lv
-        cs = torch.minimum((p - before).clamp(min=0), lv)
-        ce = torch.minimum((p + d - before).clamp(min=0), lv)
-        cov = ce - cs
-        covered = self.mesh.sum(sum32(cov))
-        self.err = self.err | _flag(covered < d, ERR_BAD_DELETE)
-        full = (cov > 0) & (cov == lenp)
-        part = (cov > 0) & ~full
-        self.clip_and_split(full, part, cs, ce)
+    def splice(self, active, is_split, mrg, i_r, ins_at, o_r, l_r, off,
+               tail_o, il, st):
+        """The insert splice shared by both inserts: rows from ``ins_at``
+        shift by 0, 1 or 2 (a circular roll of the whole plane), the run
+        at ``i_r`` is cut or grown, the new run and a split's tail are
+        written."""
+        idx = self.idx
+        amt = torch.where(~active | mrg, 0,
+                          torch.where(is_split, 2, 1)).to(I32)
+        so = _shift2(self.ordp, amt)
+        sl = _shift2(self.lenp, amt)
+        no = torch.where(idx < ins_at, self.ordp, so)
+        nl = torch.where(idx < ins_at, self.lenp, sl)
+        nl = torch.where(active & is_split & (idx == i_r), off, nl)
+        new_run = active & ~mrg & (idx == ins_at)
+        no = torch.where(new_run, st + 1, no)
+        nl = torch.where(new_run, il, nl)
+        tail = active & is_split & (idx == ins_at + 1)
+        no = torch.where(tail, tail_o, no)
+        nl = torch.where(tail, l_r - off, nl)
+        nl = torch.where(active & mrg & (idx == i_r), l_r + il, nl)
+        self.ordp, self.lenp = no, nl
+        self.nrows = self.nrows + amt
 
-    def do_insert(self, p: int, il: int, st: int):
-        """Local insert at live rank ``p``: the owner shard splices; the
-        discovered origins reach every shard in one sum. Returns
-        (left origin, right origin, active anywhere)."""
+    # ---- local delete: live span [p, p+d), every shard clips its part -----
+
+    def ld_total(self, s, op):
+        self.lv = torch.where(self.ordp > 0, self.lenp, 0)
+        self.local = cumsum32(self.lv)
+        self.send = self.local[-1].reshape(1)
+
+    def ld_cover(self, s, op):
+        p, d = op[1], op[2]
+        carry = sum32(self.recv.reshape(-1)[:self.sidx])
+        before = carry + self.local - self.lv
+        self.cs = torch.minimum((p - before).clamp(min=0), self.lv)
+        self.ce = torch.minimum((p + d - before).clamp(min=0), self.lv)
+        self.cov = self.ce - self.cs
+        self.send = sum32(self.cov).reshape(1)
+
+    def ld_split(self, s, op):
+        covered = self.recv[0]
+        self.err = self.err | _flag(covered < op[2], ERR_BAD_DELETE)
+        full = (self.cov > 0) & (self.cov == self.lenp)
+        part = (self.cov > 0) & ~full
+        self.clip_and_split(full, part, self.cs, self.ce)
+
+    # ---- local insert at live rank p: the owner shard splices -------------
+
+    def li_head(self, s, op):
+        self.lv = torch.where(self.ordp > 0, self.lenp, 0)
+        self.local = cumsum32(self.lv)
+        head = torch.where(self.nrows > 0, self.ordp[0], 0)
+        self.send = torch.stack([self.local[-1], head])
+
+    def li_splice(self, s, op):
+        p, il, st = op[1], op[7], op[8]
         R, idx, sidx = self.R, self.idx, self.sidx
         ordp, lenp, nrows = self.ordp, self.lenp, self.nrows
-        lv = torch.where(ordp > 0, lenp, 0)
-        local = cumsum32(lv)
-        head = torch.where(nrows > 0, ordp[0], 0)
-        g = self.mesh.all_gather(torch.stack([local[-1], head]))  # [sp, 2]
-        totals, heads = g[:, 0], g[:, 1]
+        lv, local = self.lv, self.local
+        totals, heads = self.recv[:, 0], self.recv[:, 1]
         carry = sum32(totals[:sidx])
         if p == 0:
             owner = torch.full((), sidx == 0, device=ordp.device)
@@ -271,111 +407,133 @@ class _Shard:
         right = torch.where(succ == 0, ROOT_I, succ.abs() - 1)
 
         ins_at = torch.zeros_like(i_r) if p == 0 else i_r + 1
-        amt = torch.where(~active | mrg, 0, torch.where(is_split, 2, 1))
-        so = _shift2(ordp, amt)
-        sl = _shift2(lenp, amt)
-        no = torch.where(idx < ins_at, ordp, so)
-        nl = torch.where(idx < ins_at, lenp, sl)
-        nl = torch.where(active & is_split & (idx == i_r), off, nl)
-        new_run = active & ~mrg & (idx == ins_at)
-        no = torch.where(new_run, st + 1, no)
-        nl = torch.where(new_run, il, nl)
-        tail = active & is_split & (idx == ins_at + 1)
-        no = torch.where(tail, o_r + off, no)
-        nl = torch.where(tail, l_r - off, nl)
-        nl = torch.where(active & mrg & (idx == i_r), l_r + il, nl)
-        self.ordp, self.lenp = no, nl
-        self.nrows = nrows + amt
-
-        red = self.mesh.sum(torch.stack([
+        self.splice(active, is_split, mrg, i_r, ins_at, o_r, l_r, off,
+                    o_r + off, il, st)
+        self.owner, self.cap_bad = owner, cap_bad
+        self.send = torch.stack([
             owner.to(I32), torch.where(active, left, 0).to(I32),
-            torch.where(active, right, 0).to(I32), active.to(I32)]))
-        self.err = (self.err | _flag(red[0] == 0, ERR_NO_OWNER)
-                    | _flag(owner & cap_bad, ERR_CAPACITY))
-        any_act = red[3] > 0
-        return (torch.where(any_act, red[1], 0),
-                torch.where(any_act, red[2], 0), any_act)
+            torch.where(active, right, 0).to(I32), active.to(I32)])
 
-    def do_remote_delete(self, t: int, d: int):
-        """Order-interval tombstone of [t, t+d) (`doc.rs:295-340`): covered
-        dead runs count toward the idempotency total without flipping
+    def li_end(self, s, op):
+        red = self.recv
+        self.err = (self.err | _flag(red[0] == 0, ERR_NO_OWNER)
+                    | _flag(self.owner & self.cap_bad, ERR_CAPACITY))
+        any_act = red[3] > 0
+        self.upkeep(s, op, any_act, torch.where(any_act, red[1], 0),
+                    torch.where(any_act, red[2], 0))
+
+    # ---- remote delete: the order interval [t, t+d) ------------------------
+
+    def rd_cover(self, s, op):
+        """Order-interval tombstone (`doc.rs:295-340`): covered dead runs
+        count toward the idempotency total without flipping
         (`double_delete.rs:6-9`)."""
+        d, t = op[2], op[3]
         ordp, lenp = self.ordp, self.lenp
         so = ordp.abs() - 1
         occ = ordp != 0
-        cs = torch.minimum((t - so).clamp(min=0), lenp)
-        ce = torch.minimum((t + d - so).clamp(min=0), lenp)
-        cov = torch.where(occ, ce - cs, 0)
-        covered = self.mesh.sum(sum32(cov))
-        self.err = self.err | _flag(covered < d, ERR_BAD_DELETE)
-        live = ordp > 0
-        full = live & (cov > 0) & (cov == lenp)
-        part = live & (cov > 0) & ~(cov == lenp)
+        self.cs = torch.minimum((t - so).clamp(min=0), lenp)
+        self.ce = torch.minimum((t + d - so).clamp(min=0), lenp)
+        self.cov = torch.where(occ, self.ce - self.cs, 0)
+        self.send = sum32(self.cov).reshape(1)
+
+    def rd_split(self, s, op):
+        covered = self.recv[0]
+        self.err = self.err | _flag(covered < op[2], ERR_BAD_DELETE)
+        cov, live = self.cov, self.ordp > 0
+        full = live & (cov > 0) & (cov == self.lenp)
+        part = live & (cov > 0) & ~(cov == self.lenp)
         # Max growth is +2: one run holding both endpoints 3-way splits,
         # or the two endpoint runs each split one-sided.
-        self.clip_and_split(full, part, cs, ce)
+        self.clip_and_split(full, part, self.cs, self.ce)
 
-    def integrate(self, my_rank: int, o_left: int, o_right: int):
-        """The YATA conflict scan (`doc.rs:183-222`) with the scan state
-        replicated; conflict-free ops leave on the first probe
-        (`doc.rs:192-194`). Returns (cursor, raw cumsum, raw carry)."""
-        R, idx, mesh = self.R, self.idx, self.mesh
-        ordp, lenp, nrows = self.ordp, self.lenp, self.nrows
-        rawcum = cumsum32(lenp)
-        carry, totals = carry_of(mesh, rawcum[-1])
-        n = sum32(totals)
-        yes = torch.ones((), dtype=torch.bool, device=ordp.device)
-        left_cursor = self.cursor_after(
-            torch.tensor(o_left, dtype=I32, device=ordp.device), yes, carry,
-            rawcum)
-        cursor, scan_start = left_cursor, left_cursor
-        scanning = torch.zeros_like(yes)
-        done = torch.zeros_like(yes)
-        while bool(~done & (cursor < n)):
-            own = (cursor >= carry) & (cursor < carry + rawcum[-1])
-            local = cursor - carry
-            i_r = sum32((rawcum <= local) & (idx < nrows)).clamp(max=R - 1)
-            red = mesh.sum(torch.stack([
-                torch.where(own, pick(ordp, i_r), 0),
-                torch.where(own, pick(lenp, i_r), 0),
-                torch.where(own, local - (pick(rawcum, i_r)
-                                          - pick(lenp, i_r)), 0)]))
-            o_r, l_r, off = red[0], red[1], red[2]
-            so = o_r.abs() - 1
-            other_order = so + off
-            tabs = mesh.sum(torch.stack([
-                self.tab_local(self.oll, other_order),
-                self.tab_local(self.orl, other_order),
-                self.tab_local(self.rkl, other_order)]))
-            other_left, other_right, other_rank = tabs[0], tabs[1], tabs[2]
-            olc = self.cursor_after(other_left, ~done, carry, rawcum)
-            brk = (other_order == o_right) | (olc < left_cursor)
-            eq = ~brk & (olc == left_cursor)
-            gt = my_rank > other_rank
-            brk = brk | (eq & ~gt & (o_right == other_right))
-            starts_scan = eq & ~gt & (o_right != other_right)
-            scan_start = torch.where(starts_scan & ~scanning, cursor,
-                                     scan_start)
-            scanning = torch.where(
-                eq, torch.where(gt, False,
-                                torch.where(o_right == other_right,
-                                            scanning, True)),
-                scanning)
-            contains_right = (o_right > other_order) & (o_right < so + l_r)
-            stp = torch.where(contains_right, o_right - other_order,
-                              l_r - off)
-            cursor = torch.where(brk, cursor, cursor + stp)
-            done = done | brk
-        return torch.where(scanning, scan_start, cursor), rawcum, carry
+    # ---- remote insert: the YATA scan (`doc.rs:167-234`), then a splice ----
 
-    def do_remote_insert(self, my_rank: int, o_left: int, o_right: int,
-                         il: int, st: int):
-        """`doc.rs:274-293` sharded: integrate to a raw position, splice on
+    def ri_total(self, s, op):
+        self.rawcum = cumsum32(self.lenp)
+        self.send = self.rawcum[-1].reshape(1)
+
+    def ri_left(self, s, op):
+        totals = self.recv.reshape(-1)
+        self.carry = sum32(totals[:self.sidx])
+        self.n = sum32(totals)
+        self.cursor_terms(torch.tensor(op[4], dtype=I32,
+                                       device=self.ordp.device), self.yes)
+
+    def ri_start(self, s, op):
+        """The scan state, replicated; conflict-free ops leave on the
+        first probe (`doc.rs:192-194`)."""
+        self.left_cursor = self.cursor_done()
+        self.cursor = self.scan_start = self.left_cursor
+        self.scanning = torch.zeros_like(self.yes)
+        self.done = torch.zeros_like(self.yes)
+
+    def ri_run(self, s, op):
+        """The probed run, through the shard that owns the cursor."""
+        R, idx = self.R, self.idx
+        ordp, lenp, rawcum, carry = self.ordp, self.lenp, self.rawcum, \
+            self.carry
+        own = (self.cursor >= carry) & (self.cursor < carry + rawcum[-1])
+        local = self.cursor - carry
+        i_r = sum32((rawcum <= local) & (idx < self.nrows)).clamp(max=R - 1)
+        self.send = torch.stack([
+            torch.where(own, pick(ordp, i_r), 0),
+            torch.where(own, pick(lenp, i_r), 0),
+            torch.where(own, local - (pick(rawcum, i_r)
+                                      - pick(lenp, i_r)), 0)])
+
+    def ri_tabs(self, s, op):
+        """The probed item's origins and rank, through the shard that owns
+        its order."""
+        red = self.recv
+        self.o_r, self.l_r, self.off = red[0], red[1], red[2]
+        self.so = self.o_r.abs() - 1
+        self.other_order = self.so + self.off
+        self.send = torch.stack([
+            self.tab_local(self.oll, self.other_order),
+            self.tab_local(self.orl, self.other_order),
+            self.tab_local(self.rkl, self.other_order)])
+
+    def ri_oleft(self, s, op):
+        tabs = self.recv
+        self.other_left, self.other_right, self.other_rank = (
+            tabs[0], tabs[1], tabs[2])
+        self.cursor_terms(self.other_left, ~self.done)
+
+    def ri_next(self, s, op):
+        """One step of the conflict scan (`doc.rs:183-222`)."""
+        my_rank, o_right = op[6], op[5]
+        olc = self.cursor_done()
+        scanning, cursor = self.scanning, self.cursor
+        other_order, other_right = self.other_order, self.other_right
+        brk = (other_order == o_right) | (olc < self.left_cursor)
+        eq = ~brk & (olc == self.left_cursor)
+        gt = my_rank > self.other_rank
+        brk = brk | (eq & ~gt & (o_right == other_right))
+        starts_scan = eq & ~gt & (o_right != other_right)
+        self.scan_start = torch.where(starts_scan & ~scanning, cursor,
+                                      self.scan_start)
+        self.scanning = torch.where(
+            eq, torch.where(gt, False,
+                            torch.where(o_right == other_right,
+                                        scanning, True)),
+            scanning)
+        contains_right = ((o_right > other_order)
+                          & (o_right < self.so + self.l_r))
+        stp = torch.where(contains_right, o_right - other_order,
+                          self.l_r - self.off)
+        self.cursor = torch.where(brk, cursor, cursor + stp)
+        self.done = self.done | brk
+
+    def ri_splice(self, s, op):
+        """`doc.rs:274-293` sharded: splice at the scan's raw position on
         the owner shard (a tombstone-sign-preserving tail; the merge gated
-        on the origin chain), report whether it applied."""
+        on the origin chain)."""
+        o_left, il, st = op[4], op[7], op[8]
         R, idx, sidx = self.R, self.idx, self.sidx
-        c, rawcum, carry = self.integrate(my_rank, o_left, o_right)
         ordp, lenp, nrows = self.ordp, self.lenp, self.nrows
+        rawcum, carry = self.rawcum, self.carry
+        c = torch.where(self.scanning, self.scan_start, self.cursor)
         owner = torch.where(c == 0, sidx == 0,
                             (carry < c) & (c <= carry + rawcum[-1]))
         cap_bad = nrows + 2 > R
@@ -391,68 +549,85 @@ class _Shard:
                & ((st + 1) == (o_r + l_r)) & (o_left == o_r + l_r - 2))
         is_split = (c > 0) & (off < l_r)
         ins_at = torch.where(c == 0, 0, i_r + 1)
-        amt = torch.where(~active | mrg, 0, torch.where(is_split, 2, 1))
-        so_s = _shift2(ordp, amt)
-        sl_s = _shift2(lenp, amt)
-        no = torch.where(idx < ins_at, ordp, so_s)
-        nl = torch.where(idx < ins_at, lenp, sl_s)
-        nl = torch.where(active & is_split & (idx == i_r), off, nl)
-        new_run = active & ~mrg & (idx == ins_at)
-        no = torch.where(new_run, st + 1, no)
-        nl = torch.where(new_run, il, nl)
-        tail = active & is_split & (idx == ins_at + 1)
         tail_o = torch.where(o_r > 0, o_r + off, o_r - off)
-        no = torch.where(tail, tail_o, no)
-        nl = torch.where(tail, l_r - off, nl)
-        nl = torch.where(active & mrg & (idx == i_r), l_r + il, nl)
-        self.ordp, self.lenp = no, nl
-        self.nrows = nrows + amt
-        red = self.mesh.sum(torch.stack([owner.to(I32), active.to(I32)]))
-        self.err = (self.err | _flag(red[0] == 0, ERR_NO_OWNER)
-                    | _flag(owner & cap_bad, ERR_CAPACITY))
-        return red[1] > 0
+        self.splice(active, is_split, mrg, i_r, ins_at, o_r, l_r, off,
+                    tail_o, il, st)
+        self.owner, self.cap_bad = owner, cap_bad
+        self.send = torch.stack([owner.to(I32), active.to(I32)])
 
-    def step(self, kd, p, d, t, olv, orv, rk, il, st):
-        """One op (host ints); returns its (origin_left, origin_right) log
-        entries as 0-dim tensors, or None for a step that inserts
-        nothing (its entries are 0)."""
+    def ri_end(self, s, op):
+        red = self.recv
+        self.err = (self.err | _flag(red[0] == 0, ERR_NO_OWNER)
+                    | _flag(self.owner & self.cap_bad, ERR_CAPACITY))
+        ri = red[1] > 0
+        self.upkeep(s, op, ri, torch.where(ri, op[4], 0).to(I32),
+                    torch.where(ri, op[5], 0).to(I32))
+
+    def finish(self, s, op):
+        self.send = self.err.reshape(1)
+
+
+def drive(seg, cols: np.ndarray):
+    """Apply the op columns ``cols`` (int32 ``[9, S]``, host data, every
+    rank the same) through ``seg``, one rank's segments (``_Shard``, the
+    plain version, or ``sp_kernel.KernelSegments``, S1 a segment): the
+    phases of each step in the JAX ``step`` order, each segment followed
+    by the collective that the next one reads. A phase that the step's
+    kind and lengths switch off is skipped (the JAX scan runs it masked,
+    as a no-op, with its collectives). Returns ``seg.result()``."""
+    seg.run(SEG_INIT, 0)
+    for s, (kd, _p, d, _t, _ol, _or, _rk, il, _st) in enumerate(
+            cols.T.tolist()):
         if kd == KIND_LOCAL and d > 0:
-            self.do_delete(p, d)
-        li = ri = None
+            seg.run(SEG_LD_TOTAL, s)
+            seg.gather()
+            seg.run(SEG_LD_COVER, s)
+            seg.sum()
+            seg.run(SEG_LD_SPLIT, s)
         if kd == KIND_LOCAL and il > 0:
-            li = self.do_insert(p, il, st)
+            seg.run(SEG_LI_HEAD, s)
+            seg.gather()
+            seg.run(SEG_LI_SPLICE, s)
+            seg.sum()
+            seg.run(SEG_LI_END, s)
         if kd == KIND_REMOTE_DEL and d > 0:
-            self.do_remote_delete(t, d)
+            seg.run(SEG_RD_COVER, s)
+            seg.sum()
+            seg.run(SEG_RD_SPLIT, s)
         if kd == KIND_REMOTE_INS and il > 0:
-            ri = self.do_remote_insert(rk, olv, orv, il, st)
-        if li is None and ri is None:
-            return None
-        # Table upkeep (replicated values, masked to the order-range
-        # owners): a local insert records the origins it discovered, a
-        # remote insert its given ones; a capacity-blocked splice records
-        # nothing.
-        if li is not None:
-            ol1, or1, ins_on = li
-            head_ol, run_or = ol1, or1
-        else:
-            ins_on = ri
-            head_ol = torch.where(ri, olv, 0).to(I32)
-            run_or = torch.where(ri, orv, 0).to(I32)
-        self.oll = torch.where(ins_on, self.tab_write_chain(
-            self.oll, st, il, head_ol), self.oll)
-        self.orl = torch.where(ins_on, self.tab_write_run(
-            self.orl, st, il, run_or), self.orl)
-        self.rkl = torch.where(ins_on, self.tab_write_run(
-            self.rkl, st, il, rk), self.rkl)
-        return head_ol, run_or
+            seg.run(SEG_RI_TOTAL, s)
+            seg.gather()
+            seg.run(SEG_RI_LEFT, s)
+            seg.sum()
+            seg.run(SEG_RI_START, s)
+            while seg.more():
+                seg.run(SEG_RI_RUN, s)
+                seg.sum()
+                seg.run(SEG_RI_TABS, s)
+                seg.sum()
+                seg.run(SEG_RI_OLEFT, s)
+                seg.sum()
+                seg.run(SEG_RI_NEXT, s)
+            seg.run(SEG_RI_SPLICE, s)
+            seg.sum()
+            seg.run(SEG_RI_END, s)
+    seg.run(SEG_FINISH, cols.shape[1])
+    return seg.result()
 
 
 class SpReplay:
     """The sharded full-surface replayer of one ``(mesh, R, OTS)``
-    geometry (``make_sp_apply``)."""
+    geometry (``make_sp_apply``). ``__call__`` picks by the state's
+    device: on CUDA tensors S1 (``parallel/sp_kernel.py``; one launch a
+    stream at sp = 1, one a segment between the collectives at sp > 1),
+    on CPU tensors the plain version; S1 launches or raises."""
 
     def __init__(self, mesh: Mesh, R: int, OTS: int):
         self.mesh, self.R, self.OTS = mesh, R, OTS
+
+    @staticmethod
+    def _columns(cols) -> np.ndarray:
+        return np.stack([np.asarray(c, np.int32) for c in cols])
 
     def __call__(self, ordp, lenp, rows, oll, orl, rkl, *cols):
         """Apply op columns (``OP_FIELDS`` order, host int32 ``[S]``,
@@ -460,26 +635,29 @@ class SpReplay:
         ``[R]``, ``rows`` ``[1]``, ``oll``/``orl``/``rkl`` ``[OTS]``.
         Returns (new state ..., origin-left log ``[S]``, origin-right log
         ``[S]``, error bits ORed over the group); the logs are int32
-        tensors holding u32 bits, 0 on steps that insert nothing."""
-        sh = _Shard(self.mesh, self.R, self.OTS, ordp, lenp, rows[0], oll,
-                    orl, rkl)
-        cols = np.stack([np.asarray(c, np.int32) for c in cols])
-        S = cols.shape[1]
+        tensors holding u32 bits, 0 on steps that insert nothing. The
+        inputs are not written."""
         dev = ordp.device
-        logs = {}
-        for s, op in enumerate(cols.T.tolist()):
-            out = sh.step(*op)
-            if out is not None:
-                logs[s] = out
-        ols = torch.zeros(S, dtype=I32, device=dev)
-        ors = torch.zeros(S, dtype=I32, device=dev)
-        if logs:
-            at = torch.tensor(list(logs), dtype=torch.int64, device=dev)
-            ols[at] = torch.stack([v[0] for v in logs.values()]).to(I32)
-            ors[at] = torch.stack([v[1] for v in logs.values()]).to(I32)
-        err = self.mesh.bor(sh.err.reshape(1))[0]
-        return (sh.ordp, sh.lenp, sh.nrows.reshape(1), sh.oll, sh.orl,
-                sh.rkl, ols, ors, err)
+        cols = self._columns(cols)
+        if dev.type == "cuda":
+            if self.mesh.sp == 1:
+                # Each collective of a one-rank group is the identity: S1
+                # makes them in place, so only the closing OR is a call.
+                *out, err = SK.sp_replay_cuda(ordp, lenp, rows, oll, orl,
+                                              rkl, cols)
+                return (*out, self.mesh.bor(err.reshape(1))[0])
+            return drive(SK.KernelSegments(self.mesh, ordp, lenp, rows, oll,
+                                           orl, rkl, cols), cols)
+        if dev.type != "cpu":
+            raise ValueError(f"no sp replay for device {dev}")
+        return self.plain(ordp, lenp, rows, oll, orl, rkl, cols)
+
+    def plain(self, ordp, lenp, rows, oll, orl, rkl, cols):
+        """The plain version on the state's device (any): ``drive`` over
+        ``_Shard``'s torch segments; ``cols`` int32 ``[9, S]``."""
+        cols = self._columns(cols)
+        return drive(_Shard(self.mesh, self.R, self.OTS, ordp, lenp,
+                            rows[0], oll, orl, rkl, cols), cols)
 
 
 @functools.lru_cache(maxsize=16)
@@ -704,4 +882,5 @@ def expand_runs(ordp: np.ndarray, lenp: np.ndarray) -> np.ndarray:
 
 __all__ = ["ERR_BAD_DELETE", "ERR_CAPACITY", "ERR_NO_OWNER",
            "ERR_ORDER_MISS", "OP_FIELDS", "SpDoc", "SpReplay",
-           "StreamStats", "TAB_UNKNOWN", "expand_runs", "make_sp_apply"]
+           "StreamStats", "TAB_UNKNOWN", "drive", "expand_runs",
+           "make_sp_apply"]

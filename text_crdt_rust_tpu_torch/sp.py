@@ -6,7 +6,9 @@ The counterpart of the JAX package's ``bench.py`` ``cfg_sp`` and
 ``perf/sp_bench.py`` (``run_sp``, ``rle_parity``): the trace (or its first
 ``patches``) is merged and compiled at ``lmax`` = the longest merged insert
 with whole deletes, cut into 4 streams padded to one step count,
-and applied chunk after chunk to a fresh ``SpDoc`` with ``auto_reshard``
+and applied chunk after chunk to a fresh ``SpDoc`` (on the card through
+S1, ``ops/csrc/sp_replay.cu``: one launch a chunk at sp = 1, one a segment
+between the collectives at sp > 1) with ``auto_reshard``
 (a fresh document holds every live rank in shard 0, so a long stream must
 rebalance between chunks). Shard rows come from the run-row dry run
 (``ops.rle.simulate_run_rows``' peak) and one chunk's row growth bound
@@ -25,7 +27,10 @@ run; both replay one compile, so the orders agree, not only the text).
         --backend nccl|gloo [--device cpu] [--slack 2.5] [--skip-parity]
 
 prints one JSON line: steps, chunks, shard rows, reshards, collectives a
-step and the checks. The package reads no clock: ``chip_smoke.py`` runs
+step (what they count: on the card at sp = 1, S1 makes a one-rank group's
+collectives in place and only each chunk's closing OR is a call), S1's
+launches (rank 0's; none on the CPU, where the plain version runs) and
+the checks. The package reads no clock: ``chip_smoke.py`` runs
 the stages (``sp_prepare``, ``sp_replay``, ``sp_read``) as world jobs and
 times ``sp_replay`` from its own clock.
 """
@@ -41,6 +46,7 @@ import numpy as np
 
 from . import resolve_device
 from .baseline import native_replay
+from .ops import _kernels
 from .ops import batch as B
 from .ops import span_arrays as SA
 from .ops.rle import expand_runs, make_replayer_rle, rle_to_flat, \
@@ -151,7 +157,8 @@ def sp_prepare(ctx, plan: SpPlan) -> Optional[dict]:
 def sp_replay(ctx) -> Optional[dict]:
     """Apply every chunk to the empty document (each chunk's error bits
     read back, so the replay has finished when this returns); the
-    reshards and the collective calls."""
+    reshards, the collective calls and this rank's kernel launches (the
+    counts set to 0 first)."""
     st = ctx.store.get("sp")
     if st is None:
         return None
@@ -159,12 +166,13 @@ def sp_replay(ctx) -> Optional[dict]:
     doc.load(np.zeros(0, np.int32), np.zeros(0, np.int32))
     doc.reshards = 0
     calls0 = dict(mesh.calls)
+    _kernels.reset_launches()
     for part in st["parts"]:
         doc.apply_stream(part)
     calls = {k: v - calls0.get(k, 0) for k, v in mesh.calls.items()}
     return dict(reshards=doc.reshards, calls=calls,
                 collectives=calls.get("all_gather", 0)
-                + calls.get("sum", 0))
+                + calls.get("sum", 0), launches=dict(_kernels.launches))
 
 
 def sp_read(ctx) -> Optional[dict]:
@@ -236,12 +244,25 @@ class SpRun:
                     rows=self.read["rows"],
                     reshards=self.replay["reshards"],
                     collectives_per_step=self.replay["collectives"] / steps,
+                    collectives_what=collectives_what(
+                        self.plan.nsp, self.replay["launches"]),
+                    launches=self.replay["launches"],
                     calls=self.replay["calls"],
                     backend=self.shape["backend"],
                     device=self.shape["device"],
                     shared_card=self.shape["shared_card"],
                     text_ok=self.text_ok, native_ok=self.native_ok,
                     parity_ok=self.parity_ok, ok=self.ok)
+
+
+def collectives_what(nsp: int, launches: dict) -> str:
+    """What ``collectives_per_step`` counts: ``Mesh`` calls, all of them
+    but where S1 ran at sp = 1, which makes a one-rank group's
+    collectives in place and leaves only each stream's closing OR."""
+    if nsp == 1 and launches.get("sp_replay", 0):
+        return ("the closing OR of each stream only: S1 makes a one-rank "
+                "group's collectives in place")
+    return "Mesh all_gather and sum calls"
 
 
 def run_sp(patches: Optional[int] = None, nsp: int = 1, *, backend: str,
