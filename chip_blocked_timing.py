@@ -55,14 +55,25 @@ named phases, all by default:
   document server on A7: the acceptance shape at pipeline depths 1 and 2
   against the JAX package's golden record, the wide shape, A7 against
   its plain version on sampled serve launches);
-- ``flat``: the flat kernel's card tests (``-k flat``), then
-  ``chip_smoke.py``'s flat phase (``ServeConfig()``'s document server on
-  the flat kernel: its small cases, the acceptance shape at depth 1 and
-  at depth 2 with trains of 1 and 4 against the JAX package's golden
-  record, the wide shape, the kernel against its plain version on
-  sampled launches, crash recovery, ``DeviceMirror`` and a profiler
-  capture), then its phase 26a (the trace analytics on the depth-1 and
-  depth-2 acceptance runs' kept traces);
+- ``flat``: the flat kernel's card tests (``-k flat``); the kernel's
+  ptxas registers and spills for each build (with and without
+  counters); then every launch of the serve acceptance shape at depth 1,
+  at depth 2 with trains of 4 and of the wide shape, recorded and
+  re-launched on their inputs: ms summed over the launches and us a
+  device step, beside the kernel of ``--parent-source`` on the same
+  inputs, a ``flat_replay.cu`` with the one-block-a-lane interface of
+  ``PARENT_FLAT_ABI`` (``git show 24d2bd8:text_crdt_rust_tpu_torch/ops/
+  csrc/flat_replay.cu > _scratch/parent_flat_replay.cu``; any other is
+  refused), in the order parent, change, change, parent, every output
+  compared; the counting build's shares over those launches; then
+  ``chip_smoke.py``'s flat
+  phase (``ServeConfig()``'s document server on the flat kernel: its
+  small cases, the acceptance shape at depth 1 and at depth 2 with
+  trains of 1 and 4 against the JAX package's golden record, the wide
+  shape, the kernel against its plain version on sampled launches, crash
+  recovery, ``DeviceMirror`` and a profiler capture), then its phase 26a
+  (the trace analytics on the depth-1 and depth-2 acceptance runs' kept
+  traces);
 - ``configs``: A1's card tests at configs 2 and 3's shapes and at 20
   doc groups (``-k "config2 or config3 or groups-20"``), then
   ``chip_smoke.py``'s phases on A1 at the new shapes: the north star at
@@ -100,6 +111,7 @@ from __future__ import annotations
 import argparse
 import inspect
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -572,6 +584,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="*", help=f"any of {phases} (all)")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--parent-source", default=None,
+                    help="a flat_replay.cu with PARENT_FLAT_ABI's interface, "
+                         "timed beside this one in the flat phase")
     args = ap.parse_args(argv)
     if set(args.phases) - set(phases):
         ap.error(f"phases must be among {phases}")
@@ -690,7 +705,8 @@ def main(argv=None) -> int:
     if "serve" in args.phases:
         phase_serve(torch, dev)
     if "flat" in args.phases:
-        phase_flat(torch, dev)
+        phase_flat(torch, dev, reports.get("flat_replay", ""),
+                   args.parent_source, args.reps)
     if "configs" in args.phases:
         phase_configs(torch, dev)
     if "sp" in args.phases:
@@ -728,7 +744,199 @@ def phase_serve(torch, dev) -> None:
         raise SystemExit(1)
 
 
-def phase_flat(torch, dev) -> None:
+def ptxas_table(report: str, kernel: str):
+    """(entry, registers, spill stores, spill loads) of each entry of
+    ``kernel`` in an ``nvcc -Xptxas -v`` report."""
+    rows, entry = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        if entry is None or kernel not in entry:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            t = re.search(r"ILb([01])E", entry)
+            name = (("counters" if t.group(1) == "1" else "main build")
+                    if t else "one block a lane (parent)")
+            rows.append((name, int(m.group(1))) + spills)
+            entry = None
+    return rows
+
+
+#: The C interface ``parent_flat_kernel`` calls: the one-block-a-lane F1
+#: (``flat_replay.cu`` before its Hopper redesign), whitespace collapsed.
+PARENT_FLAT_ABI = (
+    'extern "C" int flat_replay_launch(int* signed_, int* ol, int* orr, '
+    'const int* rank, int* n, int* next_order, const int* ops, '
+    'const int* active, int* flags, int T, int S, int B, int CAP, '
+    'int OCAP, int LMAX, int smem, void* stream)')
+
+
+def parent_flat_kernel(torch, src: str):
+    """The parent commit's flat kernel, built from its source beside this
+    one's (nvcc, the same flags), as a callable with
+    ``flat_replay_cuda``'s positional arguments; and its ptxas report.
+    Refuses, before any build, a source whose launch function is not
+    ``PARENT_FLAT_ABI``: ctypes would call it with the wrong arguments."""
+    import ctypes
+    import os
+
+    from text_crdt_rust_tpu_torch.ops import _kernels
+
+    text = open(src).read()
+    m = re.search(r'extern "C" int flat_replay_launch\([^)]*\)', text)
+    if m is None or " ".join(m.group(0).split()) != PARENT_FLAT_ABI:
+        raise SystemExit(f"{src}: flat_replay_launch is not the interface "
+                         f"--parent-source takes ({PARENT_FLAT_ABI})")
+    out = os.path.join(str(_kernels.BUILD), "libparent_flat_replay.so")
+    os.makedirs(str(_kernels.BUILD), exist_ok=True)
+    r = subprocess.run([_kernels.nvcc(), "-gencode", _kernels.ARCH,
+                        "-std=c++17", "-O3", "-shared", "-Xcompiler",
+                        "-fPIC", "-Xptxas", "-v", "-o", out, src],
+                       capture_output=True, text=True, check=True)
+    fn = ctypes.CDLL(out).flat_replay_launch
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(signed, ol, orr, rank, n, nxt, cols, active, lmax):
+        B, CAP = signed.shape
+        _, T, S, _ = cols.shape
+        flags = torch.zeros(B, dtype=torch.int32, device=signed.device)
+        code = fn(*(t.data_ptr() for t in (signed, ol, orr, rank, n, nxt,
+                                           cols, active, flags)),
+                  T, S, B, CAP, ol.shape[1], lmax, 4 * (3 * CAP + 64),
+                  torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"the parent's flat kernel: CUDA error {code}")
+        return flags
+
+    return call, r.stdout + r.stderr
+
+
+def time_launches(torch, kernel, kept, reps: int = 3, queued=True):
+    """Each kept launch re-run on fresh copies of its inputs: the summed
+    medians of ``reps`` runs after 1 warm-up (CUDA events), and whether
+    every run left the recorded outputs and flags. ``queued``: a ~0.5 ms
+    sleep kernel goes first, so that the host has queued the launch
+    before the card reaches it and the time is the card's alone; else
+    the time also holds the host's work in the wrapper while the card
+    waits (as the serve run's events do)."""
+    total, same = 0.0, True
+    for kl in kept:
+        times = []
+        for i in range(reps + 1):
+            st = [t.clone() for t in kl["inputs"]]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if queued:
+                torch.cuda._sleep(1_000_000)
+            start.record()
+            flags = kernel(*st, kl["cols"], kl["active"], kl["lmax"])
+            end.record()
+            end.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+            out = [st[0], st[1], st[2], st[4], st[5]]
+            same = same and torch.equal(flags, kl["flags"]) and all(
+                torch.equal(a, b) for a, b in zip(out, kl["outputs"]))
+        total += statistics.median(times)
+    return total, same
+
+
+def sm_clock() -> str:
+    """The card's SM clock now and at most, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+
+
+def flat_timings(torch, dev, parent_source, reps: int) -> None:
+    """Every launch of the acceptance shape at depth 1, at depth 2 with
+    trains of 4 and of the wide shape, re-launched on its inputs by this
+    kernel and by the parent's, in the order parent, change, change,
+    parent; then the counting build's shares over the same launches."""
+    import chip_smoke
+    from text_crdt_rust_tpu_torch.config import ServeConfig
+    from text_crdt_rust_tpu_torch.ops import flat as F
+    from text_crdt_rust_tpu_torch.serve.loadgen import ServeLoadGen
+
+    card = chip_smoke.card_line()
+    base = "change"
+    calls = {base: F.flat_replay_cuda}
+    if parent_source:
+        parent, report = parent_flat_kernel(torch, parent_source)
+        calls = {"parent": parent, **calls}
+        for row in ptxas_table(report, "flat_replay_kernel"):
+            print(f"flat ptxas, parent: {row[0]}: {row[1]} registers, "
+                  f"{row[2]} B spill stores, {row[3]} B spill loads",
+                  flush=True)
+    order = list(calls) + list(reversed(list(calls)))
+    shapes = (("acceptance, depth 1", chip_smoke.SERVE_ACCEPTANCE,
+               chip_smoke.FLAT_CFG, 1, 1),
+              ("acceptance, depth 2, trains of 4",
+               chip_smoke.SERVE_ACCEPTANCE, chip_smoke.FLAT_CFG, 2, 4),
+              ("wide, depth 2", chip_smoke.SERVE_WIDE,
+               chip_smoke.FLAT_WIDE_CFG, 2, 1))
+    launches = chip_smoke.FlatLaunches(torch, F.flat_replay_cuda)
+    for label, params, cfg, depth, train in shapes:
+        F.flat_replay_cuda = launches
+        try:
+            gen, report, wall = chip_smoke.flat_run(
+                torch, ServeConfig, ServeLoadGen, launches, params, cfg,
+                depth, train, lambda shape, k: True, dev)
+        finally:
+            F.flat_replay_cuda = launches.kernel
+        ms_run, n, kept = launches.take()
+        steps = sum(int(kl["active"].sum()) for kl in kept)
+        print(f"flat {label}: converged {report['converged']}, {n} "
+              f"launches ({len(kept)} kept), {steps} device steps, "
+              f"{ms_run:.3f} ms on the card in the run; {card}", flush=True)
+        del gen, report
+        for k in order:
+            ms, same = time_launches(torch, calls[k], kept, reps)
+            ms_host, same_host = time_launches(torch, calls[k], kept, reps,
+                                               queued=False)
+            print(f"flat {label}: {k}: {ms:.3f} ms over {len(kept)} "
+                  f"launches queued ahead of the card, "
+                  f"{ms * 1e3 / max(steps, 1):.3f} us a step; "
+                  f"{ms_host:.3f} ms launched one by one; outputs equal "
+                  f"the run's {same and same_host}", flush=True)
+            if not (same and same_host):
+                raise AssertionError(f"flat {label}: {k} disagrees")
+        idle = [dict(kl, active=torch.zeros_like(kl["active"]))
+                for kl in kept]
+        ms_idle, _ = time_launches(torch, calls[base], idle, reps)
+        print(f"flat {label}: {base} on the same launches with every "
+              f"step marked idle (the launch's fixed cost): {ms_idle:.3f} "
+              f"ms queued ahead of the card", flush=True)
+        stats = [torch.zeros(kl["inputs"][0].shape[0], F.FLAT_STATS,
+                             dtype=torch.int64, device=dev) for kl in kept]
+        for kl, st in zip(kept, stats):
+            inputs = [t.clone() for t in kl["inputs"]]
+            F.flat_replay_cuda(*inputs, kl["cols"], kl["active"], kl["lmax"],
+                               stats=st)
+        torch.cuda.synchronize()
+        cy = F.FLAT_STAT_NAMES.index("cy_all")
+        slowest = sum(int(st[:, cy].max()) for st in stats)
+        print(f"flat {label}: counters over its launches: "
+              f"{F.describe_stats(torch.cat(stats).cpu())}; the slowest "
+              f"lane of each launch, summed: {slowest} cycles (SM clock "
+              f"{sm_clock()})", flush=True)
+        del kept, stats
+        torch.cuda.empty_cache()
+
+
+def phase_flat(torch, dev, report: str = "", parent_source=None,
+               reps: int = 3) -> None:
     import multiprocessing
 
     import numpy as np
@@ -743,6 +951,10 @@ def phase_flat(torch, dev) -> None:
          "-q", "tests/test_torch_cuda.py", "-k", "flat",
          "-p", "no:cacheprovider"], capture_output=True, text=True)
     print(r.stdout[-3000:], r.stderr[-2000:], flush=True)
+    for row in ptxas_table(report, "flat_replay_kernel"):
+        print(f"flat ptxas: {row[0]}: {row[1]} registers, {row[2]} B spill "
+              f"stores, {row[3]} B spill loads", flush=True)
+    flat_timings(torch, dev, parent_source, reps)
     card = chip_smoke.card_line()
     pool = multiprocessing.get_context("spawn").Pool(4)
     try:

@@ -181,8 +181,9 @@
    choice with its reason. The planes are freed after it.
 20. The plain check at kevin's geometry: kernel against plain version, bit
    for bit, on all 5,000,000 prepends (78,125 steps, K = 2,048, W = 64,
-   128 documents, origins kept so they are checked too), the plain
-   version's time.
+   origins kept so they are checked too) at 8 of the run's 128 identical
+   documents, the plain version on the CPU in a child process started at
+   the top (its time; the kernel re-launched here on the child's columns).
 21. Drives the north star on A2 through ``northstar.run_northstar(engine=
    "rle-hbm", batch=1024)`` (K = 512, capacity 32,768), counted the same
    way: it fails unless doc 0 reproduces ``endContent`` and every lane
@@ -277,16 +278,17 @@
    train does not change); it fails unless each converges, equals the
    record, launches the flat kernel and never A7. Then the wide shape of
    phase 25 on 2 x 1,024 flat lanes, which must converge. Each run prints
-   its host wall, tick ms p50/p99, the kernel's launches, device ms and
-   share of the wall, item-ops/s, evictions, the overlap share and stall,
-   the train economy and peak device memory. The kernel is held against
-   its plain version on every S = 128 launch, every train with T > 1 and
-   every 8th launch of each shard of the three acceptance runs (in this
-   process; the kernel re-launched on the same inputs is timed there) and
-   on every 8th launch of each shard of the wide run (in the child
-   processes). Then crash recovery (``serve/chaos.run_crash_scenario``)
-   at all four kill phases at the ``recovery`` cost-ledger cell's shape
-   and killed post-dispatch at tick 30 of the acceptance shape, each
+   its host wall, tick ms p50/p99, the kernel's launches, device ms, us
+   a device step and share of the wall, item-ops/s, evictions, the
+   overlap share and stall, the train economy and peak device memory.
+   The kernel is held against its plain version on every S = 128
+   launch, every train with T > 1 and every 8th launch of each shard of
+   the three acceptance runs (in this process; the kernel re-launched on
+   the same inputs is timed there) and on every 8th launch of each shard
+   of the wide run (in the child processes). Then crash recovery
+   (``serve/chaos.run_crash_scenario``) at all four kill phases at the
+   ``recovery`` cost-ledger cell's shape and killed post-dispatch at tick
+   30 of the acceptance shape, each
    identical to its uncrashed twin (the acceptance one to the golden
    record's documents) with green crash audits; ``DeviceMirror`` on a
    3-agent history; and a ``torch.profiler`` capture (``profile_dir``)
@@ -327,10 +329,11 @@
    20,000-patch prefix; the text against ``endContent`` and the native
    engine's, ``expand()`` against the order column A1 gives for the same
    compile (counted: A1 must launch). After each replay, every chunk again
-   through S1 and through its plain version from the same input state
-   (CUDA events around each): every output equal, the whole ``[R]``
-   planes (rows past ``rows``), ``rows``, the tables, both logs and the
-   error bits. Then a world of four ranks (one a card over NCCL where
+   through S1, and through its plain version from the same input state
+   (CUDA events around each; of the whole trace, the last chunk only, the
+   deepest state): every output equal, the whole ``[R]`` planes (rows
+   past ``rows``), ``rows``, the tables, both logs and the error bits.
+   Then a world of four ranks (one a card over NCCL where
    there are four cards, else four processes sharing the card over gloo,
    which is printed): the prefix at sp = 4 sized to take one
    ``auto_reshard`` retry, on S1 a segment between the collectives, equal
@@ -1705,6 +1708,8 @@ def config5_phase(torch, dev, card, stream, RL, _kernels, a4_worst,
 # -- the HBM-plane run replay: kevin and the north star on A2 -----------------
 
 KEVIN_N = 5_000_000            # kevin's prepends (upstream benches/yjs.rs)
+KEVIN_PLAIN_LANES = 8          # the plain check's documents (kevin's 128
+#                                replay one stream alike)
 
 
 def hbm_compare_cases(B, randedit, TestPatch, np):
@@ -1783,12 +1788,34 @@ def hbm_bound(TH, staged, shape, used_rows):
     return 4 * words, active * Bn * (K + NSUP + TH.SUP), active
 
 
+def plain_kevin(lanes: int):
+    """Runs in a child process, on the CPU: A2's plain version on all of
+    kevin's prepends at its geometry (K, capacity, W; origins kept) on
+    ``lanes`` documents. Returns the staged columns, the outputs and the
+    seconds, as numpy arrays."""
+    import torch
+
+    from text_crdt_rust_tpu_torch import kevin
+    from text_crdt_rust_tpu_torch.ops import rle_hbm as TH
+
+    torch.set_num_threads(1)
+    ks = kevin.compile_kevin(KEVIN_N, 64)
+    rep = kevin.make_kevin_replayer(ks, batch=lanes, store_origins=True,
+                                    device="cpu")
+    t0 = time.perf_counter()
+    outs = TH.rle_hbm_replay_plain(*rep.staged, **rep.shape)
+    secs = time.perf_counter() - t0
+    return ([c.numpy() for c in rep.staged], [o.numpy() for o in outs],
+            secs)
+
+
 def hbm_phase(torch, dev, card, B, R, TH, kevin, northstar, randedit,
-              TestPatch, np, _kernels):
+              TestPatch, np, _kernels, plain_kevin_async):
     """A2: the small cases, kevin at 5M prepends through ``run_kevin()``
-    (counted), the plain check at kevin's geometry, and the north star on
-    A2 through ``run_northstar(engine="rle-hbm")`` (counted), against its
-    plain version and A1. Returns the ``kernels`` entry."""
+    (counted), the plain check at kevin's geometry (its plain half from
+    ``plain_kevin`` in a child process), and the north star on A2 through
+    ``run_northstar(engine="rle-hbm")`` (counted), against its plain
+    version and A1. Returns the ``kernels`` entry."""
     worst = 0
     for label, streams, kw, expect in hbm_compare_cases(B, randedit,
                                                         TestPatch, np):
@@ -1865,21 +1892,25 @@ def hbm_phase(torch, dev, card, B, R, TH, kevin, northstar, randedit,
     del rep
 
     # -- the plain check at kevin's geometry ----------------------------------
-    prep = kevin.make_kevin_replayer(ks, batch=128, store_origins=True,
-                                     device=dev)
+    prep = kevin.make_kevin_replayer(ks, batch=KEVIN_PLAIN_LANES,
+                                     store_origins=True, device=dev)
+    cols_np, plain_np, plain_s = plain_kevin_async.get()
+    if not same_inputs(torch, prep.staged, cols_np):
+        raise AssertionError("the kevin plain check's child compiled "
+                             "other inputs")
     kern = TH.rle_hbm_replay_cuda(*prep.staged, **prep.shape)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = TH.rle_hbm_replay_plain(*prep.staged, **prep.shape)
-    torch.cuda.synchronize()
-    kplain_ms = (time.perf_counter() - t0) * 1e3
+    plain = [torch.from_numpy(a).to(dev) for a in plain_np]
+    del plain_np
+    kplain_ms = plain_s * 1e3
     e = max_abs_err(kern, plain)
     worst = max(worst, e)
     log(f"compare kevin geometry: all {ks.n} prepends ({ks.steps} "
-        f"steps, K={prep.shape['block_k']}, W=64, B=128, capacity "
+        f"steps, K={prep.shape['block_k']}, W=64, B={KEVIN_PLAIN_LANES} of "
+        f"the run's 128 identical documents, capacity "
         f"{prep.shape['capacity']}, "
         f"origins kept): max_abs_err {e} on all eight outputs, blocks in "
-        f"use {int(kern[6][0, 0, 0])}; plain version {kplain_ms:.1f} ms")
+        f"use {int(kern[6][0, 0, 0])}; plain version {kplain_ms:.1f} ms "
+        f"(CPU, one core, in a child process)")
     if e != 0:
         raise AssertionError("hbm kernel disagrees at kevin's geometry")
     del kern, plain, prep
@@ -1952,6 +1983,7 @@ def hbm_phase(torch, dev, card, B, R, TH, kevin, northstar, randedit,
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": kplain_ms,
+        "plain_where": f"CPU, one core, {KEVIN_PLAIN_LANES} lanes",
         "plain_prepends": ks.n,
         "bound_ms": max(bb, bo),
         "bound_by": "bytes" if bb >= bo else "operations",
@@ -3033,6 +3065,8 @@ class FlatLaunches:
         self.keep = None       # (cols shape, index in shard) -> keep it?
         self.shard_of = {}     # signed.data_ptr() -> shard
         self.index = {}
+        self.steps = None      # device steps of those launches, on the card
+        self.last_steps = 0    # ... as of the last take()
 
     def __call__(self, signed, ol, orr, rank, n, nxt, cols, active, lmax):
         torch = self.torch
@@ -3050,6 +3084,8 @@ class FlatLaunches:
                             lmax)
         end.record()
         self.events.append((start, end))
+        steps = active.sum()
+        self.steps = steps if self.steps is None else self.steps + steps
         if keep:
             self.kept.append(dict(
                 shard=shard, index=k, lmax=lmax, inputs=before,
@@ -3060,11 +3096,13 @@ class FlatLaunches:
 
     def take(self):
         """(device ms summed over the launches since the last take, their
-        count, the kept launches); resets."""
+        count, the kept launches); resets. ``last_steps`` then holds the
+        device steps (active steps) of those launches."""
         self.torch.cuda.synchronize()
         ms = sum(s.elapsed_time(e) for s, e in self.events)
         out = (ms, len(self.events), self.kept)
-        self.events, self.kept, self.index = [], [], {}
+        self.last_steps = 0 if self.steps is None else int(self.steps)
+        self.events, self.kept, self.index, self.steps = [], [], {}, None
         return out
 
 
@@ -3293,6 +3331,7 @@ def flat_phase(torch, dev, card, _kernels, B, randedit, np, pool):
                 SERVE_ACCEPTANCE, FLAT_CFG, depth, train, keep_acc, dev)
             counts = dict(_kernels.launches)
             ms, n, kept = launches.take()
+            steps = launches.last_steps
             kept_acc.extend(kept)
             rec = serve_record(gen, report, logical_report, hashlib)
             want = golden["depths"][str(depth)]
@@ -3304,6 +3343,10 @@ def flat_phase(torch, dev, card, _kernels, B, randedit, np, pool):
             label = f"acceptance (depth {depth}, train {train})"
             nums = flat_numbers(torch, gen, report, wall, ms, n, counts,
                                 label, card)
+            nums.update(device_steps=steps,
+                        us_per_step=ms * 1e3 / max(steps, 1))
+            log(f"flat serve {label}: {steps} device steps, "
+                f"{nums['us_per_step']:.3f} us a step on the card")
             log(f"flat serve {label} against the JAX package's golden "
                 f"record: {same}; {len(rec['docs'])} documents, "
                 f"{rec['trace_events']} trace events")
@@ -3337,6 +3380,10 @@ def flat_phase(torch, dev, card, _kernels, B, randedit, np, pool):
         ms, n, kept_wide = launches.take()
         nums = flat_numbers(torch, gen, report, wall, ms, n, counts,
                             "wide (depth 2)", card)
+        nums.update(device_steps=launches.last_steps,
+                    us_per_step=ms * 1e3 / max(launches.last_steps, 1))
+        log(f"flat serve wide (depth 2): {launches.last_steps} device "
+            f"steps, {nums['us_per_step']:.3f} us a step on the card")
         if not report["converged"] or counts.get("flat_replay", 0) < 1:
             raise AssertionError(f"flat serve wide shape failed: converged "
                                  f"{report['converged']}, launches "
@@ -3493,6 +3540,9 @@ def flat_phase(torch, dev, card, _kernels, B, randedit, np, pool):
                    f"re-launched on their inputs (median of 3 each, "
                    f"summed)",
         "main_path_ms": main["flat_device_ms"],
+        "us_per_step": main["us_per_step"],
+        "us_per_step_what": f"the main path's {main['device_steps']} device "
+                            f"steps (active [T, S] steps of its launches)",
         "plain_ms": plain_s * 1e3,
         "bound_ms": max(bb, bo),
         "bound_by": "bytes" if bb >= bo else "operations",
@@ -3641,6 +3691,8 @@ def check_flat_wide(pending):
 # -- config sp: the long-context layer (parallel/, ops/stream_scan) -------
 
 SP_PREFIX = 20_000         # the sp = 4 run's trace prefix (911 steps)
+SP_PLAIN_CHUNKS = 1        # the whole trace's last chunks also run on the
+#                            plain version
 SP_RANKS = 4               # ranks of the sp = 4 run, the sharded apply and
 #                            the dry run
 SHARDED = dict(patches=2000, batch=8, capacity=4096)  # F1 under the mesh
@@ -3701,7 +3753,7 @@ SP_OUTPUTS = ("ordp", "lenp", "rows", "oll", "orl", "rkl", "ols", "ors",
               "err")
 
 
-def sp_chunks_job(ctx):
+def sp_chunks_job(ctx, plain_chunks=None):
     """A world job after ``sp.sp_prepare``: each chunk of the prepared
     stream through S1 (``SpReplay`` on the card: one launch at sp = 1, one
     a segment at sp > 1) and through the plain version from the same
@@ -3711,7 +3763,10 @@ def sp_chunks_job(ctx):
     fresh ``SpDoc`` of the prepared geometry. Returns per chunk (rank 0's
     times; the group's worst difference over the nine outputs, the whole
     ``[R]`` planes included; S1's launches on this rank; the error bits;
-    the rows before and after over all shards; the step phases with work)."""
+    the rows before and after over all shards; the step phases with work).
+    ``plain_chunks``: only that many last chunks, the deepest states, go
+    through the plain version too (all by default); the others record
+    ``plain`` False."""
     import numpy as np
     import torch
 
@@ -3736,6 +3791,8 @@ def sp_chunks_job(ctx):
         return a.elapsed_time(b), res
 
     out = []
+    first_plain = (0 if plain_chunks is None
+                   else len(st["parts"]) - plain_chunks)
     for part in st["parts"]:
         cols = [np.asarray(getattr(part, f), dtype=np.uint32).view(np.int32)
                 for f in OP_FIELDS]
@@ -3749,7 +3806,9 @@ def sp_chunks_job(ctx):
         _kernels.reset_launches()
         s1_ms, kern = timed(lambda: rep(*state, *cols))
         launches = _kernels.launches.get("sp_replay", 0)
-        plain_ms, plain = timed(lambda: rep.plain(*state, cols))
+        checked = len(out) >= first_plain
+        plain_ms, plain = (timed(lambda: rep.plain(*state, cols)) if checked
+                           else (0.0, kern))
         worst = 0
         for name, k, p in zip(SP_OUTPUTS, kern, plain):
             k, p = k.reshape(-1), p.reshape(-1)
@@ -3763,7 +3822,7 @@ def sp_chunks_job(ctx):
             [worst], dtype=torch.int64, device=mesh.device)).max())
         rows_out = int(mesh.sum(plain[2])[0])
         out.append(dict(steps=int(kind.shape[0]), s1_ms=s1_ms,
-                        plain_ms=plain_ms, max_abs_err=worst,
+                        plain=checked, plain_ms=plain_ms, max_abs_err=worst,
                         launches=launches, err=int(plain[-1]),
                         rows_in=rows_in, rows_out=rows_out, phases=phases,
                         R=doc.R, OTS=doc.OTS, nsp=mesh.sp))
@@ -3793,14 +3852,16 @@ def sp_check(chunks, label, card):
     plain = sum(c["plain_ms"] for c in chunks)
     worst = max(c["max_abs_err"] for c in chunks)
     steps = sum(c["steps"] for c in chunks)
-    log(f"S1 against the plain version, {label}: {len(chunks)} chunks, "
-        f"{steps} steps, from the same input states: max_abs_err {worst} "
+    held = sum(c["plain"] for c in chunks)
+    log(f"S1 against the plain version, {label}: {held} of {len(chunks)} "
+        f"chunks held against it ({steps} steps on S1), from the same "
+        f"input states: max_abs_err {worst} "
         f"over every output (whole [R] planes, rows, tables, both logs, "
         f"error bits {[c['err'] for c in chunks]}); S1 {s1:.3f} ms "
         f"({s1 / steps:.5f} ms a step; launches a chunk "
         f"{[c['launches'] for c in chunks]}), plain {plain:.1f} ms "
         f"(CUDA events); rows {[c['rows_out'] for c in chunks]}; on {card}")
-    if worst or any(c["launches"] < 1 for c in chunks):
+    if worst or not held or any(c["launches"] < 1 for c in chunks):
         raise AssertionError(f"S1 disagrees with the plain version on "
                              f"{label}")
     return s1, plain, worst
@@ -4059,7 +4120,7 @@ def sp_phase(torch, dev, card, np, _kernels, F, plans):
     # -- sp = 1: one rank on the card over NCCL -----------------------------
     with launch.World(1, "nccl", None, timeout=600) as w1:
         rd = sp_stages(w1, plan_full, "whole trace, sp=1", rec, card)
-        chunks_full = w1.run(sp_chunks_job)
+        chunks_full = w1.run(sp_chunks_job, SP_PLAIN_CHUNKS)
         sp_check(chunks_full, "whole trace, sp=1", card)
         label1 = f"{SP_PREFIX}-patch prefix, sp=1"
         rd1 = sp_stages(w1, plan_pre1, label1, rec, card)
@@ -4103,9 +4164,9 @@ def sp_phase(torch, dev, card, np, _kernels, F, plans):
 
 def sp_line(rec, chunks_full, chunks_pre1, chunks_pre4):
     """S1's entry of the kernels line: the main path's launches (the whole
-    trace at sp = 1), the whole trace's chunks re-run on S1 and on the
-    plain version (CUDA events), the bound, and the prefix at sp = 1 and
-    sp = 4."""
+    trace at sp = 1), the whole trace's chunks re-run on S1 and its first
+    ``SP_PLAIN_CHUNKS`` on the plain version (CUDA events), the bound, and
+    the prefix at sp = 1 and sp = 4."""
     whole = rec["whole trace, sp=1"]
     s1 = sum(c["s1_ms"] for c in chunks_full)
     steps = sum(c["steps"] for c in chunks_full)
@@ -4143,6 +4204,9 @@ def sp_line(rec, chunks_full, chunks_pre1, chunks_pre4):
                    "summed)",
         "main_path_wall_s": whole["wall_s"],
         "plain_ms": sum(c["plain_ms"] for c in chunks_full),
+        "plain_what": f"the whole trace's last "
+                      f"{sum(c['plain'] for c in chunks_full)} of "
+                      f"{len(chunks_full)} chunks on the plain version",
         "bound_ms": max(bb, bo),
         "bound_by": "bytes" if bb >= bo else "operations",
         "bound_bytes_ms": bb,
@@ -4215,8 +4279,8 @@ def main() -> int:
                     or "entry function" in line):
                 log(f"  ptxas {name}: {line.strip()}")
 
-    # The plain checks at the per-character paths' shapes (A9, A10, A8)
-    # and, once the 5r stream exists, the 5r plain chains in shards (A7,
+    # The plain checks at the per-character paths' shapes (A9, A10, A8),
+    # A2's at kevin's geometry and, once the 5r stream exists, the 5r plain chains in shards (A7,
     # A6) run on the CPU in child processes, one thread each, while the
     # card phases go on; each phase waits for its plain result last. The
     # children are stopped at exit.
@@ -4228,6 +4292,7 @@ def main() -> int:
     plain_a10_async = pool.apply_async(plain_a10,
                                        (STORM_ROUNDS, CHAR_LANES))
     plain_a8_async = pool.apply_async(plain_a8, (PREFIX_A8, CHAR_LANES))
+    plain_kevin_async = pool.apply_async(plain_kevin, (KEVIN_PLAIN_LANES,))
     # Configs 2 and 3: their streams (the run-row dry run is ~90 s of
     # config 2's set-up) and A1's plain chains on their first lanes.
     config2_async = pool.apply_async(config_streams, ("2", PLAIN_LANES_A1))
@@ -4878,7 +4943,8 @@ def main() -> int:
                                      a4_worst, a5_worst)
     # -- the HBM-plane replay: kevin and the north star on A2 ----------------
     hbm_line = hbm_phase(torch, dev, card, B, R, TH, kevin, northstar,
-                         randedit, TestPatch, np, _kernels)
+                         randedit, TestPatch, np, _kernels,
+                         plain_kevin_async)
     # -- the per-character block replays: A10, A8, A9 (the main path) ------
     # Their plain checks run in the child processes started at the top.
     a10_line = blocked_a10_phase(torch, dev, card, B, storm, TBL, TBM, np,

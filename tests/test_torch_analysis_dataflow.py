@@ -453,7 +453,7 @@ def test_shape_contracts_pin_matches_live_tree():
     cols = live["launch-op-columns"]
     assert len([s for m in cols.values() for s in m]) == 11
     assert cols[f"{PORT}/ops/flat.py"] == {
-        "flat_replay_launch": {"c_void_p": 10, "c_int": 7}}
+        "flat_replay_launch": {"c_void_p": 11, "c_int": 8}}
 
 
 def test_shape_drift_injections_named_by_lint(tmp_path):

@@ -920,6 +920,19 @@ def _flat_fuzz(seed, steps=60, cap=256, lmax=16):
         chars=rng.integers(97, 123, (steps, lmax)).astype(u))
 
 
+def _flat_fuzz_wrap(seed, lmax=16):
+    """``_flat_fuzz`` with every 7th ``ins_len`` wrapping (negative as
+    int32: the splice's full circular roll) and every 11th above ``lmax``,
+    alternately within and past the roll's mask of its low bits."""
+    o = _flat_fuzz(seed, lmax=lmax)
+    ins = np.asarray(o.ins_len).copy()
+    big = ins[3::11]
+    big[:] = np.where(np.arange(big.size) % 2, lmax + 3, 3 * lmax + 5)
+    ins[seed::7] = np.uint32(0xFFFF_FFF0 + seed)
+    o.ins_len = ins
+    return o
+
+
 def _flat_train(T, lanes=6):
     """T ticks cut from per-lane streams, idle lanes and idle steps
     included, re-padded to one step count (as the serve backend pads)."""
@@ -943,46 +956,230 @@ def _flat_train(T, lanes=6):
     return TB.stack_ticks([TB.pad_ops(t, s) for t in ticks])
 
 
+def _flat_merge(seed, lmax=16):
+    """Two peers' edits with cross-merges: remote inserts whose origins
+    are real items (the YATA scan's lookups), remote deletes."""
+    txns, _ = randedit.make_two_peer_merge(seed, rounds=12)
+    table = TB.AgentTable(sorted({t.id.agent for t in txns}))
+    ops, _ = TB.compile_remote_txns(txns, table, lmax=lmax)
+    return ops
+
+
+def _stack(streams):
+    s = max(o.num_steps for o in streams)
+    return TB.stack_ops([TB.pad_ops(o, s) for o in streams])
+
+
+def _fresh(docs, ops):
+    return docs
+
+
+def _prefilled(docs, ops):
+    return TB.prefill_logs(docs, ops)
+
+
+def _played(docs, ops):
+    """The first half of ``ops`` applied by the plain version, prefilled;
+    the second half is what the case replays."""
+    from text_crdt_rust_tpu_torch.ops import flat as TF
+
+    docs = TB.prefill_logs(docs, ops)
+    half = TB._map_fields(lambda a: np.asarray(a)[:ops.num_steps // 2],
+                          ops)
+    TF.flat_replay(docs, half, skip_idle=False)
+    return docs
+
+
+def _rows_past_n(docs, ops):
+    """A played column with nonzero garbage rows written past ``n``."""
+    docs = _played(docs, ops)
+    rng = np.random.default_rng(11)
+    cap = docs.signed.shape[1]
+    for b in range(docs.signed.shape[0]):
+        at = min(int(docs.n[b]), cap - 40)
+        docs.signed[b, at:at + 40] = torch.from_numpy(
+            rng.integers(-400, 400, 40).astype(np.int32))
+        docs.n[b] = max(at - 4, 0)
+    return docs
+
+
+def _duplicate_order(docs, ops):
+    """A played column where every 5th row repeats (tombstoned) the order
+    two rows above it: a lookup must find the first of the two."""
+    docs = _played(docs, ops)
+    for b in range(docs.signed.shape[0]):
+        for i in range(2, int(docs.n[b]), 5):
+            docs.signed[b, i] = -abs(int(docs.signed[b, i - 2]))
+    return docs
+
+
+def _second_half(ops):
+    return TB._map_fields(lambda a: np.asarray(a)[ops.num_steps // 2:], ops)
+
+
 FLAT_CASES = {
     "local": lambda: (TB.stack_ops([_flat_local(s) for s in range(5)]),
-                      False),
+                      False, _fresh),
     "storm": lambda: (TB.stack_ops([_flat_storm(s) for s in range(4)]),
-                      False),
+                      False, _fresh),
     "fuzz": lambda: (TB.stack_ops([_flat_fuzz(s) for s in range(3)]),
-                     False),
-    "train-T1": lambda: (_flat_train(1), True),
-    "train-T4": lambda: (_flat_train(4), True),
-    "train-T8": lambda: (_flat_train(8), True),
+                     False, _fresh),
+    "fuzz-wrap": lambda: (TB.stack_ops([_flat_fuzz_wrap(s)
+                                        for s in range(5)]), False, _fresh),
+    "train-T1": lambda: (_flat_train(1), True, _fresh),
+    "train-T4": lambda: (_flat_train(4), True, _fresh),
+    "train-T8": lambda: (_flat_train(8), True, _fresh),
+    "merge": lambda: (_stack([_flat_merge(s) for s in range(6)]), False,
+                      _prefilled),
+    "rows-past-n": lambda: (_stack([_flat_merge(s) for s in range(6)]),
+                            False, _rows_past_n),
+    "duplicate-order": lambda: (_stack([_flat_merge(s) for s in range(6)]),
+                                False, _duplicate_order),
 }
+_FLAT_STATE = ("signed", "ol_log", "or_log", "rank_log", "n", "next_order")
+_flat_plain_runs = {}
 
 
-@pytest.mark.parametrize("cap", [256, 512, 4096])
-@pytest.mark.parametrize("name", sorted(FLAT_CASES))
-def test_flat_kernel_matches_plain(card, name, cap):
-    """One launch of the flat kernel leaves every lane's columns, counts
-    and overflow flags as the plain version does, bit for bit (the logs
-    start unprefilled, which both versions read alike; small capacities
-    set the flag)."""
+def _flat_case(name, cap, ocap=2048):
+    """A case's ops, skip flag, input docs (CPU) and the plain version's
+    result on them, computed once per (case, capacity)."""
     from text_crdt_rust_tpu_torch.ops import flat as TF
     from text_crdt_rust_tpu_torch.ops import span_arrays as TSA
 
-    ops, skip = FLAT_CASES[name]()
-    lanes = np.asarray(ops.kind).shape[-1]
-    docs = TSA.stack_docs(TSA.make_flat_doc(cap, 2048, device="cpu"),
-                          lanes)
-    plain = TF._batched_copy(docs)
-    kern = TF._batched_copy(docs)
-    for f in ("signed", "ol_log", "or_log", "rank_log", "chars_log", "n",
-              "next_order"):
-        setattr(kern, f, getattr(kern, f).to(card))
-    pf = TF.flat_replay(plain, ops, skip_idle=skip)
+    key = (name, cap, ocap)
+    if key not in _flat_plain_runs:
+        ops, skip, prep = FLAT_CASES[name]()
+        lanes = np.asarray(ops.kind).shape[-1]
+        docs = prep(TSA.stack_docs(TSA.make_flat_doc(cap, ocap, device="cpu"),
+                                   lanes), ops)
+        if prep in (_played, _rows_past_n, _duplicate_order):
+            ops = _second_half(ops)
+        plain = TF._batched_copy(docs)
+        pf = TF.flat_replay(plain, ops, skip_idle=skip)
+        _flat_plain_runs[key] = (ops, skip, docs, plain, pf)
+    return _flat_plain_runs[key]
+
+
+def _on_card(docs, card):
+    from text_crdt_rust_tpu_torch.ops import flat as TF
+
+    out = TF._batched_copy(docs)
+    for f in _FLAT_STATE + ("chars_log",):
+        setattr(out, f, getattr(out, f).to(card))
+    return out
+
+
+def _flat_cuda(docs, ops, skip, **kw):
+    """One ``flat_replay_cuda`` launch on ``docs`` (on the card), ``kw``
+    passed on (``stats``)."""
+    from text_crdt_rust_tpu_torch.ops import flat as TF
+
+    cols = TF.op_stack(ops)
+    T, S = cols.shape[1], cols.shape[2]
+    active = (TF.active_steps(ops).reshape(T, S) if skip
+              else np.ones((T, S), bool))
+    dev = docs.signed.device
+    return TF.flat_replay_cuda(
+        docs.signed, docs.ol_log, docs.or_log, docs.rank_log, docs.n,
+        docs.next_order, torch.from_numpy(cols.view(np.int32).copy()).to(dev),
+        torch.from_numpy(active.astype(np.int32)).to(dev), ops.lmax, **kw)
+
+
+def _assert_flat_equal(kern, kf, plain, pf):
+    assert torch.equal(kf.cpu(), pf)
+    for f in _FLAT_STATE:
+        assert torch.equal(getattr(kern, f).cpu(), getattr(plain, f)), f
+
+
+@pytest.mark.parametrize("lanes_per_block", [1, 2, 4])
+@pytest.mark.parametrize("cap", [256, 512, 4096])
+@pytest.mark.parametrize("name", sorted(FLAT_CASES))
+def test_flat_kernel_matches_plain(card, name, cap, lanes_per_block,
+                                   monkeypatch):
+    """One launch of the flat kernel through ``flat_replay``, at 1, 2 and
+    4 lanes a thread block, leaves every lane's columns, counts and
+    overflow flags as the plain version does, bit for bit (fresh logs
+    read alike by both; small capacities set the flag; garbage columns
+    with wrapping and oversized ``ins_len``; the merge cases prefilled,
+    with garbage rows past ``n`` and with a tombstoned copy of an order
+    above its first row)."""
+    from text_crdt_rust_tpu_torch.ops import flat as TF
+
+    ops, skip, docs, plain, pf = _flat_case(name, cap)
+    monkeypatch.setattr(TF, "LANES_PER_BLOCK", (lanes_per_block,))
+    assert TF.launch_geometry(cap).lanes_per_block == lanes_per_block
+    kern = _on_card(docs, card)
     before = _kernels.launches.get("flat_replay", 0)
     kf = TF.flat_replay(kern, ops, skip_idle=skip)
     torch.cuda.synchronize()
     assert _kernels.launches["flat_replay"] == before + 1
-    assert torch.equal(kf.cpu(), pf)
-    for f in ("signed", "ol_log", "or_log", "rank_log", "n", "next_order"):
-        assert torch.equal(getattr(kern, f).cpu(), getattr(plain, f)), f
+    _assert_flat_equal(kern, kf, plain, pf)
+
+
+@pytest.mark.parametrize("cap,lanes_per_block", [(16384, 2), (32768, 1)])
+def test_flat_kernel_large_capacity_matches_plain(card, cap,
+                                                  lanes_per_block):
+    """Capacities whose columns do not fit four lanes a block take fewer,
+    by shape; each equals the plain version."""
+    from text_crdt_rust_tpu_torch.ops import flat as TF
+
+    assert TF.launch_geometry(cap).lanes_per_block == lanes_per_block
+    for name in ("merge", "duplicate-order", "fuzz-wrap", "train-T4"):
+        ops, skip, docs, plain, pf = _flat_case(name, cap)
+        kern = _on_card(docs, card)
+        kf = TF.flat_replay(kern, ops, skip_idle=skip)
+        torch.cuda.synchronize()
+        _assert_flat_equal(kern, kf, plain, pf)
+
+
+def test_flat_kernel_wide_batch_matches_plain(card):
+    """1,024 lanes at capacity 512 (the serve wide shape's launch width):
+    eight prefilled merge streams and eight local ones, tiled."""
+    from text_crdt_rust_tpu_torch.ops import flat as TF
+    from text_crdt_rust_tpu_torch.ops import span_arrays as TSA
+
+    base = _stack([_flat_merge(s) for s in range(8)]
+                  + [_flat_local(s) for s in range(8)])
+    ops = TB._map_fields(lambda a: np.tile(
+        np.asarray(a), (1, 64) + (1,) * (np.asarray(a).ndim - 2)), base)
+    assert np.asarray(ops.kind).shape[-1] == 1024
+    docs = TB.prefill_logs(TSA.stack_docs(
+        TSA.make_flat_doc(512, 1536, device="cpu"), 1024), ops)
+    plain = TF._batched_copy(docs)
+    pf = TF.flat_replay(plain, ops, skip_idle=False)
+    kern = _on_card(docs, card)
+    kf = TF.flat_replay(kern, ops, skip_idle=False)
+    torch.cuda.synchronize()
+    _assert_flat_equal(kern, kf, plain, pf)
+
+
+@pytest.mark.parametrize("name", ["merge", "train-T4", "rows-past-n"])
+def test_flat_kernel_stats_build_matches_plain_build(card, name):
+    """The counting build leaves what the main build leaves (and the
+    plain version); its counters are sane: steps with work, an extent
+    within the column covering every nonzero row, cycles."""
+    from text_crdt_rust_tpu_torch.ops import flat as TF
+
+    ops, skip, docs, plain, pf = _flat_case(name, 512)
+    lanes = docs.signed.shape[0]
+    stats = torch.zeros(lanes, TF.FLAT_STATS, dtype=torch.int64,
+                        device=card)
+    kern = _on_card(docs, card)
+    kf = _flat_cuda(kern, ops, skip, stats=stats)
+    main = _on_card(docs, card)
+    mf = _flat_cuda(main, ops, skip)
+    torch.cuda.synchronize()
+    _assert_flat_equal(kern, kf, plain, pf)
+    _assert_flat_equal(main, mf, plain, pf)
+    st = dict(zip(TF.FLAT_STAT_NAMES, stats.cpu().T))
+    nz = plain.signed != 0
+    last = torch.where(nz.any(1), 512 - torch.argmax(
+        nz.flip(1).to(torch.int8), dim=1), torch.zeros(lanes,
+                                                       dtype=torch.int64))
+    assert bool((st["extent"] >= last).all() and (st["extent"] <= 512).all())
+    assert int(st["steps_with_work"].sum()) > 0
+    assert bool((st["cy_all"] > 0).all())
+    print(TF.describe_stats(stats.cpu()))
 
 
 def test_flat_serve_backend_on_the_card_matches_plain(card):

@@ -475,15 +475,155 @@ def test_capacity_contract_refuses_like_the_jax_package():
 
 
 def test_kernel_wrapper_refuses_a_capacity_past_shared_memory():
-    big = TF.SMEM_LIMIT // 12 + 8
-    assert TF.kernel_smem_bytes(big) > TF.SMEM_LIMIT
-    assert TF.kernel_smem_bytes(512) == 4 * (3 * 512 + 64)
+    # One lane's column (the logs stay in device memory) past 227 KB.
+    big = TF.SMEM_LIMIT // 4
+    assert TF.kernel_smem_bytes(big, 1) > TF.SMEM_LIMIT
+    assert TF.kernel_smem_bytes(512) == 4 * 4 * (640 + 512)
+    assert TF.kernel_smem_bytes(512, 1) == 4 * (640 + 512)
     d = TSA.stack_docs(TSA.make_flat_doc(big, 64, device="cpu"), 1)
     z = torch.zeros((10, 1, 1, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match=r"needs \d+ B"):
         TF.flat_replay_cuda(d.signed, d.ol_log, d.or_log, d.rank_log, d.n,
                             d.next_order, z, torch.ones((1, 1), dtype=torch.int32),
                             8)
+
+
+@pytest.mark.parametrize("cap,lanes", [(512, 4), (16384, 2), (32768, 1)])
+def test_kernel_launch_geometry(cap, lanes):
+    """Four lanes a block where their columns fit, else two, else one; the
+    shared-memory bytes of each; the refusal past one lane's fit."""
+    geo = TF.launch_geometry(cap)
+    assert geo == TF.Geometry(lanes, 4 * lanes * (640 + cap))
+    assert geo.smem <= TF.SMEM_LIMIT
+    if lanes < 4:
+        assert TF.kernel_smem_bytes(cap, 2 * lanes) > TF.SMEM_LIMIT
+    # Capacities round up to 128 rows.
+    assert TF.kernel_smem_bytes(cap - 12, lanes) == geo.smem
+    # The largest capacity one lane a block takes, and the next refused.
+    top = TF.SMEM_LIMIT // 4 - 640
+    assert TF.launch_geometry(top // 128 * 128).lanes_per_block == 1
+    with pytest.raises(ValueError, match=r"needs \d+ B"):
+        TF.launch_geometry(top // 128 * 128 + 1)
+    # Past the geometry checks, CPU tensors are refused before any build.
+    d = TSA.stack_docs(TSA.make_flat_doc(64, 128, device="cpu"), 2)
+    z = torch.zeros((10, 1, 1, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        TF.flat_replay_cuda(d.signed, d.ol_log, d.or_log, d.rank_log, d.n,
+                            d.next_order, z,
+                            torch.ones((1, 1), dtype=torch.int32), 8)
+
+
+# -- the kernel's extent rule -------------------------------------------------
+
+
+def extent_after(extent: torch.Tensor, cursor: torch.Tensor,
+                 ilen: torch.Tensor, capacity: int) -> torch.Tensor:
+    """``flat_replay.cu``'s rule for a lane's extent E (rows at or past it are
+    zero) after a step's splice at ``cursor`` of ``ilen`` rows: unchanged
+    when nothing moves (``ilen`` 0 or the cursor past the column); every
+    row when ``ilen`` wraps (negative as int32, or ``cursor + ilen`` past
+    2^31: the full circular roll); else ``min(CAP, max(E, cursor) +
+    ilen)``."""
+    run_end = TF._s32(cursor + ilen)
+    grown = torch.clamp(torch.maximum(extent, cursor)
+                        + torch.clamp(ilen, max=capacity), max=capacity)
+    out = torch.where(run_end < cursor, torch.full_like(extent, capacity),
+                      grown)
+    return torch.where((ilen == 0) | (cursor >= capacity), extent, out)
+
+
+def _extent_streams(kind: str, cap: int, lanes: int = 4, lmax: int = 16):
+    """A ``[S, B]`` port stream of each kind the extent test replays."""
+    from text_crdt_rust_tpu_torch.utils import randedit as TR
+
+    if kind == "local":
+        streams = [TB.compile_local_patches(TR.random_patches(
+            np.random.default_rng(b), 120)[0], lmax=lmax)[0]
+            for b in range(lanes)]
+    elif kind == "storm":
+        streams = []
+        for b in range(lanes):
+            txns, _ = TR.make_storm(4, 8, 5, seed=b, del_prob=0.3)
+            table = TB.AgentTable(sorted({t.id.agent for t in txns}))
+            streams.append(TB.compile_remote_txns(txns, table, lmax=lmax)[0])
+    elif kind == "fuzz":
+        # Garbage columns, every 7th ins_len negative as int32 (the
+        # splice's wrapping roll over the whole column), every 11th above
+        # lmax, alternately within and past the roll's mask.
+        streams = [port_ops(fuzz_stream(b, 60, cap, lmax))
+                   for b in range(lanes)]
+        for b, o in enumerate(streams):
+            o.ins_len = np.asarray(o.ins_len).copy()
+            big = o.ins_len[3::11]
+            big[:] = np.where(np.arange(big.size) % 2, lmax + 3,
+                              3 * lmax + 5)
+            o.ins_len[b::7] = np.uint32(0xFFFF_FFF0 + b)
+    else:  # over-capacity: inserts past the column's end
+        rng = np.random.default_rng(cap)
+        steps = cap // lmax + 8
+        ins = np.full(steps, lmax, np.uint32)
+        streams = [TB.OpTensors(
+            kind=np.zeros(steps, np.uint32),
+            pos=(rng.integers(0, 3, steps) * (np.arange(steps) * lmax // 2)
+                 ).astype(np.uint32),
+            del_len=np.zeros(steps, np.uint32),
+            del_target=np.zeros(steps, np.uint32),
+            origin_left=np.zeros(steps, np.uint32),
+            origin_right=np.zeros(steps, np.uint32), ins_len=ins,
+            ins_order_start=(np.arange(steps) * lmax).astype(np.uint32),
+            order_advance=ins.copy(), rank=np.zeros(steps, np.uint32),
+            rows_per_step=np.ones(steps, np.uint32),
+            chars=np.full((steps, lmax), 97, np.uint32))
+            for _ in range(lanes)]
+    s = max(o.num_steps for o in streams)
+    return TB.stack_ops([TB.pad_ops(o, s) for o in streams])
+
+
+@pytest.mark.parametrize("start", ["fresh", "rows-past-n"])
+@pytest.mark.parametrize("cap", [256, 512, 4096])
+@pytest.mark.parametrize("kind", ["local", "storm", "fuzz", "over-capacity"])
+def test_rows_past_the_tracked_extent_stay_zero(kind, cap, start):
+    """``flat_replay_plain`` step by step under the kernel's extent rule
+    (``extent_after``: E starts as the nonzero extent and follows each
+    splice): after every step, every row at or past E is zero, so the
+    kernel's passes over [0, E) see every nonzero row. ``rows-past-n``
+    starts from a played column with garbage rows written past ``n``."""
+    ops = _extent_streams(kind, cap)
+    lanes = np.asarray(ops.kind).shape[-1]
+    docs = TSA.stack_docs(TSA.make_flat_doc(cap, 8 * cap, device="cpu"),
+                          lanes)
+    if start == "rows-past-n":
+        TF.flat_replay(docs, _extent_streams("local", cap), skip_idle=False)
+        rng = np.random.default_rng(cap + 1)
+        for b in range(lanes):
+            at = min(int(docs.n[b]), cap - 24)
+            docs.signed[b, at:at + 24] = torch.from_numpy(
+                rng.integers(-500, 500, 24).astype(np.int32))
+            docs.n[b] = max(at - 3, 0)
+    cols = TF.op_stack(ops)
+    active = np.ones(cols.shape[1:3], bool)
+    j = torch.arange(cap)[None, :]
+    nz = docs.signed != 0
+    extent = torch.where(nz.any(dim=1),
+                         cap - torch.argmax(nz.flip(1).to(torch.int8), dim=1),
+                         torch.zeros(lanes, dtype=torch.int64))
+    seen = {"steps": 0, "max": int(extent.max()), "full": 0}
+
+    def on_step(st):
+        nonlocal extent
+        extent = extent_after(extent, st["cursor"], st["ilen"], cap)
+        assert not bool(((st["signed"] != 0) & (j >= extent[:, None])).any())
+        seen["steps"] += 1
+        seen["max"] = max(seen["max"], int(extent.max()))
+        seen["full"] += int((extent == cap).sum())
+
+    flags = TF.flat_replay_plain(docs.signed, docs.ol_log, docs.or_log,
+                                 docs.rank_log, docs.n, docs.next_order,
+                                 cols, active, ops.lmax, on_step=on_step)
+    assert seen["steps"] == cols.shape[2]
+    assert seen["max"] > 0
+    if kind == "over-capacity":
+        assert bool(flags.all()) and seen["full"] > 0
 
 
 # -- DeviceMirror ---------------------------------------------------------------

@@ -29,8 +29,9 @@ Two versions compute each step stream:
   at a time (the YATA scan as a loop over all lanes until every lane is
   done) — what the tests hold against the JAX package;
 - ``flat_replay_cuda``: ``ops/csrc/flat_replay.cu``, one launch for a
-  whole ``[T, S, B]`` op stack (one thread block per lane walking its
-  T x S steps in order) — the counterpart of the one XLA program
+  whole ``[T, S, B]`` op stack (one warp per lane walking its T x S
+  steps in order over the rows in use) — the counterpart of the one XLA
+  program
   ``lax.scan`` makes of a tick or a tick train. ``flat_replay`` picks by
   the tensors' device; on CUDA tensors it launches the kernel or raises.
 
@@ -244,6 +245,7 @@ def _plain_step(st: dict, op: dict, lmax: int, local_only: bool) -> None:
     st["or"].scatter_(1, idx, torch.where(write, origin_right[:, None],
                                           or_chunk))
     st["signed"] = signed
+    st["cursor"], st["ilen"] = cursor, ilen
     st["n"] = _s32(n + ilen)
     st["next_order"] = (st["next_order"] + op["order_advance"]) & _M32
 
@@ -268,12 +270,14 @@ def _write_back(st: dict, signed, ol_log, or_log, n, next_order) -> None:
 
 def flat_replay_plain(signed, ol_log, or_log, rank_log, n, next_order,
                       cols: np.ndarray, active: np.ndarray,
-                      lmax: int) -> torch.Tensor:
+                      lmax: int, on_step=None) -> torch.Tensor:
     """Apply a ``[T, S, B]`` op stack to B lanes, in place: tick by tick,
     step by step, skipping the steps ``active`` ``[T, S]`` marks idle.
     ``cols`` is ``[len(OP_COLUMNS), T, S, B]`` u32. Returns the per-lane
     overflow flags (``n > CAP`` or ``next_order > OCAP - lmax`` after any
-    tick), int32 ``[B]``."""
+    tick), int32 ``[B]``. ``on_step(st)``, where given, sees the working
+    state after every step run (int64 values; ``st["cursor"]`` and
+    ``st["ilen"]`` are that step's insert row and length)."""
     st = _working(signed, ol_log, or_log, rank_log, n, next_order)
     cap, ocap = signed.shape[1], ol_log.shape[1]
     T, S = active.shape
@@ -287,6 +291,8 @@ def flat_replay_plain(signed, ol_log, or_log, rank_log, n, next_order,
                 continue
             op = {name: c64[i, t, s] for i, name in enumerate(OP_COLUMNS)}
             _plain_step(st, op, lmax, local_only=False)
+            if on_step is not None:
+                on_step(st)
         flags |= (st["n"] > cap) | (st["next_order"] > ocap - lmax)
     _write_back(st, signed, ol_log, or_log, n, next_order)
     return flags.to(I32)
@@ -296,34 +302,103 @@ def flat_replay_plain(signed, ol_log, or_log, rank_log, n, next_order,
 
 _KERNEL = "flat_replay"
 _LAUNCH = "flat_replay_launch"
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+# 9 state and op tensors, stats; T, S, B, CAP, OCAP, LMAX, lanes a block,
+# shared memory; the stream.
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
              + [ctypes.c_void_p])
+#: Lanes (one warp each) a thread block: four, as measured at the serve
+#: shapes (PERF.md §6, F1: at B = 16 one, two and four within 0.5 %, at
+#: B = 1,024 four 4.7 % under one), fewer only where four lanes' columns
+#: do not fit one block's shared memory.
+LANES_PER_BLOCK = (4, 2, 1)
+#: Ints of a lane's op words in shared memory: two tiles of 32 steps' ten
+#: words (``flat_replay.cu``'s ``kOpInts``).
+_TILE_INTS = 640
+#: Per-lane counters of ``stats`` (int64): steps with work (that delete
+#: or insert; the others only move ``next_order``), remote
+#: inserts, YATA iterations, order lookups, 32-row chunks those lookups
+#: read, the extent E at the end, rows the prefix/delete passes covered,
+#: rows the splices covered; then ``clock64`` cycles in op staging, the
+#: prefix/delete passes, the YATA scans, the splices, the log writes, the
+#: launch's loads, the write-out, and in all.
+FLAT_STAT_NAMES = ("steps_with_work", "remote_inserts", "yata_iterations",
+                   "lookups", "lookup_chunks", "extent", "pass_rows",
+                   "splice_rows", "cy_staging", "cy_pass", "cy_yata",
+                   "cy_splice", "cy_logs", "cy_load", "cy_write", "cy_all")
+FLAT_STATS = len(FLAT_STAT_NAMES)
 
 
-def kernel_smem_bytes(capacity: int) -> int:
-    """Shared memory of one thread block of ``flat_replay_kernel``: the
-    lane's ``signed`` column twice (the splice writes the other copy),
-    its live-prefix counts, and the reduction scratch."""
-    return 4 * (3 * capacity + 64)
+def kernel_smem_bytes(capacity: int, lanes_per_block: int = 4) -> int:
+    """Shared memory of one thread block of ``flat_replay_kernel``: for
+    each of its lanes two tiles of op words and the ``signed`` column
+    padded to 128 rows (the by-order logs stay in device memory)."""
+    return 4 * lanes_per_block * (_TILE_INTS + -(-capacity // 128) * 128)
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """A launch's shape: lanes a thread block, the block's shared-memory
+    bytes."""
+    lanes_per_block: int
+    smem: int
+
+
+def launch_geometry(capacity: int) -> Geometry:
+    """The kernel's launch shape, from the capacity alone and before any
+    build: the most lanes a block of ``LANES_PER_BLOCK`` whose columns fit
+    its shared memory. Refuses, naming the bytes, a capacity whose column
+    does not fit one block even alone."""
+    for lanes in LANES_PER_BLOCK:
+        smem = kernel_smem_bytes(capacity, lanes)
+        if smem <= SMEM_LIMIT:
+            return Geometry(lanes, smem)
+    raise ValueError(
+        f"the flat kernel keeps each lane's signed column in shared "
+        f"memory: capacity {capacity} needs {smem} B (limit {SMEM_LIMIT})")
+
+
+def describe_stats(stats) -> str:
+    """A launch's ``stats`` (``[B, FLAT_STATS]``) summed over its lanes,
+    as a line of text: counts, YATA iterations per remote insert, the
+    mean extent, cycles a step with work and the phases' cycle shares."""
+    v = [int(x) for x in torch.as_tensor(stats).sum(dim=0).tolist()]
+    d = dict(zip(FLAT_STAT_NAMES, v))
+    lanes = max(int(torch.as_tensor(stats).shape[0]), 1)
+    work, tot = max(d["steps_with_work"], 1), max(d["cy_all"], 1)
+    phases = ("staging", "pass", "yata", "splice", "logs", "load", "write")
+    shares = ", ".join(f"{p} {d['cy_' + p] / tot:.4f}" for p in phases)
+    return (f"{d['steps_with_work']} steps with work, "
+            f"{d['remote_inserts']} remote inserts, "
+            f"{d['yata_iterations'] / max(d['remote_inserts'], 1):.3f} YATA "
+            f"iterations and {d['lookups'] / max(d['remote_inserts'], 1):.3f}"
+            f" lookups a remote insert ({d['lookup_chunks']} chunks read), "
+            f"mean extent {d['extent'] / lanes:.1f} rows, "
+            f"{d['pass_rows'] / work:.1f} pass rows and "
+            f"{d['splice_rows'] / work:.1f} splice rows a step with work; "
+            f"{tot / work:.0f} cycles a step with work; cycle shares: "
+            f"{shares}")
+
+
+def _require_cuda(dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"flat_replay_cuda takes CUDA tensors, not {dev}")
 
 
 def flat_replay_cuda(signed, ol_log, or_log, rank_log, n, next_order,
                      cols_dev: torch.Tensor, active_dev: torch.Tensor,
-                     lmax: int) -> torch.Tensor:
+                     lmax: int, *, stats=None) -> torch.Tensor:
     """Launch ``ops/csrc/flat_replay.cu`` on PyTorch's current stream:
     the same function as ``flat_replay_plain``, in place, with the op
     stack ``cols_dev`` (int32 ``[10, T, S, B]``) and the active mask
     ``active_dev`` (int32 ``[T, S]``) already on the card. Returns the
-    per-lane overflow flags on the card. Refuses a capacity whose
-    shared memory would not fit one thread block, before any build."""
+    per-lane overflow flags on the card. ``launch_geometry`` sets lanes a
+    block (and refuses a capacity whose shared memory does not fit, before
+    any build); ``stats``, an int64 ``[B, FLAT_STATS]`` tensor on the
+    card, takes the counting build and receives each lane's counters."""
     B, CAP = signed.shape
     OCAP = ol_log.shape[1]
     _, T, S, _ = cols_dev.shape
-    smem = kernel_smem_bytes(CAP)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"the flat kernel keeps a lane's signed column in shared "
-            f"memory: capacity {CAP} needs {smem} B (limit {SMEM_LIMIT})")
+    geo = launch_geometry(CAP)
     if OCAP < lmax:
         raise ValueError(f"order capacity {OCAP} is below lmax {lmax}")
     dev = signed.device
@@ -332,13 +407,20 @@ def flat_replay_cuda(signed, ol_log, or_log, rank_log, n, next_order,
         if not (t.device == dev and t.dtype == I32 and t.is_contiguous()):
             raise ValueError("flat_replay takes contiguous int32 tensors "
                              "on one device")
-    flags = torch.zeros(B, dtype=I32, device=dev)
+    if stats is not None and not (
+            stats.device == dev and stats.dtype == torch.int64
+            and stats.is_contiguous() and stats.shape == (B, FLAT_STATS)):
+        raise ValueError(f"stats must be a contiguous int64 [{B}, "
+                         f"{FLAT_STATS}] on the card")
+    _require_cuda(dev)
+    flags = torch.empty(B, dtype=I32, device=dev)  # every lane writes its own
     fn = _kernels.function(_KERNEL, _LAUNCH, _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     tensors = (signed, ol_log, or_log, rank_log, n, next_order, cols_dev,
                active_dev, flags)
-    code = fn(*(t.data_ptr() for t in tensors), T, S, B, CAP, OCAP, lmax,
-              smem, stream)
+    code = fn(*(t.data_ptr() for t in tensors),
+              None if stats is None else stats.data_ptr(), T, S, B, CAP,
+              OCAP, lmax, geo.lanes_per_block, geo.smem, stream)
     _kernels.check(_KERNEL, code)
     _kernels.count_launch(_KERNEL)
     return flags
@@ -625,7 +707,8 @@ def step(doc: FlatDoc, op: OpTensors, local_only: bool = False) -> FlatDoc:
 __all__ = [
     "OP_COLUMNS", "active_steps", "apply_ops",
     "apply_ops_batch", "apply_prefill_delta", "apply_train",
-    "check_capacity_counts", "flat_replay", "flat_replay_cuda",
-    "flat_replay_plain", "kernel_smem_bytes", "op_stack", "scatter_delta_",
-    "step",
+    "FLAT_STATS", "FLAT_STAT_NAMES", "Geometry", "LANES_PER_BLOCK",
+    "check_capacity_counts", "describe_stats", "flat_replay",
+    "flat_replay_cuda", "flat_replay_plain", "kernel_smem_bytes",
+    "launch_geometry", "op_stack", "scatter_delta_", "step",
 ]
