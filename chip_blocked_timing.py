@@ -1,7 +1,8 @@
 """Time the redesigned kernels (A1-A10) on one NVIDIA card.
 
     python3 chip_blocked_timing.py [tests] [a10] [a8] [a9] [a2] [a3] [a4]
-        [a6] [a1] [a7] [a5] [serve] [flat] [configs] [sp] [--reps N]
+        [a6] [a1] [a7] [a5] [serve] [flat] [configs] [sp] [sp-times]
+        [sp-threads] [l2] [--reps N] [--parent DIR]
 
 A quicker loop than ``chip_smoke.py`` while redesigning those kernels:
 it builds them (printing ptxas's registers and spills), then runs the
@@ -82,15 +83,40 @@ named phases, all by default:
   the native baseline of configs 1, 2 and 3 and kevin with no child
   running;
 - ``sp``: the long-context card tests (``-k "sp_doc or sp_kernel or
-  streamed"``: S1 against the plain version at sp = 1 and 2), which
-  collectives gloo takes on CUDA tensors (a two-rank world sharing the
-  card), then ``chip_smoke.py``'s phase 27b alone: config ``sp`` at sp = 1
-  over NCCL on S1 (the whole trace, the 20,000-patch prefix, each chunk
-  against the plain version, A1's parity), the four-rank world (one NCCL
-  rank a card on a machine with four, else four processes sharing the
-  card over gloo; S1 a segment, each chunk against the plain version),
-  the sharded flat apply, the dry run and ``StreamedRuns`` on a
-  2^27-row memmapped plane, and S1's entry of the kernels line.
+  streamed"``: S1 against the plain version at sp = 1 and 2, the tile
+  index's edge cases and full passes, the ``stats`` build), which
+  collectives gloo takes on CUDA tensors, S1's ptxas registers and
+  spills (main and ``stats`` builds),
+  then ``sp-times``, then ``chip_smoke.py``'s phase 27b alone: config
+  ``sp`` at sp = 1 over NCCL on S1 (the whole trace, its first and last
+  chunks against the plain version, the 20,000-patch prefix, A1's
+  parity), the four-rank world (one NCCL rank a card on a machine with
+  four, else four processes sharing the card over gloo; S1 a segment,
+  each chunk against the plain version), the sharded flat apply, the dry
+  run and ``StreamedRuns`` on a 2^27-row memmapped plane, and S1's entry
+  of the kernels line;
+- ``l2``: what one SM gets from the memory system (``L2_PROBE_SRC``):
+  one block's barrier and a dependent L2 load in cycles, and the rates
+  of coalesced int4 reads, writes and reads-then-writes of the same rows
+  in bytes a cycle, at 256, 512 and 1,024 threads;
+- ``sp-times``: S1 on config ``sp``: the whole trace's 4 chunks, each
+  from its input state (CUDA events, median of ``--reps``, summed) and
+  us a step, the 20,000-patch prefix at sp = 1, a digest of each run's
+  outputs, and the prefix at sp = 4 (ms a step of the replay's wall,
+  rank 0's S1 time; NCCL one rank a card where the machine has four
+  cards, else four processes sharing one over gloo); this checkout's
+  thread count a block and its ``stats`` shares over the whole trace. With
+  ``--parent DIR`` (a checkout of another commit, e.g. ``git archive
+  PARENT | tar -x -C _scratch/parent``; ``_scratch/`` is gitignored but
+  copied to the card) the same measurements run in that checkout, in a
+  process of their own that imports its package and builds its kernel
+  through its own wrapper, in the order parent, this, this, parent; the
+  digests must agree.
+- ``sp-threads``: the experiment that chose S1's threads a block:
+  ``sp_replay.cu`` built at 256, 512 and 1,024 threads (``-DSP_THREADS``,
+  beside the committed build), each timed on the whole trace's 4 chunks
+  as ``sp-times`` times them, with its ptxas registers and spills and
+  whether its outputs equal the committed build's.
 
 Times are medians of ``--reps`` runs (3) after 1 warm-up, CUDA events.
 The plain versions are not timed here; ``chip_smoke.py`` holds every
@@ -580,13 +606,23 @@ def phase_a5(torch, dev, reps):
 
 def main(argv=None) -> int:
     phases = ("tests", "a10", "a8", "a9", "a2", "a3", "a4", "a6", "a1",
-              "a7", "a5", "serve", "flat", "configs", "sp")
+              "a7", "a5", "serve", "flat", "configs", "sp", "sp-times",
+              "sp-threads", "l2")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="*", help=f"any of {phases} (all)")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--parent-source", default=None,
                     help="a flat_replay.cu with PARENT_FLAT_ABI's interface, "
                          "timed beside this one in the flat phase")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of another commit whose S1 is timed "
+                         "beside this one (sp, sp-times)")
+    ap.add_argument("--sp4", action="store_true",
+                    help="sp, sp-times: also the prefix at sp = 4 (NCCL on "
+                         "a machine with four cards)")
+    ap.add_argument("--json", action="store_true",
+                    help="sp-times only: print its record as one JSON line "
+                         "and nothing else of the phases")
     args = ap.parse_args(argv)
     if set(args.phases) - set(phases):
         ap.error(f"phases must be among {phases}")
@@ -603,6 +639,10 @@ def main(argv=None) -> int:
     from text_crdt_rust_tpu_torch.ops import blocked_hbm as TBH
     from text_crdt_rust_tpu_torch.ops import blocked_mixed as TBM
 
+    if args.json:
+        print(SP_TIMES_TAG + json.dumps(sp_times(torch, torch.device(
+            "cuda"), args.reps, args.sp4)), flush=True)
+        return 0
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -709,8 +749,13 @@ def main(argv=None) -> int:
                    args.parent_source, args.reps)
     if "configs" in args.phases:
         phase_configs(torch, dev)
-    if "sp" in args.phases:
-        phase_sp(torch, dev)
+    if "l2" in args.phases:
+        phase_l2(torch)
+    if "sp" in args.phases or "sp-times" in args.phases:
+        phase_sp(torch, dev, args.reps, args.parent, args.sp4,
+                 tests_and_smoke="sp" in args.phases)
+    if "sp-threads" in args.phases:
+        phase_sp_threads(torch, dev, args.reps)
     return 0
 
 
@@ -744,9 +789,10 @@ def phase_serve(torch, dev) -> None:
         raise SystemExit(1)
 
 
-def ptxas_table(report: str, kernel: str):
+def ptxas_table(report: str, kernel: str, stack: bool = False):
     """(entry, registers, spill stores, spill loads) of each entry of
-    ``kernel`` in an ``nvcc -Xptxas -v`` report."""
+    ``kernel`` in an ``nvcc -Xptxas -v`` report, and its stack frame in
+    bytes last where ``stack``."""
     rows, entry = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -755,17 +801,19 @@ def ptxas_table(report: str, kernel: str):
             continue
         if entry is None or kernel not in entry:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            spills = (int(m.group(1)), int(m.group(2)))
+            frame = int(m.group(1))
+            spills = (int(m.group(2)), int(m.group(3)))
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m:
             t = re.search(r"ILb([01])E", entry)
             name = (("counters" if t.group(1) == "1" else "main build")
                     if t else "one block a lane (parent)")
-            rows.append((name, int(m.group(1))) + spills)
+            rows.append((name, int(m.group(1))) + spills
+                        + ((frame,) if stack else ()))
             entry = None
     return rows
 
@@ -935,6 +983,121 @@ def flat_timings(torch, dev, parent_source, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
+#: A probe of what one SM gets from the card's memory system (the ``l2``
+#: phase): one block's barrier, a dependent L2 load, and the rates of
+#: coalesced int4 reads, writes, and reads then writes of the same rows
+#: (a shift's pattern) within a 2 MiB L2-resident buffer, each timed with
+#: clock64 on thread 0 and a barrier after the traffic. The write rates
+#: include the stores' drain: a shared-memory store and a barrier follow.
+L2_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void l2_probe(long long* out, int4* buf, int* chase, int n4,
+                         int iters) {
+  __shared__ int sink[32];
+  const int T = blockDim.x, tid = threadIdx.x;
+  long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) __syncthreads();
+  long long t1 = clock64();
+  int j = 0;
+  if (tid == 0) {
+    for (int i = 0; i < iters; ++i) j = chase[j];
+    sink[0] = j;
+  }
+  __syncthreads();
+  long long t2 = clock64();
+  int4 acc = make_int4(0, 0, 0, 0);
+  for (int i = 0; i < iters; ++i) {
+    int4 v[16];
+    const int base = (i * 16 * T) % n4;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = buf[(base + k * T + tid) % n4];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 16; ++k) acc.x += v[k].x;
+  }
+  long long t3 = clock64();
+  for (int i = 0; i < iters; ++i) {
+    const int base = (i * 16 * T) % n4;
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      buf[(base + k * T + tid) % n4] = make_int4(i, k, tid, acc.x);
+    __syncthreads();
+    if (tid == 0) sink[1] = i;
+    __syncthreads();
+  }
+  long long t4 = clock64();
+  for (int i = 0; i < iters; ++i) {
+    int4 v[16];
+    const int base = (i * 16 * T) % n4;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = buf[(base + k * T + tid) % n4];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      v[k].x += 1;
+      buf[(base + k * T + tid) % n4] = v[k];
+    }
+    __syncthreads();
+    if (tid == 0) sink[2] = i;
+    __syncthreads();
+  }
+  long long t5 = clock64();
+  if (tid == 0) {
+    out[0] = t1 - t0;
+    out[1] = t2 - t1;
+    out[2] = t3 - t2;
+    out[3] = t4 - t3;
+    out[4] = t5 - t4;
+    out[5] = acc.x + sink[0] + sink[1] + sink[2];
+  }
+}
+extern "C" int l2_probe_launch(long long* out, int4* buf, int* chase, int n4,
+                               int iters, int threads) {
+  l2_probe<<<1, threads>>>(out, buf, chase, n4, iters);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def phase_l2(torch) -> None:
+    """Run ``L2_PROBE_SRC`` at 256, 512 and 1,024 threads."""
+    import ctypes
+
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    out_dir = _kernels.BUILD / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib_path = out_dir / "l2_probe.cu", out_dir / "libl2_probe.so"
+    src.write_text(L2_PROBE_SRC)
+    subprocess.run([_kernels.nvcc(), "-gencode", _kernels.ARCH, "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", str(lib_path),
+                    str(src)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.l2_probe_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    dev = torch.device("cuda")
+    n4 = 1 << 17                     # 2 MiB of int4
+    buf = torch.zeros(4 * n4, dtype=torch.int32, device=dev)
+    n = 1 << 16
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(1))
+    chase = torch.empty(n, dtype=torch.int32)
+    chase[perm] = torch.roll(perm, -1).to(torch.int32)
+    chase = chase.to(dev)
+    out = torch.zeros(6, dtype=torch.int64, device=dev)
+    iters = 256
+    for threads in (256, 512, 1024):
+        for _ in range(2):           # the second run is kept (warm)
+            if lib.l2_probe_launch(out.data_ptr(), buf.data_ptr(),
+                                   chase.data_ptr(), n4, iters, threads):
+                raise RuntimeError("l2_probe failed")
+        v = [int(x) for x in out.tolist()]
+        moved = 16 * 16 * threads * iters  # bytes a pass
+        print(f"l2 probe, one block of {threads} threads: barrier "
+              f"{v[0] / iters:.1f} cycles, dependent L2 load "
+              f"{v[1] / iters:.1f} cycles, reads {moved / v[2]:.1f} B a "
+              f"cycle, writes {moved / v[3]:.1f} B a cycle, reads then "
+              f"writes of the same rows {2 * moved / v[4]:.1f} B a cycle "
+              f"({sm_clock()})", flush=True)
+
+
 def phase_flat(torch, dev, report: str = "", parent_source=None,
                reps: int = 3) -> None:
     import multiprocessing
@@ -1069,7 +1232,219 @@ def gloo_cuda_job(ctx) -> dict:
     return out
 
 
-def phase_sp(torch, dev) -> None:
+SP_TIMES_TAG = "SP_TIMES "
+SP_PREFIX = 20_000      # config sp's prefix at sp = 1 and at sp = 4
+SP_RANKS = 4
+SP_SWEEP = (256, 512, 1024)    # sp-threads: the thread counts tried
+
+
+def sp_digest(torch, outs) -> str:
+    """sha256 of S1's outputs (every plane and table, the logs, rows and
+    error bits)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.reshape(-1).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def sp_blocks(patches):
+    """Config sp's plan at sp = 1 and its chunks' op columns ``[9, S]``."""
+    import numpy as np
+
+    from text_crdt_rust_tpu_torch import sp
+    from text_crdt_rust_tpu_torch.parallel.sp_apply import OP_FIELDS
+    plan = sp.plan_sp(patches, 1)
+    ps, _ = sp.trace_patches(patches)
+    ops, parts, _ = sp.compile_sp(ps, plan.chunks)
+    return plan, ops.num_steps, [
+        np.stack([np.asarray(getattr(p, f), np.uint32).view(np.int32)
+                  for f in OP_FIELDS]) for p in parts]
+
+
+def sp_inputs(torch, dev, plan, blocks):
+    """Each chunk's input state at sp = 1 (S1 run chunk after chunk from
+    the empty document), and the digest of the last chunk's outputs."""
+    from text_crdt_rust_tpu_torch import sp
+    from text_crdt_rust_tpu_torch.parallel import sp_kernel as SK
+    from text_crdt_rust_tpu_torch.parallel.sp_apply import TAB_UNKNOWN
+    R, OTS = plan.shard_rows, sp.ORDER_ROWS
+    i32 = torch.int32
+    state = (torch.zeros(R, dtype=i32, device=dev),
+             torch.zeros(R, dtype=i32, device=dev),
+             torch.zeros(1, dtype=i32, device=dev),
+             torch.full((OTS,), TAB_UNKNOWN, dtype=i32, device=dev),
+             torch.full((OTS,), TAB_UNKNOWN, dtype=i32, device=dev),
+             torch.zeros(OTS, dtype=i32, device=dev))
+    inputs, out = [], None
+    for cols in blocks:
+        inputs.append(state)
+        out = SK.sp_replay_cuda(*state, cols)
+        if int(out[-1]):
+            raise AssertionError(f"S1 flagged config sp: {int(out[-1])}")
+        state = tuple(t.clone() for t in out[:6])
+    return inputs, sp_digest(torch, out)
+
+
+def sp_run_times(torch, inputs, blocks, reps):
+    """Each chunk's median time from its input state (CUDA events)."""
+    from text_crdt_rust_tpu_torch.parallel import sp_kernel as SK
+    return [cuda_ms(torch, lambda st=st, c=c: SK.sp_replay_cuda(*st, c),
+                    reps) for st, c in zip(inputs, blocks)]
+
+
+def sp_sweep_libs(threads):
+    """``sp_replay.cu`` built at each thread count (``-DSP_THREADS``) beside
+    the committed build, all ``nvcc`` processes at once: {threads:
+    (library path, ptxas registers and spills)}."""
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    src = _kernels.sources()["sp_replay"]
+    out_dir = _kernels.BUILD / "sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for t in threads:
+        lib = out_dir / f"libsp_replay_{t}.so"
+        procs[t] = (lib, subprocess.Popen(
+            [_kernels.nvcc(), "-gencode", _kernels.ARCH, "-std=c++17", "-O3",
+             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+             f"-DSP_THREADS={t}", "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for t, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc at {t} threads:\n{log}")
+        libs[t] = (str(lib), ptxas_table(log, "sp_replay", stack=True))
+    return libs
+
+
+def phase_sp_threads(torch, dev, reps: int) -> None:
+    """S1 on config sp's whole trace at each of ``SP_SWEEP`` threads a
+    block, beside the committed build (see ``sp-threads``)."""
+    import ctypes
+
+    import chip_smoke
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    plan, steps, blocks = sp_blocks(None)
+    inputs, digest = sp_inputs(torch, dev, plan, blocks)
+    lib0 = _kernels.library("sp_replay")
+    committed = sum(sp_run_times(torch, inputs, blocks, reps))
+    sweep = {}
+    try:
+        for t, (path, ptx) in sp_sweep_libs(SP_SWEEP).items():
+            lib = ctypes.CDLL(path)
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            _kernels._libs["sp_replay"] = lib
+            _, dg = sp_inputs(torch, dev, plan, blocks)
+            ms = sum(sp_run_times(torch, inputs, blocks, reps))
+            sweep[t] = dict(ms=ms, us_per_step=ms * 1e3 / steps,
+                            digest_same=dg == digest, ptxas=ptx)
+    finally:
+        _kernels._libs["sp_replay"] = lib0
+    card = chip_smoke.card_line()
+    print(f"S1 threads a block on the whole trace ({card}): committed "
+          f"build ({lib0.sp_replay_threads()} threads) "
+          f"{committed:.3f} ms; {json.dumps(sweep)}", flush=True)
+    if not all(v["digest_same"] for v in sweep.values()):
+        raise AssertionError("a thread count changed S1's outputs")
+
+
+def sp_times(torch, dev, reps: int, sp4: bool) -> dict:
+    """S1 on config sp with whichever checkout's package is imported (see
+    ``sp-times`` in the docstring): times, digests, and where this
+    checkout's wrapper takes them, its thread count a block and the
+    ``stats`` shares."""
+    from text_crdt_rust_tpu_torch.ops import _kernels
+    from text_crdt_rust_tpu_torch.parallel import sp_kernel as SK
+    rec = {}
+    for label, patches in (("whole", None), ("prefix", SP_PREFIX)):
+        t0 = time.perf_counter()
+        plan, steps, blocks = sp_blocks(patches)
+        inputs, digest = sp_inputs(torch, dev, plan, blocks)
+        set_up = time.perf_counter() - t0
+        ms = sp_run_times(torch, inputs, blocks, reps)
+        r = dict(R=plan.shard_rows, steps=steps, chunks=len(blocks),
+                 chunk_ms=ms, ms=sum(ms), us_per_step=sum(ms) * 1e3 / steps,
+                 digest=digest, set_up_s=set_up)
+        if label == "whole" and hasattr(SK, "SP_STAT_NAMES"):
+            stats = torch.zeros(SK.SP_STATS, dtype=torch.int64, device=dev)
+            for st, c in zip(inputs, blocks):
+                out = SK.sp_replay_cuda(*st, c, stats=stats)
+            torch.cuda.synchronize()
+            r["stats"] = dict(zip(SK.SP_STAT_NAMES, stats.tolist()))
+            r["stats_line"] = SK.describe_stats(stats, steps)
+            r["stats_digest_same"] = sp_digest(torch, out) == digest
+            r["threads"] = _kernels.library("sp_replay").sp_replay_threads()
+        rec[label] = r
+    rec["sp4"] = sp4_times() if sp4 else None
+    return rec
+
+
+def sp4_times() -> dict:
+    """The prefix at sp = 4 through ``chip_smoke.py``'s stages (the
+    imported checkout's): the replay's wall a step and rank 0's S1 time
+    over the chunks (CUDA events, from each chunk's input state)."""
+    import chip_smoke
+    import torch
+
+    from text_crdt_rust_tpu_torch import sp
+    from text_crdt_rust_tpu_torch.parallel import launch
+    if torch.cuda.device_count() >= SP_RANKS:
+        backend, device = "nccl", None
+    else:
+        backend, device = "gloo", "cuda:0"
+    plan = sp.plan_sp(SP_PREFIX, SP_RANKS, slack=1.0)
+    rec = {}
+    with launch.World(SP_RANKS, backend, device, timeout=600) as w:
+        chip_smoke.sp_stages(w, plan, "sp4", rec, "")
+        chunks = w.run(chip_smoke.sp_chunks_job, 0)
+    r = rec["sp4"]
+    return dict(backend=backend, steps=r["steps"], wall_s=r["wall_s"],
+                ms_per_step_wall=r["ms_per_step"], reshards=r["reshards"],
+                collectives_per_step=r["collectives_per_step"],
+                launches_rank0=r["launches"],
+                s1_ms_rank0=sum(c["s1_ms"] for c in chunks),
+                s1_launches_rank0=sum(c["launches"] for c in chunks))
+
+
+def parent_sp_times(parent: str, reps: int, sp4: bool) -> dict:
+    """``sp_times`` in the checkout ``parent``: a process of its own whose
+    imports are that checkout's package (its wrapper builds and binds its
+    own kernel)."""
+    import os
+    code = ("import runpy, sys; sys.argv = ['chip_blocked_timing.py', "
+            f"'sp-times', '--json', '--reps', '{reps}'"
+            f"{', ' + repr('--sp4') if sp4 else ''}]; "
+            f"runpy.run_path({os.path.abspath(__file__)!r}, "
+            "run_name='__main__')")
+    r = subprocess.run([sys.executable, "-c", code], cwd=parent,
+                       capture_output=True, text=True)
+    for line in r.stdout.splitlines():
+        if line.startswith(SP_TIMES_TAG):
+            return json.loads(line[len(SP_TIMES_TAG):])
+    raise RuntimeError(f"the parent's sp-times failed ({r.returncode}):\n"
+                       f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+
+
+def sp_times_line(who: str, r: dict) -> str:
+    w, p, s4 = r["whole"], r["prefix"], r["sp4"]
+    line = (f"S1 {who}: whole trace {w['ms']:.3f} ms over {w['chunks']} "
+            f"chunks ({w['us_per_step']:.3f} us a step of {w['steps']}; "
+            f"chunks {[round(x, 3) for x in w['chunk_ms']]}), digest "
+            f"{w['digest']}; prefix {p['ms']:.3f} ms ({p['us_per_step']:.3f}"
+            f" us a step), digest {p['digest']}")
+    if s4:
+        line += (f"; sp={SP_RANKS} ({s4['backend']}) "
+                 f"{s4['ms_per_step_wall']:.4f} ms a step of wall, rank 0's "
+                 f"S1 {s4['s1_ms_rank0']:.3f} ms in "
+                 f"{s4['s1_launches_rank0']} launches, reshards "
+                 f"{s4['reshards']}")
+    return line
+
+
+def phase_sp(torch, dev, reps: int, parent=None, sp4: bool = False,
+             tests_and_smoke: bool = True) -> None:
     import numpy as np
 
     import chip_smoke
@@ -1077,24 +1452,58 @@ def phase_sp(torch, dev) -> None:
     from text_crdt_rust_tpu_torch.ops import flat as F
     from text_crdt_rust_tpu_torch.parallel import launch
 
-    r = subprocess.run(
-        [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
-         "-q", "tests/test_torch_cuda.py", "-k",
-         "sp_doc or sp_kernel or streamed", "-p", "no:cacheprovider"],
-        capture_output=True, text=True)
-    print(r.stdout[-3000:], r.stderr[-2000:], flush=True)
-    with launch.World(2, "gloo", "cuda:0", timeout=120) as w:
-        print(f"gloo on CUDA tensors ({torch.__version__}): "
-              f"{w.run(gloo_cuda_job)}", flush=True)
-    t0 = time.perf_counter()
-    plans = chip_smoke.sp_plans()
-    print(f"config sp plans (run-row dry runs): "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    a1, f1, s1 = chip_smoke.sp_phase(torch, dev, chip_smoke.card_line(),
-                                     np, _kernels, F, plans)
-    print(f"sp phase: A1 {a1}, F1 {f1}", flush=True)
-    print(json.dumps({"kernels": [s1]}, default=str), flush=True)
-    if r.returncode != 0:
+    card = chip_smoke.card_line()
+    rc = 0
+    if tests_and_smoke:
+        r = subprocess.run(
+            [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+             "-q", "tests/test_torch_cuda.py", "-k",
+             "sp_doc or sp_kernel or streamed", "-p", "no:cacheprovider"],
+            capture_output=True, text=True)
+        print(r.stdout[-3000:], r.stderr[-2000:], flush=True)
+        rc = r.returncode
+        with launch.World(2, "gloo", "cuda:0", timeout=120) as w:
+            print(f"gloo on CUDA tensors ({torch.__version__}): "
+                  f"{w.run(gloo_cuda_job)}", flush=True)
+    # The committed build's ptxas report: build it anew if the card tests
+    # (another process) built it already.
+    lib = _kernels._lib_path(_kernels.sources()["sp_replay"])
+    if lib.exists() and "sp_replay" not in _kernels._libs:
+        lib.unlink()
+    report = _kernels.build(["sp_replay"]).get("sp_replay", "")
+    print(f"S1 ptxas (entry, registers, spill stores, spill loads, stack "
+          f"frame): {ptxas_table(report, 'sp_replay', stack=True)}",
+          flush=True)
+    runs = []
+    order = ["parent", "this", "this", "parent"] if parent else ["this"]
+    for who in order:
+        t0 = time.perf_counter()
+        r = (parent_sp_times(parent, reps, sp4) if who == "parent"
+             else sp_times(torch, dev, reps, sp4))
+        runs.append((who, r))
+        print(f"{sp_times_line(who, r)} ({time.perf_counter() - t0:.1f} s; "
+              f"{card})", flush=True)
+    mine = [r for who, r in runs if who == "this"][-1]
+    w = mine["whole"]
+    print(f"S1 threads a block: {w['threads']}", flush=True)
+    print(f"S1 stats over the whole trace (outputs as the main build's: "
+          f"{w['stats_digest_same']}): {w['stats_line']}", flush=True)
+    digests = {(r["whole"]["digest"], r["prefix"]["digest"])
+               for _, r in runs}
+    same = len(digests) == 1 and w["stats_digest_same"]
+    print(f"S1 outputs equal across the runs, builds and checkouts: {same}",
+          flush=True)
+    print(json.dumps({"sp_times": runs}, default=str), flush=True)
+    if tests_and_smoke:
+        t0 = time.perf_counter()
+        plans = chip_smoke.sp_plans()
+        print(f"config sp plans (run-row dry runs): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        a1, f1, s1 = chip_smoke.sp_phase(torch, dev, card, np, _kernels, F,
+                                         plans)
+        print(f"sp phase: A1 {a1}, F1 {f1}", flush=True)
+        print(json.dumps({"kernels": [s1]}, default=str), flush=True)
+    if rc != 0 or not same:
         raise SystemExit(1)
 
 

@@ -330,8 +330,8 @@
    engine's, ``expand()`` against the order column A1 gives for the same
    compile (counted: A1 must launch). After each replay, every chunk again
    through S1, and through its plain version from the same input state
-   (CUDA events around each; of the whole trace, the last chunk only, the
-   deepest state): every output equal, the whole ``[R]`` planes (rows
+   (CUDA events around each; of the whole trace, the first and the last
+   chunk, the shallowest and the deepest state): every output equal, the whole ``[R]`` planes (rows
    past ``rows``), ``rows``, the tables, both logs and the error bits.
    Then a world of four ranks (one a card over NCCL where
    there are four cards, else four processes sharing the card over gloo,
@@ -3691,8 +3691,9 @@ def check_flat_wide(pending):
 # -- config sp: the long-context layer (parallel/, ops/stream_scan) -------
 
 SP_PREFIX = 20_000         # the sp = 4 run's trace prefix (911 steps)
-SP_PLAIN_CHUNKS = 1        # the whole trace's last chunks also run on the
-#                            plain version
+SP_PLAIN_CHUNKS = (0, -1)  # the whole trace's chunks that also run on the
+#                            plain version: the shallowest and the deepest
+#                            state
 SP_RANKS = 4               # ranks of the sp = 4 run, the sharded apply and
 #                            the dry run
 SHARDED = dict(patches=2000, batch=8, capacity=4096)  # F1 under the mesh
@@ -3764,9 +3765,9 @@ def sp_chunks_job(ctx, plain_chunks=None):
     times; the group's worst difference over the nine outputs, the whole
     ``[R]`` planes included; S1's launches on this rank; the error bits;
     the rows before and after over all shards; the step phases with work).
-    ``plain_chunks``: only that many last chunks, the deepest states, go
-    through the plain version too (all by default); the others record
-    ``plain`` False."""
+    ``plain_chunks``: only these chunks (indices, negative from the end;
+    an int n: the last n) go through the plain version too (all by
+    default); the others record ``plain`` False."""
     import numpy as np
     import torch
 
@@ -3791,8 +3792,13 @@ def sp_chunks_job(ctx, plain_chunks=None):
         return a.elapsed_time(b), res
 
     out = []
-    first_plain = (0 if plain_chunks is None
-                   else len(st["parts"]) - plain_chunks)
+    n_parts = len(st["parts"])
+    if plain_chunks is None:
+        held = set(range(n_parts))
+    elif isinstance(plain_chunks, int):
+        held = set(range(n_parts - plain_chunks, n_parts))
+    else:
+        held = {i % n_parts for i in plain_chunks}
     for part in st["parts"]:
         cols = [np.asarray(getattr(part, f), dtype=np.uint32).view(np.int32)
                 for f in OP_FIELDS]
@@ -3806,7 +3812,7 @@ def sp_chunks_job(ctx, plain_chunks=None):
         _kernels.reset_launches()
         s1_ms, kern = timed(lambda: rep(*state, *cols))
         launches = _kernels.launches.get("sp_replay", 0)
-        checked = len(out) >= first_plain
+        checked = len(out) in held
         plain_ms, plain = (timed(lambda: rep.plain(*state, cols)) if checked
                            else (0.0, kern))
         worst = 0
@@ -4164,7 +4170,7 @@ def sp_phase(torch, dev, card, np, _kernels, F, plans):
 
 def sp_line(rec, chunks_full, chunks_pre1, chunks_pre4):
     """S1's entry of the kernels line: the main path's launches (the whole
-    trace at sp = 1), the whole trace's chunks re-run on S1 and its first
+    trace at sp = 1), the whole trace's chunks re-run on S1 and its
     ``SP_PLAIN_CHUNKS`` on the plain version (CUDA events), the bound, and
     the prefix at sp = 1 and sp = 4."""
     whole = rec["whole trace, sp=1"]
@@ -4204,9 +4210,10 @@ def sp_line(rec, chunks_full, chunks_pre1, chunks_pre4):
                    "summed)",
         "main_path_wall_s": whole["wall_s"],
         "plain_ms": sum(c["plain_ms"] for c in chunks_full),
-        "plain_what": f"the whole trace's last "
-                      f"{sum(c['plain'] for c in chunks_full)} of "
-                      f"{len(chunks_full)} chunks on the plain version",
+        "plain_what": f"the whole trace's chunks "
+                      f"{[i for i, c in enumerate(chunks_full) if c['plain']]}"
+                      f" of {len(chunks_full)} (the first and the last) on "
+                      f"the plain version",
         "bound_ms": max(bb, bo),
         "bound_by": "bytes" if bb >= bo else "operations",
         "bound_bytes_ms": bb,

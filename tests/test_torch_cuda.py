@@ -1321,6 +1321,146 @@ SP_CASES = {
     "stale-rows": lambda: (256, 64, _sp_cols(_sp_local(
         randedit.random_patches(random.Random(4), 60)[0]), 30),
         (200, [5, -9, 77], [3, 1, 2]), False, 0),
+    # S1's tile index (32-row tiles): E crossing 32 and 1,024 rows with R
+    # not a multiple of 32; E past 16,384 rows (512 tiles, more than one
+    # block scan of the index at 512 threads); shifts at q = 0 and at E =
+    # R into the capacity error; a delete spanning many tiles; the full
+    # pass (a live row of negative length, a live total past 2^31 with
+    # every tile sane or not); a duplicated order on the remote path.
+    "extent-marks": lambda: (1150, 64, _sp_blocks(_sp_edits(
+        np.random.default_rng(11), 90, *_SP_DOCS["extent-marks"][2:]), 30),
+        None, False, 0),
+    "beyond-16k": lambda: (17000, 64, _sp_blocks(_sp_edits(
+        np.random.default_rng(12), 48, *_SP_DOCS["beyond-16k"][2:],
+        tail=0.5), 24), None, False, 0),
+    "shift-edges": lambda: (45, 64, [_sp_op_cols(
+        [(0, 0, 0, 0, 0, 0, 0, 1, k) for k in range(45)])], None, False, 1),
+    # The stale live row at R - 1 is pushed off by the first shift: the
+    # last delete, one past the 80 characters left, must flag.
+    "shift-edges-stale": lambda: (70, 64, [_sp_op_cols(
+        [(0, 0 if k % 3 else k, 0, 0, 0, 0, 0, 2, 2 * k) for k in range(40)]
+        + [(0, 0, 81, 0, 0, 0, 0, 0, 0)])], (69, [7], [2]), False, 2),
+    "delete-many-tiles": lambda: (700, 64, [_sp_delete_many(), _sp_op_cols(
+        [(0, 10, 500, 0, 0, 0, 0, 0, 0)])], None, False, 2),
+    # Error bits None: not asserted (they are compared as an output).
+    "negative-live": lambda: (200, 64, [_sp_edits(
+        np.random.default_rng(13), 60, *_SP_DOCS["negative-live"][2:])],
+        None, False, None),
+    "wrapping-total": lambda: (200, 64, [_sp_edits(
+        np.random.default_rng(14), 60, *_SP_DOCS["wrapping-total"][2:])],
+        None, False, None),
+    "wrapping-total-sane": lambda: (200, 64, [_sp_edits(
+        np.random.default_rng(15), 60,
+        *_SP_DOCS["wrapping-total-sane"][2:])], None, False, None),
+    "remote-full-pass": lambda: (64, 64, [_sp_op_cols(
+        [(1, 0, 0, 0, 2, 3, 1, 2, 50), (1, 0, 0, 0, 41, ROOT_U32, 2, 1, 52),
+         (2, 0, 2, 20, 0, 0, 0, 0, 0), (1, 0, 0, 0, 0, 1, 3, 2, 53)])],
+        None, False, None),
+    "duplicated-order": lambda: (64, 64, [_sp_op_cols(
+        [(1, 0, 0, 0, 2, 3, 1, 2, 40), (2, 0, 2, 1, 0, 0, 0, 0, 0),
+         (1, 0, 0, 0, 41, ROOT_U32, 2, 1, 42),
+         (1, 0, 0, 0, 0, 1, 3, 1, 43)])], None, False, 0),
+}
+
+ROOT_U32 = 0xFFFFFFFF
+
+
+def _sp_op_cols(rows):
+    """Op columns ``[9, S]`` (int32 bits) from (kind, pos, del_len,
+    del_target, origin_left, origin_right, rank, ins_len,
+    ins_order_start) rows."""
+    a = np.asarray(rows, np.int64) & 0xFFFFFFFF
+    return np.ascontiguousarray(a.astype(np.uint32).view(np.int32).T)
+
+
+def _sp_blocks(cols, step):
+    return [np.ascontiguousarray(cols[:, i:i + step])
+            for i in range(0, cols.shape[1], step)]
+
+
+def _sp_edits(rng, steps, total, order, tail=0.0):
+    """Local edits on a document of ``total`` live characters, orders from
+    ``order``: deletes, inserts and both in one step at random positions
+    (``tail``: that share of them in the document's last 64
+    characters)."""
+    rows = []
+    for _ in range(steps):
+        lo = max(0, total - 64) if rng.random() < tail else 0
+        d = (int(rng.integers(1, min(6, total) + 1))
+             if total > 0 and rng.random() < 0.5 else 0)
+        il = int(rng.integers(1, 4)) if d == 0 or rng.random() < 0.3 else 0
+        p = int(rng.integers(min(lo, total - d), total - d + 1))
+        rows.append((0, p, d, 0, 0, 0, 0, il, order))
+        total += il - d
+        order += il
+    return _sp_op_cols(rows)
+
+
+def _sp_doc(lens, dead=()):
+    """Runs of consecutive orders with these lengths (the rows ``dead``
+    deleted): (ordp, lenp, live total, next order)."""
+    lens = np.asarray(lens, np.int64)
+    start = np.concatenate(([0], np.cumsum(np.maximum(lens, 1))[:-1]))
+    sign = np.ones(len(lens), np.int64)
+    sign[list(dead)] = -1
+    live = _wrapped(int(np.where(sign > 0, lens, 0).sum()))
+    return ((sign * (start + 1)).astype(np.int32), lens.astype(np.int32),
+            max(live, 0), int(np.maximum(lens, 1).sum()))
+
+
+def _sp_doc_negative():
+    lens = np.random.default_rng(21).integers(1, 5, 120)
+    lens[17], lens[70] = -3, -40
+    return _sp_doc(lens, dead=(5, 40))
+
+
+def _wrapped(n):
+    """n as the int32 a wrapping sum leaves."""
+    return (n + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _sp_delete_many():
+    """Deletes spanning many tiles (and inserts in what they leave) on
+    ``_SP_DOCS["delete-many-tiles"]``."""
+    total, order = _SP_DOCS["delete-many-tiles"][2:]
+    return _sp_op_cols([
+        (0, 5, total - 300, 0, 0, 0, 0, 0, 0),
+        (0, 3, 0, 0, 0, 0, 0, 2, order), (0, 0, 40, 0, 0, 0, 0, 0, 0),
+        (0, 1, 100, 0, 0, 0, 0, 3, order + 2), (0, 2, 3, 0, 0, 0, 0, 0, 0),
+        (0, 0, 162, 0, 0, 0, 0, 0, 0)])
+
+
+#: name -> (ordp, lenp, live total, next order) of a document loaded
+#: before the streams (``SpDoc.load``: spread evenly over the shards).
+_SP_DOCS = {
+    "extent-marks": _sp_doc(np.random.default_rng(31).integers(1, 4, 1000)),
+    "beyond-16k": _sp_doc(np.random.default_rng(32).integers(1, 4, 16_600)),
+    "delete-many-tiles": _sp_doc(
+        np.random.default_rng(33).integers(1, 5, 600), dead=(7, 100, 101)),
+    "negative-live": _sp_doc_negative(),
+    # Live totals past 2^32, so that the wrapped total the plain version
+    # sees is small: its row-level counts then cross 2^31 and back.
+    "wrapping-total": _sp_doc([3, 1 << 30, 2, 1 << 30, 5, 1 << 30, 4,
+                               1 << 30] + [2] * 40),
+    "wrapping-total-sane": _sp_doc([(1 << 25) + 3] * 130 + [3] * 20),
+    # A deleted run of negative length: every raw count takes the full
+    # pass.
+    "remote-full-pass": (np.asarray([1, 21, -31, 41], np.int32),
+                         np.asarray([5, 2, -3, 4], np.int32), 11, 50),
+    "duplicated-order": (np.asarray([1, 21, 1, 30], np.int32),
+                         np.asarray([5, 2, 5, 3], np.int32), 15, 40),
+}
+
+#: name -> by-order tables (oll, orl, rkl) loaded with the document.
+_SP_TABLES = {
+    "remote-full-pass": (
+        np.asarray([ROOT_U32, 0, 1, 2, 3] + [ROOT_U32] * 45,
+                   np.uint32).view(np.int32),
+        np.full(50, -1, np.int32), np.zeros(50, np.int32)),
+    "duplicated-order": (
+        np.asarray([ROOT_U32, 0, 1, 2, 3] + [ROOT_U32] * 35,
+                   np.uint32).view(np.int32),
+        np.full(40, -1, np.int32), np.zeros(40, np.int32)),
 }
 
 
@@ -1339,7 +1479,9 @@ def sp_worlds():
 
 @pytest.mark.parametrize("name, nsp", [(n, k) for n in sorted(SP_CASES)
                                        for k in (1, 2)
-                                       if not (n == "stale-rows" and k > 1)])
+                                       if not (n.endswith("stale")
+                                               or n == "stale-rows")
+                                       or k == 1])
 def test_sp_kernel_matches_plain(sp_worlds, name, nsp):
     """S1 (one launch a block at sp = 1, one a segment at sp = 2) leaves
     every output as the plain version does from the same state, bit for
@@ -1348,15 +1490,62 @@ def test_sp_kernel_matches_plain(sp_worlds, name, nsp):
     import torch_world_jobs as jobs
 
     R, OTS, streams, stale, reshard, last_err = SP_CASES[name]()
-    got = sp_worlds[nsp].run(jobs.sp_kernel_job, nsp, R, OTS, None,
-                             streams, stale, reshard)
+    runs = _SP_DOCS[name][:2] if name in _SP_DOCS else None
+    got = sp_worlds[nsp].run(jobs.sp_kernel_job, nsp, R, OTS, runs,
+                             streams, stale, reshard,
+                             tables=_SP_TABLES.get(name))
     for err, rows, bad, launches in got:
         assert bad == [], (name, nsp, bad)
         assert launches == 1 if nsp == 1 else launches > 1
     if last_err:
         assert got[-1][0] & last_err, got[-1]
-    else:
+    elif last_err == 0:
         assert got[-1][0] == 0 and len(got) == len(streams)
+
+
+#: The cases whose states send S1 to its full pass: a live row of negative
+#: length, a live total past 2^31 (tiles sane or not), a deleted row of
+#: negative length on the remote path.
+_SP_FULL_PASS = ("negative-live", "wrapping-total", "wrapping-total-sane",
+                 "remote-full-pass")
+
+
+@pytest.mark.parametrize("name", ["local", "beyond-16k", "storm-deletes",
+                                  "duplicated-order", *_SP_FULL_PASS])
+def test_sp_kernel_stats_build_matches_main(card, name):
+    """S1's counting build (``stats=``) leaves every output as the main
+    build does, block after block at sp = 1, and its counters say which
+    path ran: full passes exactly on the states that need them, the
+    extent, the shifts."""
+    from text_crdt_rust_tpu_torch.parallel import sp_kernel as SK
+    from text_crdt_rust_tpu_torch.parallel.sp_apply import TAB_UNKNOWN
+
+    R, OTS, streams, stale, _, _ = SP_CASES[name]()
+    st = [torch.zeros(R, dtype=torch.int32, device=card) for _ in range(2)]
+    st += [torch.zeros(1, dtype=torch.int32, device=card)]
+    st += [torch.full((OTS,), TAB_UNKNOWN, dtype=torch.int32, device=card)
+           for _ in range(2)]
+    st += [torch.zeros(OTS, dtype=torch.int32, device=card)]
+    if name in _SP_DOCS:
+        o, ln = _SP_DOCS[name][:2]
+        st[0][:len(o)] = torch.as_tensor(o, device=card)
+        st[1][:len(o)] = torch.as_tensor(ln, device=card)
+        st[2][0] = len(o)
+    for k, t in enumerate(_SP_TABLES.get(name, ())):
+        st[3 + k][:len(t)] = torch.as_tensor(t, device=card)
+    stats = torch.zeros(SK.SP_STATS, dtype=torch.int64, device=card)
+    for cols in streams:
+        main = SK.sp_replay_cuda(*st, cols)
+        counted = SK.sp_replay_cuda(*st, cols, stats=stats)
+        torch.cuda.synchronize()
+        for m, k in zip(main, counted):
+            assert torch.equal(m, k)
+        st = [t.clone() for t in main[:6]]
+    d = dict(zip(SK.SP_STAT_NAMES, stats.tolist()))
+    assert (d["fallbacks"] > 0) == (name in _SP_FULL_PASS), d
+    assert d["segments"] > 0 and d["moves"] > 0 and d["cy_all"] > 0, d
+    rows = int(st[2][0])
+    assert min(R, rows + 2) <= d["extent"] <= R, (d["extent"], rows)
 
 
 def test_streamed_runs_on_the_card_match_cpu(card):

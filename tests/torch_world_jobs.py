@@ -202,7 +202,7 @@ SP_OUTPUTS = ("ordp", "lenp", "rows", "oll", "orl", "rkl", "ols", "ors",
 
 
 def sp_kernel_job(ctx, nsp, shard_rows, order_rows, runs, streams,
-                  stale=None, reshard=False):
+                  stale=None, reshard=False, tables=None):
     """S1 against the plain version on one ``SpDoc``'s state over an
     ``sp = nsp`` mesh on the card: for each op-column block of
     ``streams`` (int32 ``[9, S]``), ``SpReplay`` (S1: one launch at sp = 1,
@@ -210,8 +210,9 @@ def sp_kernel_job(ctx, nsp, shard_rows, order_rows, runs, streams,
     the plain result is committed when clean (``reshard``: then an even
     reload, so later streams cross shards). ``runs`` loads a document
     first; ``stale`` = (row, ordp, lenp) writes nonzero rows past
-    ``rows``. Returns per stream (error bits, rows a shard, outputs that
-    differ on any rank, S1's launches on this rank)."""
+    ``rows``; ``tables`` = (oll, orl, rkl) loads by-order tables. Returns
+    per stream (error bits, rows a shard, outputs that differ on any rank,
+    S1's launches on this rank)."""
     import torch
 
     from text_crdt_rust_tpu_torch.ops import _kernels
@@ -222,6 +223,8 @@ def sp_kernel_job(ctx, nsp, shard_rows, order_rows, runs, streams,
     doc = SpDoc(mesh, shard_rows, order_rows)
     if runs is not None:
         doc.load(*runs)
+    if tables is not None:
+        doc.load_tables(*tables)
     if stale is not None:
         at, o, ln = stale
         doc.ordp[at:at + len(o)] = torch.as_tensor(o, dtype=torch.int32)

@@ -20,7 +20,16 @@ small state struct (``ST_*``, int32 words on the card). Two launches:
   the integrate loop, as the plain version does.
 
 Both check the geometry before any build and refuse CPU tensors: the plain
-version (``SpReplay.plain``) is the CPU's.
+version (``SpReplay.plain``) is the CPU's. Each launch gets a scratch tile
+index of the rows (``index_words``: four words a 32-row tile, allocated
+from ``R``), which S1 rebuilds at the start of every launch, and copies of
+the planes padded to whole 4-row quads; ``stats`` takes the counting build
+(``SP_STAT_NAMES``, ``describe_stats``).
+
+``tile_index``, ``index_rank`` and ``index_delete`` are a plain model of
+how S1 answers the plain version's row-level counts and clips through that
+index (the exact fast path, else the full pass): the tests hold them equal
+to ``sp_apply._Shard`` after every step.
 """
 from __future__ import annotations
 
@@ -59,7 +68,52 @@ MAX_ITEMS = 4             # segments one launch of KernelSegments runs
 
 _KERNEL = "sp_replay"
 _LAUNCH = "sp_replay_launch"
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+# 11 state, op and log tensors, the index scratch, stats; R, OTS, S, nsp,
+# sidx, n_items and four (code, step) pairs; the stream.
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+
+TILE = 32                 # rows a tile of S1's index
+SANE_LEN = 1 << 26        # a sane tile's lengths lie in [0, SANE_LEN)
+INT_MAX = (1 << 31) - 1
+
+#: Counters of S1's ``stats`` build (int64; ``sp_replay.cu``'s ``X_*``):
+#: segments run, full passes taken (a count or clip the index cannot
+#: answer exactly), index locates, shifts and the rows they moved, index
+#: builds, the extent E at the end of the last launch; then ``clock64``
+#: cycles in the index build and extent scan, totals, locates, delete
+#: covers/flips, shifts, the YATA search, the table upkeep, the rest, and
+#: in all. Counts and cycles add up over launches.
+SP_STAT_NAMES = ("segments", "fallbacks", "locates", "moves", "moved_rows",
+                 "index_builds", "extent", "cy_index", "cy_totals",
+                 "cy_locate", "cy_delete", "cy_shift", "cy_yata",
+                 "cy_tables", "cy_other", "cy_all")
+SP_STATS = len(SP_STAT_NAMES)
+
+
+def index_words(R: int) -> int:
+    """int32 words of S1's tile index for ``R`` rows: four arrays (live
+    sums, raw sums, counts of rows not sane, scan scratch) of one word for
+    each of ceil(R / 32) tiles, rounded up to whole int4s; 16 B a tile (at most
+    512 MiB at the 2^30 rows ``check_geometry`` takes)."""
+    return 4 * ((-(-R // TILE) + 3) // 4 * 4)
+
+
+def describe_stats(stats, steps: int) -> str:
+    """S1's ``stats`` (``[SP_STATS]``) as a line of text: counts, cycles a
+    step and the phases' cycle shares."""
+    v = [int(x) for x in torch.as_tensor(stats).reshape(-1).tolist()]
+    d = dict(zip(SP_STAT_NAMES, v))
+    tot = max(d["cy_all"], 1)
+    phases = ("index", "totals", "locate", "delete", "shift", "yata",
+              "tables", "other")
+    shares = ", ".join(f"{p} {d['cy_' + p] / tot:.4f}" for p in phases)
+    per_shift = d["moved_rows"] / max(d["moves"], 1)
+    return (f"{d['segments']} segments, {d['fallbacks']} full passes, "
+            f"{d['locates']} locates, {d['moves']} shifts moving "
+            f"{d['moved_rows']} rows ({per_shift:.1f} a shift), "
+            f"{d['index_builds']} index builds, extent "
+            f"{d['extent']}; {tot / max(steps, 1):.0f} cycles a step over "
+            f"{steps} steps; cycle shares: {shares}")
 
 
 def check_geometry(R: int, OTS: int, S: int) -> None:
@@ -89,11 +143,21 @@ def _require_cuda(tensors) -> torch.device:
     return dev
 
 
+def _quads(plane: torch.Tensor) -> torch.Tensor:
+    """A copy of the ``[R]`` plane whose storage runs on to whole 4-row
+    quads (zeros), for S1's int4 moves; the ``[R]`` view is returned."""
+    R = plane.shape[0]
+    buf = torch.zeros(-(-R // 4) * 4, dtype=plane.dtype, device=plane.device)
+    buf[:R] = plane
+    return buf[:R]
+
+
 class _Launch:
     """One stream's buffers on the card: copies of the state (the inputs
     are not written), the op columns, the logs and the state struct."""
 
-    def __init__(self, ordp, lenp, rows, oll, orl, rkl, cols, nsp, sidx):
+    def __init__(self, ordp, lenp, rows, oll, orl, rkl, cols, nsp, sidx,
+                 stats=None):
         R, OTS = ordp.shape[0], oll.shape[0]
         cols = np.ascontiguousarray(np.asarray(cols, np.int32))
         if cols.ndim != 2 or cols.shape[0] != 9:
@@ -107,12 +171,21 @@ class _Launch:
                              "oll/orl/rkl [OTS]")
         dev = _require_cuda((ordp, lenp, rows, oll, orl, rkl))
         self.R, self.OTS, self.S, self.nsp, self.sidx = R, OTS, S, nsp, sidx
-        self.planes = [t.clone() for t in (ordp, lenp, oll, orl, rkl)]
+        self.planes = [_quads(ordp), _quads(lenp)] + [
+            t.clone() for t in (oll, orl, rkl)]
         self.rows_in = rows
         self.cols = torch.from_numpy(cols).to(dev)
         self.ols = torch.zeros(S, dtype=I32, device=dev)
         self.ors = torch.zeros(S, dtype=I32, device=dev)
         self.st = torch.zeros(ST_WORDS, dtype=I32, device=dev)
+        # S1 writes every entry it reads: the index is rebuilt each launch.
+        self.index = torch.empty(index_words(R), dtype=I32, device=dev)
+        if stats is not None and not (
+                stats.device == dev and stats.dtype == torch.int64
+                and stats.is_contiguous() and stats.shape == (SP_STATS,)):
+            raise ValueError(f"stats must be a contiguous int64 "
+                             f"[{SP_STATS}] on the card")
+        self.stats = stats
 
     def launch(self, recv: torch.Tensor, items) -> None:
         """One launch on PyTorch's current stream: the whole stream
@@ -127,9 +200,10 @@ class _Launch:
         stream = torch.cuda.current_stream(self.st.device).cuda_stream
         ptrs = [t.data_ptr() for t in (*self.planes, self.rows_in,
                                        self.cols, self.ols, self.ors,
-                                       self.st, recv)]
-        code = fn(*ptrs, self.R, self.OTS, self.S, self.nsp, self.sidx, n,
-                  *flat, stream)
+                                       self.st, recv, self.index)]
+        code = fn(*ptrs, None if self.stats is None
+                  else self.stats.data_ptr(), self.R, self.OTS, self.S,
+                  self.nsp, self.sidx, n, *flat, stream)
         _kernels.check(_KERNEL, code)
         _kernels.count_launch(_KERNEL)
 
@@ -139,13 +213,15 @@ class _Launch:
         return ordp, lenp, rows, oll, orl, rkl, self.ols, self.ors, err
 
 
-def sp_replay_cuda(ordp, lenp, rows, oll, orl, rkl, cols):
+def sp_replay_cuda(ordp, lenp, rows, oll, orl, rkl, cols, *, stats=None):
     """A whole op stream at sp = 1 in one launch of S1: the function of
     ``SpReplay.plain`` on a one-rank mesh, on CUDA tensors (``cols``:
     host int32 ``[9, S]``, ``sp_apply.OP_FIELDS`` order). Returns
     (ordp, lenp, rows, oll, orl, rkl, ols, ors, err), err being this
-    rank's error bits (the caller ORs them over the group)."""
-    run = _Launch(ordp, lenp, rows, oll, orl, rkl, cols, 1, 0)
+    rank's error bits (the caller ORs them over the group). ``stats``, an
+    int64 ``[SP_STATS]`` tensor on the card, takes the counting build and
+    receives its counters (added to what it holds)."""
+    run = _Launch(ordp, lenp, rows, oll, orl, rkl, cols, 1, 0, stats)
     run.launch(run.st, None)
     return run.outputs(run.st[ST_ERR].clone())
 
@@ -156,10 +232,11 @@ class KernelSegments:
     segment; a collective or the loop's flag launches the queue, one
     launch for the work between two collectives."""
 
-    def __init__(self, mesh, ordp, lenp, rows, oll, orl, rkl, cols):
+    def __init__(self, mesh, ordp, lenp, rows, oll, orl, rkl, cols, *,
+                 stats=None):
         self.mesh = mesh
         self.k = _Launch(ordp, lenp, rows, oll, orl, rkl, cols, mesh.sp,
-                         mesh.index("sp"))
+                         mesh.index("sp"), stats)
         self.recv = self.k.st
         self.items = []
         self.last = SEG_INIT
@@ -194,5 +271,147 @@ class KernelSegments:
         return self.k.outputs(err)
 
 
-__all__ = ["KernelSegments", "SEND_WIDTH", "check_geometry",
-           "sp_replay_cuda"]
+# -- a plain model of S1's index rules (the tests hold it to _Shard) -------
+
+
+def _i32(x) -> int:
+    """x wrapped to int32."""
+    return int((int(x) + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def tile_index(ordp, lenp, E: int):
+    """S1's tile index of rows [0, E) of int32 planes: for each 32-row
+    tile the wrapping sums of the live and of the raw lengths (uint32),
+    and the sane bit (every length in [0, SANE_LEN))."""
+    R = len(ordp)
+    nt = -(-E // TILE)
+    n = min(nt * TILE, R)
+    o = np.zeros(nt * TILE, np.int64)
+    ln = np.zeros(nt * TILE, np.int64)
+    o[:n] = np.asarray(ordp, np.int64)[:n]
+    ln[:n] = np.asarray(lenp, np.int64)[:n]
+    o, ln = o.reshape(nt, TILE), ln.reshape(nt, TILE)
+    live = np.where(o > 0, ln, 0).sum(1) % (1 << 32)
+    raw = ln.sum(1) % (1 << 32)
+    sane = ((ln >= 0) & (ln < SANE_LEN)).all(1)
+    return live.astype(np.uint64), raw.astype(np.uint64), sane
+
+
+def _lengths(ordp, lenp, live: bool) -> np.ndarray:
+    o, ln = np.asarray(ordp, np.int64), np.asarray(lenp, np.int64)
+    return np.where(o > 0, ln, 0) if live else ln
+
+
+def _excl(sums, v, i: int) -> int:
+    """Row i's exclusive wrapping prefix, as S1 takes it from the index:
+    the tiles before its tile, then its tile's rows before it."""
+    t = i // TILE
+    return _i32(int(sums[:t].sum()) + int(v[t * TILE:i].sum()))
+
+
+def _locate(sums, v, X: int, strict: bool):
+    """The first row whose exact inclusive prefix reaches X (> X when
+    strict, else >= X) through the index: the first tile whose end
+    reaches it, then that tile's rows; None when no row does."""
+    def reach(x):
+        return x > X if strict else x >= X
+    pre = 0
+    for t, s in enumerate(sums.tolist()):
+        if reach(pre + s):
+            acc = pre
+            for j in range(t * TILE, min((t + 1) * TILE, len(v))):
+                acc += int(v[j])
+                if reach(acc):
+                    return j
+        pre += s
+    return None
+
+
+def index_rank(ordp, lenp, rows: int, E: int, X: int, live: bool,
+               strict: bool):
+    """S1's answer to the plain version's ``min(#{j < rows : incl_j < X},
+    R - 1)`` (``<= X`` when strict; incl the inclusive wrapping prefix of
+    the live or raw lengths) and that row's exclusive prefix: a locate
+    through the index where every tile of [0, E) is sane and the total is
+    at most INT_MAX, else the full pass's row-level count. Returns
+    (row, exclusive prefix, fast)."""
+    R = len(ordp)
+    lv, raw, sane = tile_index(ordp, lenp, E)
+    sums = lv if live else raw
+    v = _lengths(ordp, lenp, live)
+    fast = bool(sane.all()) and int(sums.sum()) <= INT_MAX
+    rows_c = min(max(rows, 0), R)
+    if fast:
+        k = _locate(sums, v, X, strict)
+        cnt = min(rows_c, R if k is None else k)
+    else:
+        incl = [_i32(x) for x in np.cumsum(v[:E])]
+        cnt = sum(1 for j, x in enumerate(incl)
+                  if j < rows and (x <= X if strict else x < X))
+    i_r = min(cnt, R - 1)
+    return i_r, _excl(sums, v, i_r), fast
+
+
+def _clip(p: int, pe: int, b: int, lv: int):
+    cs = min(max(_i32(p - b), 0), lv)
+    ce = min(max(_i32(pe - b), 0), lv)
+    return cs, ce
+
+
+def index_delete(ordp, lenp, E: int, carry: int, p: int, d: int):
+    """S1's local delete of the live span [p, p + d) on a shard whose live
+    characters start at ``carry``: the covered count, the rows wholly
+    covered (a bool mask over [0, R)) and the partial rows with their
+    clips ``{row: (cs, ce)}``, as the plain version's row-level clips give
+    them. Where every tile of [0, E) is sane and the carry, the span and
+    the shard's end lie in [0, INT_MAX]: the count is the overlap of two
+    intervals and the rows come from two locates (the first row ending
+    past p, the first reaching p + d), the live rows between them wholly
+    covered; else the full pass clips every row. Returns (covered, full,
+    partial, fast)."""
+    R = len(ordp)
+    lv_t, _, sane = tile_index(ordp, lenp, E)
+    o, ln = np.asarray(ordp, np.int64), np.asarray(lenp, np.int64)
+    v = _lengths(ordp, lenp, True)
+    pe = _i32(p + d)
+    total = int(lv_t.sum())
+    full = np.zeros(R, bool)
+    partial = {}
+    fast = (bool(sane.all()) and carry >= 0 and p >= 0 and d > 0
+            and p + d <= INT_MAX and carry + total <= INT_MAX)
+    if fast:
+        covered = max(0, min(p + d, carry + total) - max(p, carry))
+        ja = _locate(lv_t, v, p - carry, True)
+        ke = _locate(lv_t, v, pe - carry, False)
+        if ja is not None:
+            kx = E if ke is None else ke
+            for j in range(ja + 1, kx):
+                full[j] = o[j] > 0 and ln[j] > 0
+            for j in sorted({ja} | ({ke} if ke is not None else set())):
+                cs, ce = _clip(p, pe, _i32(carry + _excl(lv_t, v, j)),
+                               int(v[j]))
+                cov = ce - cs
+                full[j] = cov > 0 and cov == ln[j]
+                if cov > 0 and not full[j]:
+                    partial[j] = (cs, ce)
+        return covered, full, partial, True
+    covered = 0
+    for j in range(min(E, R)):
+        cs, ce = _clip(p, pe, _i32(carry + _excl(lv_t, v, j)), int(v[j]))
+        cov = _i32(ce - cs)
+        covered = _i32(covered + cov)
+        full[j] = cov > 0 and cov == ln[j]
+        if cov > 0 and not full[j]:
+            partial[j] = (cs, ce)
+    return covered, full, partial, False
+
+
+def extent(ext: int, rows: int, R: int) -> int:
+    """S1's extent: rows [0, E) hold every nonzero row, E = max(ext, rows
+    + 2) within [1, R]."""
+    return max(1, min(R, max(ext, rows + 2)))
+
+
+__all__ = ["KernelSegments", "SEND_WIDTH", "SP_STATS", "SP_STAT_NAMES",
+           "check_geometry", "describe_stats", "extent", "index_delete",
+           "index_rank", "index_words", "sp_replay_cuda", "tile_index"]
